@@ -1,0 +1,909 @@
+"""Vectorized CEP operator with pSPICE load shedding (paper §III).
+
+Port of ``repro.cep.engine`` (the per-event engine).  The operator keeps a
+fixed-capacity dense PM store per pattern on the device and advances
+EVERY active PM against each incoming event in one vectorized step.
+Latency is a deterministic simulated-time model.
+
+Per event step (order matters, mirrors the paper's operator):
+  1. expire PMs whose window closed,
+  2. overload check (Alg. 1) → optional shed (Alg. 2 / PM-BL),
+  3. E-BL input-drop decision (black-box baseline only),
+  4. advance PMs (SEQ table lookup / ANY distinct count), completions,
+  5. spawn PMs (window-open events / slide-window ring),
+  6. gather <q, s, s', t> observations (model-building phase),
+  7. advance simulated time, record latency telemetry.
+
+Where the reference scans events inside one XLA program, the port runs a
+Python loop over events.  The PM store, ring and counters stay on the
+device; the operator's scalar control state (simulated clock, EMA gap,
+E-BL fraction, shed counters, latency ring, PRNG key) is float32 on the
+host, where Algorithm 1 and E-BL decide.  Each event reads the store's
+per-pattern active counts once (one host sync; a fired shed adds a
+second), and every float32 operation rounds as the reference's does —
+``fp.fma32`` wherever XLA fuses a multiply into an add — so the carry and
+every ``StepOut`` equal the reference bit for bit.
+
+Backends: ``"torch"`` (plain PyTorch ops; counterpart of ``xla``) and
+``"cuda"`` (counterpart of ``pallas``: the SEQ advance, the utility
+lookup and the shed histogram go through the hand-written kernels of
+``repro_torch.kernels``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import fp, prng
+from repro_torch.cep import patterns as pat
+from repro_torch.core import overload as ovl
+from repro_torch.core import shedder as shd
+from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels import ops as kops
+
+F32 = fp.F32
+
+SHED_NONE, SHED_PSPICE, SHED_PMBL, SHED_EBL = "none", "pspice", "pmbl", "ebl"
+
+BACKEND_TORCH, BACKEND_CUDA = "torch", "cuda"
+BACKENDS = (BACKEND_TORCH, BACKEND_CUDA)
+
+# Host syncs made by the event loop (device→host reads), for telemetry.
+host_syncs = 0
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine configuration (same fields as the reference's)."""
+    num_patterns: int
+    max_states: int          # M (padded)
+    max_classes: int         # C (padded), classes 0..C
+    max_pms: int = 2048      # N PM slots per pattern
+    max_any_ids: int = 8     # distinctness-set capacity for ANY patterns
+    ring_size: int = 8       # open-window ring for SPAWN_IN_WINDOWS
+    latency_bound: float = 1.0
+    safety_buffer: float = 0.0
+    # Simulated-time cost model (seconds): c_base per event + c_match per
+    # PM (× proc_cost); a shed costs c_shed_base + c_shed_pm · n_pm; an
+    # E-BL-dropped event costs c_ebl.
+    c_base: float = 2e-6
+    c_match: float = 1e-7
+    c_shed_base: float = 5e-6
+    c_shed_pm: float = 2e-9
+    c_ebl: float = 5e-7
+    # backend: "torch" runs plain PyTorch ops; "cuda" routes advance /
+    # utility lookup / shed histogram through the CUDA kernels.
+    # block_events / block_shed size the event-block megakernel path of a
+    # later slice; the per-event engine ignores them.
+    backend: str = BACKEND_TORCH
+    block_events: int = 32
+    block_shed: str = "fused"
+    spawn_alloc: str = "cumsum"         # "cumsum" (O(N)) | "argsort" (legacy)
+    shed_plan: str = "threshold"        # "threshold" (O(N)) | "sort" (legacy)
+    # Static pattern census: skip the op family no pattern needs.
+    kinds: str = "mixed"                # "seq" | "any" | "mixed"
+    spawn_modes: str = "mixed"          # "at_open" | "in_windows" | "mixed"
+    emit_matches: bool = False
+    gather_stats: bool = False
+    shedder: str = SHED_NONE
+    ebl_backlog_gain: float = 0.5
+    ebl_decay: float = 0.997
+    ebl_floor: float = 0.25
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown engine backend {self.backend!r}; expected one "
+                f"of {BACKENDS}")
+        if self.block_events < 1:
+            raise ValueError(
+                f"block_events must be >= 1: {self.block_events}")
+        for name in ("num_patterns", "max_states", "max_classes",
+                     "max_pms", "max_any_ids", "ring_size"):
+            v = getattr(self, name)
+            if v < 1:
+                raise ValueError(
+                    f"{name} must be >= 1 (it sizes a store/table axis): "
+                    f"{v}")
+        if not self.latency_bound > 0:
+            raise ValueError(
+                "latency_bound must be > 0 seconds — the overload "
+                "detector (Alg. 1) compares realized event latency l_e "
+                f"against it: {self.latency_bound}")
+        if self.safety_buffer < 0:
+            raise ValueError(
+                "safety_buffer must be >= 0 seconds (it tightens the "
+                f"latency bound, never loosens it): {self.safety_buffer}")
+        for name in ("c_base", "c_match", "c_shed_base", "c_shed_pm",
+                     "c_ebl"):
+            v = getattr(self, name)
+            if v < 0:
+                raise ValueError(
+                    f"cost constant {name} must be >= 0 seconds (simulated-"
+                    f"time costs are non-negative): {v}")
+        for name in ("ebl_floor", "ebl_decay"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(
+                    f"{name} must be in [0, 1] (it scales/decays the E-BL "
+                    f"drop fraction): {v}")
+        if self.ebl_backlog_gain < 0:
+            raise ValueError(
+                "ebl_backlog_gain must be >= 0 (backlog-proportional term "
+                f"of the E-BL drop controller): {self.ebl_backlog_gain}")
+        if self.shedder not in (SHED_NONE, SHED_PSPICE, SHED_PMBL,
+                                SHED_EBL):
+            raise ValueError(
+                f"unknown shedder {self.shedder!r}; expected one of "
+                f"('{SHED_NONE}', '{SHED_PSPICE}', '{SHED_PMBL}', "
+                f"'{SHED_EBL}')")
+        if self.spawn_alloc not in ("cumsum", "argsort"):
+            raise ValueError(f"unknown spawn_alloc {self.spawn_alloc!r}; "
+                             "expected 'cumsum' or 'argsort'")
+        if self.shed_plan not in ("threshold", "sort"):
+            raise ValueError(f"unknown shed_plan {self.shed_plan!r}; "
+                             "expected 'threshold' or 'sort'")
+        if self.block_shed not in ("fused", "replay"):
+            raise ValueError(f"unknown block_shed {self.block_shed!r}; "
+                             "expected 'fused' or 'replay'")
+        if self.kinds not in ("seq", "any", "mixed"):
+            raise ValueError(f"unknown kinds census {self.kinds!r}; "
+                             "expected 'seq', 'any' or 'mixed'")
+        if self.spawn_modes not in ("at_open", "in_windows", "mixed"):
+            raise ValueError(
+                f"unknown spawn_modes census {self.spawn_modes!r}; "
+                "expected 'at_open', 'in_windows' or 'mixed'")
+
+    @property
+    def flat_pms(self) -> int:
+        return self.num_patterns * self.max_pms
+
+
+class EngineModel(NamedTuple):
+    """Compiled and learned inputs (tensors on one device)."""
+    trans: torch.Tensor          # (P, M, C+1) int32
+    kind: torch.Tensor           # (P,) int32
+    spawn_mode: torch.Tensor     # (P,) int32
+    window_size: torch.Tensor    # (P,) int32
+    slide: torch.Tensor          # (P,) int32
+    final_state: torch.Tensor    # (P,) int32
+    proc_cost: torch.Tensor      # (P,) float32
+    uses_binding: torch.Tensor   # (P,) bool
+    spawn_counts: torch.Tensor   # (P,) bool
+    ut_tables: torch.Tensor      # (P, B, M) float32
+    ut_bins: torch.Tensor        # (P,) int32
+    f_model: ovl.LatencyModel
+    g_model: ovl.LatencyModel
+    ebl_raw_mean: torch.Tensor   # () float32
+
+
+class EventBatch(NamedTuple):
+    """Per-event classified inputs (made by ``data.streams.classify``)."""
+    ev_class: torch.Tensor    # (n, P) int32 — class per pattern (0 = none)
+    ev_bind: torch.Tensor     # (n, P) int32 — binding value (-1 = none)
+    ev_open: torch.Tensor     # (n, P) bool  — window-open flag
+    ev_id: torch.Tensor       # (n,)  int32  — distinctness id (ANY)
+    ev_rand: torch.Tensor     # (n,)  float32 — u(0,1) for E-BL sampling
+    ebl_raw: torch.Tensor     # (n,)  float32 — E-BL raw drop priority
+    arrival: torch.Tensor     # (n,)  float32 — arrival time (seconds)
+
+
+class PMStore(NamedTuple):
+    active: torch.Tensor     # (P, N) bool
+    state: torch.Tensor      # (P, N) int32
+    open_idx: torch.Tensor   # (P, N) int32 — event index at window open
+    bind: torch.Tensor       # (P, N) int32
+    idset: torch.Tensor      # (P, N, A) int32 — matched ids (ANY), -1 empty
+
+
+class Carry(NamedTuple):
+    pms: PMStore
+    ring: torch.Tensor          # (P, K) int32 window-open indices (-1 empty)
+    ring_ptr: torch.Tensor      # (P,) int32
+    sim_time: torch.Tensor      # () float32
+    key: torch.Tensor           # (2,) int32 — threefry key words
+    ebl_frac: torch.Tensor      # () float32
+    ema_gap: torch.Tensor       # () float32
+    prev_arrival: torch.Tensor  # () float32
+    complex_count: torch.Tensor  # (P,) float32
+    pms_created: torch.Tensor   # (P,) float32
+    pms_shed: torch.Tensor      # () float32
+    shed_calls: torch.Tensor    # () float32
+    overflow: torch.Tensor      # () float32
+    ebl_dropped: torch.Tensor   # () float32
+    obs_counts: torch.Tensor    # (P, M, M) float32
+    obs_rewards: torch.Tensor   # (P, M, M) float32
+    lat_samples_n: torch.Tensor  # (S,) float32
+    lat_samples_l: torch.Tensor  # (S,) float32
+    lat_ptr: torch.Tensor       # () int32
+
+
+class StepOut(NamedTuple):
+    """Per-event outputs, stacked over the events of a run."""
+    l_e: torch.Tensor         # (n,) realized event latency (s)
+    n_pm: torch.Tensor        # (n,) active PMs after the step
+    shed: torch.Tensor        # (n,) bool — shed triggered at this event
+    dropped: torch.Tensor     # (n,) bool — event dropped by E-BL
+    match_open: torch.Tensor  # (n, P, N | 0) int32 — open_idx of a match
+    match_bind: torch.Tensor  # (n, P, N | 0) int32 — bind of a match
+
+
+# ---------------------------------------------------------------------------
+# Engine construction
+# ---------------------------------------------------------------------------
+
+def make_model(cp: pat.CompiledPatterns, cfg: EngineConfig,
+               ut_tables: torch.Tensor | None = None,
+               ut_bins: torch.Tensor | None = None,
+               f_model: ovl.LatencyModel | None = None,
+               g_model: ovl.LatencyModel | None = None,
+               ebl_raw_mean: float = 0.5, device=None) -> EngineModel:
+    dev = resolve_device(device)
+    P, M = cp.num_patterns, cp.max_states
+    kind, sm = np.asarray(cp.kind), np.asarray(cp.spawn_mode)
+    if (cfg.kinds == "seq" and (kind != pat.KIND_SEQ).any()) or \
+       (cfg.kinds == "any" and (kind != pat.KIND_ANY).any()):
+        raise ValueError(f"cfg.kinds={cfg.kinds!r} but patterns have "
+                         f"kinds {sorted(set(kind.tolist()))}")
+    if (cfg.spawn_modes == "at_open" and
+            (sm != pat.SPAWN_AT_OPEN).any()) or \
+       (cfg.spawn_modes == "in_windows" and
+            (sm != pat.SPAWN_IN_WINDOWS).any()):
+        raise ValueError(f"cfg.spawn_modes={cfg.spawn_modes!r} but patterns "
+                         f"have spawn modes {sorted(set(sm.tolist()))}")
+    if ut_tables is None:
+        ut_tables = torch.ones((P, 1, M), dtype=torch.float32)
+    if ut_bins is None:
+        ut_bins = torch.ones((P,), dtype=torch.int32)
+    t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)  # noqa: E731
+    return EngineModel(
+        trans=t(cp.trans), kind=t(cp.kind), spawn_mode=t(cp.spawn_mode),
+        window_size=t(cp.window_size), slide=t(cp.slide),
+        final_state=t(cp.final_state), proc_cost=t(cp.proc_cost),
+        uses_binding=t(cp.uses_binding), spawn_counts=t(cp.spawn_counts),
+        ut_tables=ut_tables.to(dev, torch.float32).contiguous(),
+        ut_bins=ut_bins.to(dev, torch.int32).contiguous(),
+        f_model=(f_model if f_model is not None else ovl.latency_model(
+            cfg.c_match, cfg.c_base, ovl.LINEAR, dev)),
+        g_model=(g_model if g_model is not None else ovl.latency_model(
+            cfg.c_shed_pm, cfg.c_shed_base, ovl.LINEAR, dev)),
+        ebl_raw_mean=torch.tensor(ebl_raw_mean, dtype=torch.float32,
+                                  device=dev),
+    )
+
+
+def init_carry(cfg: EngineConfig, seed: int = 0, lat_capacity: int = 4096,
+               device=None) -> Carry:
+    dev = resolve_device(device)
+    P, N, M, A, K = (cfg.num_patterns, cfg.max_pms, cfg.max_states,
+                     cfg.max_any_ids, cfg.ring_size)
+    i32, f32 = torch.int32, torch.float32
+    pms = PMStore(
+        active=torch.zeros((P, N), dtype=torch.bool, device=dev),
+        state=torch.zeros((P, N), dtype=i32, device=dev),
+        open_idx=torch.zeros((P, N), dtype=i32, device=dev),
+        bind=torch.full((P, N), -1, dtype=i32, device=dev),
+        idset=torch.full((P, N, A), -1, dtype=i32, device=dev),
+    )
+    z = lambda: torch.zeros((), dtype=f32, device=dev)  # noqa: E731
+    return Carry(
+        pms=pms, ring=torch.full((P, K), -1, dtype=i32, device=dev),
+        ring_ptr=torch.zeros((P,), dtype=i32, device=dev),
+        sim_time=z(), key=prng.PRNGKey(seed, device=dev), ebl_frac=z(),
+        ema_gap=torch.tensor(1e-3, dtype=f32, device=dev),
+        prev_arrival=z(),
+        complex_count=torch.zeros((P,), dtype=f32, device=dev),
+        pms_created=torch.zeros((P,), dtype=f32, device=dev),
+        pms_shed=z(), shed_calls=z(), overflow=z(), ebl_dropped=z(),
+        obs_counts=torch.zeros((P, M, M), dtype=f32, device=dev),
+        obs_rewards=torch.zeros((P, M, M), dtype=f32, device=dev),
+        lat_samples_n=torch.zeros((lat_capacity,), dtype=f32, device=dev),
+        lat_samples_l=torch.zeros((lat_capacity,), dtype=f32, device=dev),
+        lat_ptr=torch.zeros((), dtype=i32, device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-run constants and the host half of the carry
+# ---------------------------------------------------------------------------
+
+class _Ctx(NamedTuple):
+    """What a run derives once from (cfg, model): index tensors on the
+    device and the model's scalars on the host."""
+    dev: torch.device
+    pidx: torch.Tensor         # (P, 1) int64 pattern index
+    rowbase: torch.Tensor      # (P, 1) int64 pattern row offset p·N
+    cols: torch.Tensor         # (P·N,) int32 slot index per flat slot
+    k_iota: torch.Tensor       # (K,) int64
+    a_iota: torch.Tensor       # (A,) int64
+    ws: torch.Tensor           # (P, 1) int32 window sizes
+    final: torch.Tensor        # (P, 1) int32 final states
+    is_seq: torch.Tensor       # (P, 1) bool
+    at_open: torch.Tensor      # (P,) bool
+    in_win: torch.Tensor       # (P,) bool
+    id_slot: torch.Tensor      # (P, A) bool: slot 0 where spawn counts
+    pattern_id: torch.Tensor   # (P·N,) int64
+    zero_cls: torch.Tensor     # (P,) int32
+    zero_open: torch.Tensor    # (P,) bool
+    neg_one: torch.Tensor      # () int32 -1
+    cp: np.ndarray             # (P,) float32 c_match · proc_cost
+    f: ovl.HostLatencyModel
+    g: ovl.HostLatencyModel
+    ebl_mean_eff: np.float32
+
+
+def _make_ctx(cfg: EngineConfig, model: EngineModel) -> _Ctx:
+    dev = model.trans.device
+    P, N, K, A = cfg.num_patterns, cfg.max_pms, cfg.ring_size, \
+        cfg.max_any_ids
+    pidx = torch.arange(P, device=dev)[:, None]
+    floor = F32(cfg.ebl_floor)
+    return _Ctx(
+        dev=dev, pidx=pidx, rowbase=pidx * N,
+        cols=torch.arange(N, dtype=torch.int32, device=dev).repeat(P),
+        k_iota=torch.arange(K, device=dev),
+        a_iota=torch.arange(A, device=dev),
+        ws=model.window_size[:, None], final=model.final_state[:, None],
+        is_seq=(model.kind == pat.KIND_SEQ)[:, None],
+        at_open=model.spawn_mode == pat.SPAWN_AT_OPEN,
+        in_win=model.spawn_mode == pat.SPAWN_IN_WINDOWS,
+        id_slot=model.spawn_counts[:, None] & (
+            torch.arange(A, device=dev) == 0),
+        pattern_id=torch.arange(P, device=dev).repeat_interleave(N),
+        zero_cls=torch.zeros((P,), dtype=torch.int32, device=dev),
+        zero_open=torch.zeros((P,), dtype=torch.bool, device=dev),
+        neg_one=torch.tensor(-1, dtype=torch.int32, device=dev),
+        cp=(F32(cfg.c_match) * model.proc_cost.cpu().numpy()).astype(
+            np.float32),
+        f=ovl.to_host(model.f_model), g=ovl.to_host(model.g_model),
+        ebl_mean_eff=fp.fma32(F32(1.0 - cfg.ebl_floor),
+                              model.ebl_raw_mean.item(), floor),
+    )
+
+
+@dataclasses.dataclass
+class _Host:
+    """The carry's scalar control state, as float32 host scalars."""
+    sim_time: np.float32
+    key: torch.Tensor           # (2,) int32, on the CPU
+    ebl_frac: np.float32
+    ema_gap: np.float32
+    prev_arrival: np.float32
+    pms_shed: np.float32
+    shed_calls: np.float32
+    ebl_dropped: np.float32
+    lat_n: np.ndarray
+    lat_l: np.ndarray
+    lat_ptr: int
+
+    @staticmethod
+    def of(c: Carry) -> "_Host":
+        s = lambda t: F32(t.item())  # noqa: E731
+        return _Host(sim_time=s(c.sim_time), key=c.key.cpu(),
+                     ebl_frac=s(c.ebl_frac), ema_gap=s(c.ema_gap),
+                     prev_arrival=s(c.prev_arrival), pms_shed=s(c.pms_shed),
+                     shed_calls=s(c.shed_calls),
+                     ebl_dropped=s(c.ebl_dropped),
+                     lat_n=c.lat_samples_n.cpu().numpy().copy(),
+                     lat_l=c.lat_samples_l.cpu().numpy().copy(),
+                     lat_ptr=int(c.lat_ptr.item()))
+
+    def into(self, c: Carry) -> Carry:
+        dev = c.sim_time.device
+        s = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                   device=dev)
+        return c._replace(
+            sim_time=s(self.sim_time), key=self.key.to(dev),
+            ebl_frac=s(self.ebl_frac), ema_gap=s(self.ema_gap),
+            prev_arrival=s(self.prev_arrival), pms_shed=s(self.pms_shed),
+            shed_calls=s(self.shed_calls), ebl_dropped=s(self.ebl_dropped),
+            lat_samples_n=torch.from_numpy(self.lat_n).to(dev),
+            lat_samples_l=torch.from_numpy(self.lat_l).to(dev),
+            lat_ptr=torch.tensor(_wrap32(self.lat_ptr), dtype=torch.int32,
+                                 device=dev))
+
+
+def _wrap32(v: int) -> int:
+    return ((int(v) + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
+def _cost_sum(cp: np.ndarray, n_act: np.ndarray,
+              c_base: np.float32) -> np.float32:
+    """t_proc = c_base + sum_p cp_p·n_p, rounded in the order the
+    reference's XLA CPU reduction uses (found by test for P ≤ 16):
+      * P = 1: one fused multiply-add into c_base;
+      * P = 4, 8 or a multiple of 8: vector lanes (width min(P, 8)), each
+        a fused multiply-add chain over p ≡ lane, then a halving tree;
+      * otherwise: a fused multiply-add chain over p, then + c_base.
+    """
+    P = cp.shape[0]
+    if P == 1:
+        return fp.fma32(cp[0], F32(n_act[0]), c_base)
+    if P in (4, 8) or P % 8 == 0:
+        vf = min(P, 8)
+        lanes = [F32(cp[k] * F32(n_act[k])) for k in range(vf)]
+        for p in range(vf, P):
+            lanes[p % vf] = fp.fma32(cp[p], F32(n_act[p]), lanes[p % vf])
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [F32(lanes[k] + lanes[k + h]) for k in range(h)]
+        return F32(lanes[0] + c_base)
+    acc = F32(cp[0] * F32(n_act[0]))
+    for p in range(1, P):
+        acc = fp.fma32(cp[p], F32(n_act[p]), acc)
+    return F32(acc + c_base)
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """One device→host read on the event loop (counted)."""
+    global host_syncs
+    host_syncs += 1
+    return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# One event step: the device half
+# ---------------------------------------------------------------------------
+
+def _advance(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
+             ev_class: torch.Tensor, ev_bind: torch.Tensor,
+             ev_id: torch.Tensor):
+    """Advance all active PMs against one event.  Returns (pms, old_state,
+    new_state, completed)."""
+    M, C1 = model.trans.shape[1], model.trans.shape[2]
+    final = ctx.final
+    if cfg.kinds != "any" and cfg.backend == BACKEND_CUDA:
+        # One kernel launch for the whole store: gather, binding check,
+        # activity gate and completion flag fused (kernels/nfa_transition).
+        seq_next, k_completed = kops.advance_seq_multi(
+            pms.state, pms.bind, pms.active, model.trans, ev_class,
+            ev_bind, model.final_state, model.uses_binding)
+        if cfg.kinds == "seq":
+            # The kernel already leaves inactive PMs at their state.
+            pms2 = PMStore(active=pms.active & ~k_completed, state=seq_next,
+                           open_idx=pms.open_idx, bind=pms.bind,
+                           idset=pms.idset)
+            return pms2, pms.state, seq_next, k_completed
+    bind_ok = ~model.uses_binding[:, None] | (pms.bind == ev_bind[:, None])
+    c_eff = torch.where(bind_ok, ev_class[:, None], 0)
+    if cfg.kinds != "any" and cfg.backend != BACKEND_CUDA:
+        flat_idx = (ctx.pidx * M + pms.state) * C1 + c_eff
+        seq_next = model.trans.reshape(-1)[flat_idx]
+
+    if cfg.kinds != "seq":
+        in_set = (pms.idset == ev_id).any(dim=-1)
+        any_match = (c_eff == 1) & ~in_set & (pms.state < final)
+        any_next = pms.state + any_match.to(torch.int32)
+        A = cfg.max_any_ids
+        sc = model.spawn_counts.to(torch.int32)[:, None]
+        slot = torch.clamp(pms.state - 1 + sc, 0, A - 1)
+        do_insert = ~ctx.is_seq & pms.active & any_match
+        onehot = (slot[..., None] == ctx.a_iota) & do_insert[..., None]
+        idset = torch.where(onehot, ev_id, pms.idset)
+
+    if cfg.kinds == "seq":
+        new_state = torch.where(pms.active, seq_next, pms.state)
+        idset = pms.idset
+    elif cfg.kinds == "any":
+        new_state = torch.where(pms.active, any_next, pms.state)
+    else:
+        new_state = torch.where(pms.active,
+                                torch.where(ctx.is_seq, seq_next, any_next),
+                                pms.state)
+    completed = pms.active & (new_state == final) & (pms.state != final)
+    pms2 = PMStore(active=pms.active & ~completed, state=new_state,
+                   open_idx=pms.open_idx, bind=pms.bind, idset=idset)
+    return pms2, pms.state, new_state, completed
+
+
+def _scatter_drop(flat: torch.Tensor, idx: torch.Tensor,
+                  values) -> torch.Tensor:
+    """``flat.at[idx].set(values, mode="drop")`` for idx in [0, len]:
+    the out-of-range index ``len`` lands in a scratch row cut off after."""
+    buf = torch.cat([flat, flat[:1]])
+    buf[idx] = values
+    return buf[:-1]
+
+
+def _spawn(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
+           ring: torch.Tensor, i: int, ev_open: torch.Tensor,
+           ev_class: torch.Tensor, ev_bind: torch.Tensor,
+           ev_id: torch.Tensor):
+    """Spawn new PMs.  Returns (pms, spawned (P,) f32, overflow () f32).
+
+    SPAWN_AT_OPEN: the window-open event itself spawns one PM at state 1.
+    SPAWN_IN_WINDOWS: a class-1 event spawns a PM (state 1, bound to its
+    binding value) in every ring window that lacks one.
+    """
+    P, N, K, A = cfg.num_patterns, cfg.max_pms, cfg.ring_size, \
+        cfg.max_any_ids
+    flat_n = cfg.flat_pms
+    if cfg.spawn_modes != "at_open":
+        in_window = (i - ring) < ctx.ws
+        exists = (pms.active[:, None, :] &
+                  (pms.open_idx[:, None, :] == ring[:, :, None]) &
+                  (pms.bind[:, None, :] == ev_bind[:, None, None])
+                  ).any(dim=-1)
+        win_spawn = ((ring >= 0) & in_window & ~exists &
+                     (ev_class == 1)[:, None] & ~ctx.at_open[:, None])
+    open_spawn = (ctx.at_open & ev_open)[:, None] & (ctx.k_iota == 0)
+    if cfg.spawn_modes == "at_open":
+        cand = open_spawn
+        cand_open_idx = torch.full((P, K), i, dtype=torch.int32,
+                                   device=ctx.dev)
+    elif cfg.spawn_modes == "in_windows":
+        cand = win_spawn
+        cand_open_idx = ring
+    else:
+        cand = win_spawn | open_spawn
+        cand_open_idx = torch.where(ctx.at_open[:, None], i, ring)
+
+    # Candidate r takes the (r+1)-th lowest-index inactive slot.
+    free = ~pms.active
+    n_free = free.sum(dim=1)
+    rank = torch.cumsum(cand, dim=1) - 1
+    can_alloc = cand & (rank < n_free[:, None])
+    overflow = (cand & ~can_alloc).sum()
+    pick = torch.clamp(rank, 0, N - 1)
+    if cfg.spawn_alloc == "argsort":
+        free_order = torch.argsort(pms.active.to(torch.uint8), dim=1,
+                                   stable=True)
+        slots = torch.gather(free_order, 1, pick)
+    else:
+        # O(N) free-list compaction: every inactive slot writes its index
+        # at its rank among the free slots.
+        free_rank = torch.cumsum(free, dim=1) - 1
+        tgt = torch.where(free, ctx.rowbase + free_rank, flat_n).reshape(-1)
+        free_slots = _scatter_drop(
+            torch.full((flat_n,), N, dtype=torch.int32, device=ctx.dev),
+            tgt, ctx.cols).reshape(P, N)
+        slots = torch.gather(free_slots, 1, pick).long()
+
+    upd = torch.where(can_alloc, ctx.rowbase + slots, flat_n).reshape(-1)
+    active = _scatter_drop(pms.active.reshape(-1), upd, True)
+    state = _scatter_drop(pms.state.reshape(-1), upd, 1)
+    open_i = _scatter_drop(pms.open_idx.reshape(-1), upd,
+                           cand_open_idx.reshape(-1))
+    bind = _scatter_drop(pms.bind.reshape(-1), upd,
+                         ev_bind[:, None].expand(P, K).reshape(-1))
+    # Fresh idset row: the spawning event's id fills slot 0 where the
+    # spawn consumes the first distinct match (Q4).
+    fresh = torch.where(ctx.id_slot, ev_id, ctx.neg_one)
+    idset = _scatter_drop(pms.idset.reshape(flat_n, A), upd,
+                          fresh[:, None, :].expand(P, K, A).reshape(-1, A))
+    spawned = can_alloc.sum(dim=1).float()
+    pms2 = PMStore(active=active.reshape(P, N), state=state.reshape(P, N),
+                   open_idx=open_i.reshape(P, N), bind=bind.reshape(P, N),
+                   idset=idset.reshape(P, N, A))
+    return pms2, spawned, overflow.float()
+
+
+def _shed_now(cfg: EngineConfig, model: EngineModel, ctx: _Ctx,
+              pms: PMStore, sub: torch.Tensor, i: int,
+              rho: int) -> torch.Tensor:
+    """Run the load shedder (Alg. 2 / PM-BL); returns the new (P, N)
+    active mask.  ``sub`` is the fire's threefry subkey."""
+    P, N = cfg.num_patterns, cfg.max_pms
+    r_w = ctx.ws - (i - pms.open_idx)
+    flat_active = pms.active.reshape(-1)
+    rho_t = torch.tensor(rho, dtype=torch.int32, device=ctx.dev)
+    if cfg.shedder == SHED_PSPICE:
+        if cfg.backend == BACKEND_CUDA:
+            # Kernel path: one utility-lookup launch for the store, then
+            # the threshold plan with the histogram kernel counting.
+            u = kops.pm_utilities_multi(
+                pms.state, r_w, pms.active, model.ut_tables,
+                model.ut_bins).reshape(-1)
+            if cfg.shed_plan == "sort":
+                new_flat = shd.drop_lowest_utility(
+                    flat_active, torch.where(flat_active, u,
+                                             torch.full_like(u, np.inf)),
+                    rho_t)
+            else:
+                new_flat = kops.shed_lowest_threshold(flat_active, u, rho_t)
+        else:
+            new_flat = shd.shed(
+                "pspice", key=sub, active=flat_active, rho=rho_t,
+                stacked_tables=model.ut_tables, bin_sizes=model.ut_bins,
+                pattern_id=ctx.pattern_id, state=pms.state.reshape(-1),
+                r_w=r_w.reshape(-1), plan=cfg.shed_plan)
+    else:  # PM-BL — O(N) select over uniform scores on either backend
+        new_flat = shd.shed("pmbl", key=sub.to(ctx.dev), active=flat_active,
+                            rho=rho_t, plan=cfg.shed_plan)
+    return new_flat.reshape(P, N)
+
+
+# ---------------------------------------------------------------------------
+# The event loop
+# ---------------------------------------------------------------------------
+
+def _scan_events(cfg: EngineConfig, model: EngineModel, events: EventBatch,
+                 carry: Carry, start: int) -> tuple[Carry, StepOut]:
+    """Run events ``start, start+1, ...`` (global, int32-wrapped indices,
+    so chunked runs replay a monolithic run's op sequence)."""
+    ctx = _make_ctx(cfg, model)
+    P, N = cfg.num_patterns, cfg.max_pms
+    n = events.ev_class.shape[0]
+    dev = ctx.dev
+    h = _Host.of(carry)
+    arrival = events.arrival.cpu().numpy()
+    ev_rand = events.ev_rand.cpu().numpy()
+    ebl_raw = events.ebl_raw.cpu().numpy()
+    S = h.lat_n.shape[0]
+    l_e_out = np.zeros(n, np.float32)
+    n_pm_out = np.zeros(n, np.float32)
+    shed_out = np.zeros(n, bool)
+    drop_out = np.zeros(n, bool)
+    width = N if cfg.emit_matches else 0
+    m_open_out = torch.full((n, P, width), -1, dtype=torch.int32,
+                            device=dev)
+    m_bind_out = torch.full((n, P, width), -1, dtype=torch.int32,
+                            device=dev)
+    ev_class_h = events.ev_class.cpu().numpy()
+    ev_open_h = events.ev_open.cpu().numpy()
+    zero_cls_h, zero_open_h = np.zeros(P, np.int32), np.zeros(P, bool)
+    at_open_h = ctx.at_open.cpu().numpy()
+    in_win_h = ctx.in_win.cpu().numpy()
+
+    pms, ring, ring_ptr = carry.pms, carry.ring, carry.ring_ptr
+    complex_count, pms_created = carry.complex_count, carry.pms_created
+    overflow = carry.overflow
+    obs_counts, obs_rewards = carry.obs_counts, carry.obs_rewards
+    lb, sb = cfg.latency_bound, cfg.safety_buffer
+    pm_shedder = cfg.shedder in (SHED_PSPICE, SHED_PMBL)
+    one, c_base = F32(1.0), F32(cfg.c_base)
+
+    for j in range(n):
+        i = _wrap32(start + j)
+        arr = F32(arrival[j])
+        # -- 1. expire closed windows; ring bookkeeping ---------------------
+        expired = pms.active & ((i - pms.open_idx) >= ctx.ws)
+        act0 = pms.active
+        pms = pms._replace(active=pms.active & ~expired)
+        if cfg.spawn_modes != "at_open" and (ev_open_h[j] & in_win_h).any():
+            opens = events.ev_open[j] & ctx.in_win
+            ring = torch.where(
+                opens[:, None] & (ctx.k_iota == ring_ptr[:, None]), i, ring)
+            ring_ptr = torch.where(opens, (ring_ptr + 1) % cfg.ring_size,
+                                   ring_ptr)
+        # The one read of the event: active counts before (= the previous
+        # event's StepOut.n_pm) and after expiry.
+        counts = _read(torch.stack((act0.sum(dim=1), pms.active.sum(dim=1))))
+        if j:
+            n_pm_out[j - 1] = F32(counts[0].sum())
+        n_act = counts[1]
+        n_pm_i = int(n_act.sum())
+
+        # -- 2. queueing latency & overload check (Alg. 1) -------------------
+        h.sim_time = max(h.sim_time, arr)
+        l_q = F32(h.sim_time - arr)
+        did_shed = False
+        if pm_shedder:
+            shed, rho, _ = ovl.detect_overload_host(ctx.f, ctx.g, l_q,
+                                                    n_pm_i, lb, sb)
+            if shed and rho > 0:
+                keys = prng.split(h.key)
+                h.key = keys[0]
+                new_active = _shed_now(cfg, model, ctx, pms, keys[1], i, rho)
+                pms = pms._replace(active=new_active)
+                n_act = _read(new_active.sum(dim=1))
+                dropped = n_pm_i - int(n_act.sum())
+                h.sim_time = F32(h.sim_time + fp.fma32(
+                    cfg.c_shed_pm, F32(n_pm_i), cfg.c_shed_base))
+                h.pms_shed = F32(h.pms_shed + F32(dropped))
+                h.shed_calls = F32(h.shed_calls + one)
+                did_shed = True
+
+        # -- 3. E-BL input drop ----------------------------------------------
+        gap = max(F32(arr - h.prev_arrival), F32(1e-9))
+        h.ema_gap = fp.fma32(0.99, h.ema_gap, F32(F32(0.01) * gap))
+        h.prev_arrival = arr
+        ev_dropped = False
+        if cfg.shedder == SHED_EBL:
+            n_pm_f = F32(n_pm_i)
+            shed, _, _ = ovl.detect_overload_host(ctx.f, ctx.g, l_q, n_pm_i,
+                                                  lb, sb)
+            l_p_est = ovl.predict_latency_host(ctx.f, n_pm_f)
+            d_ff = F32(l_p_est - h.ema_gap) / max(
+                F32(l_p_est - F32(cfg.c_ebl)), F32(1e-9))
+            d_bk = F32(F32(cfg.ebl_backlog_gain) * l_q) / F32(lb)
+            d_need = min(max(F32(d_ff + d_bk), F32(0.0)), one)
+            decayed = F32(h.ebl_frac * F32(cfg.ebl_decay))
+            h.ebl_frac = max(decayed, d_need) if shed else decayed
+            raw_eff = fp.fma32(F32(1.0 - cfg.ebl_floor), ebl_raw[j],
+                               cfg.ebl_floor)
+            p_drop = min(max(F32(F32(raw_eff * h.ebl_frac) /
+                                 max(ctx.ebl_mean_eff, F32(1e-9))),
+                             F32(0.0)), one)
+            ev_dropped = bool(F32(ev_rand[j]) < p_drop)
+            h.ebl_dropped = F32(h.ebl_dropped + F32(ev_dropped))
+            did_shed = shed
+
+        # Host-known no-ops: an event whose class is 0 for every pattern
+        # advances no PM, and one that opens no at-open window and is of
+        # class 1 for no in-window pattern spawns none — skipping those
+        # ops leaves every output bit as it is.
+        cls_h = zero_cls_h if ev_dropped else ev_class_h[j]
+        open_h = zero_open_h if ev_dropped else ev_open_h[j]
+        advances = bool(cls_h.any())
+        spawns = bool((open_h & at_open_h).any() or
+                      ((cls_h == 1) & ~at_open_h).any())
+        if advances or spawns:
+            live_class = ctx.zero_cls if ev_dropped else events.ev_class[j]
+            ev_bind, ev_id = events.ev_bind[j], events.ev_id[j]
+
+        # -- 4. advance + completions ----------------------------------------
+        if advances:
+            pms2, s_old, s_new, completed = _advance(
+                cfg, model, ctx, pms, live_class, ev_bind, ev_id)
+            complex_count = complex_count + completed.sum(dim=1).float()
+            if cfg.emit_matches:
+                torch.where(completed, pms.open_idx, ctx.neg_one,
+                            out=m_open_out[j])
+                torch.where(completed, pms.bind, ctx.neg_one,
+                            out=m_bind_out[j])
+        else:
+            pms2, s_old, s_new = pms, pms.state, pms.state
+
+        # -- 5. spawn --------------------------------------------------------
+        if spawns:
+            live_open = ctx.zero_open if ev_dropped else events.ev_open[j]
+            pms3, spawned, oflow = _spawn(cfg, model, ctx, pms2, ring, i,
+                                          live_open, live_class, ev_bind,
+                                          ev_id)
+            pms_created = pms_created + spawned
+            overflow = overflow + oflow
+        else:
+            pms3 = pms2
+
+        # -- 6. observations (model-building phase only) ---------------------
+        if cfg.gather_stats:
+            M = cfg.max_states
+            w = pms.active.float()
+            t = (cfg.c_match * model.proc_cost)[:, None] * w
+            flat = ((ctx.pidx * M + s_old) * M + s_new).reshape(-1)
+            obs_counts = obs_counts.reshape(-1).index_add(
+                0, flat, w.reshape(-1)).reshape(obs_counts.shape)
+            obs_rewards = obs_rewards.reshape(-1).index_add(
+                0, flat, t.reshape(-1)).reshape(obs_rewards.shape)
+
+        # -- 7. simulated processing time & latency --------------------------
+        t_proc = F32(cfg.c_ebl) if ev_dropped else \
+            _cost_sum(ctx.cp, n_act, c_base)
+        h.sim_time = F32(h.sim_time + t_proc)
+        l_e_out[j] = F32(h.sim_time - arr)
+        ptr = h.lat_ptr % S
+        h.lat_n[ptr] = F32(n_pm_i)
+        h.lat_l[ptr] = t_proc
+        h.lat_ptr = _wrap32(h.lat_ptr + 1)
+        shed_out[j] = did_shed
+        drop_out[j] = ev_dropped
+        pms = pms3
+
+    if n:
+        n_pm_out[n - 1] = F32(_read(pms.active.sum()).item())
+    c = Carry(
+        pms=pms, ring=ring, ring_ptr=ring_ptr, sim_time=carry.sim_time,
+        key=carry.key, ebl_frac=carry.ebl_frac, ema_gap=carry.ema_gap,
+        prev_arrival=carry.prev_arrival, complex_count=complex_count,
+        pms_created=pms_created, pms_shed=carry.pms_shed,
+        shed_calls=carry.shed_calls, overflow=overflow,
+        ebl_dropped=carry.ebl_dropped, obs_counts=obs_counts,
+        obs_rewards=obs_rewards, lat_samples_n=carry.lat_samples_n,
+        lat_samples_l=carry.lat_samples_l, lat_ptr=carry.lat_ptr)
+    outs = StepOut(
+        l_e=torch.from_numpy(l_e_out).to(dev),
+        n_pm=torch.from_numpy(n_pm_out).to(dev),
+        shed=torch.from_numpy(shed_out).to(dev),
+        dropped=torch.from_numpy(drop_out).to(dev),
+        match_open=m_open_out, match_bind=m_bind_out)
+    return h.into(c), outs
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+def _check_inputs(dev, model: EngineModel, events: EventBatch,
+                  carry: Carry) -> None:
+    check_on(dev, trans=model.trans, ut_tables=model.ut_tables,
+             ev_class=events.ev_class, arrival=events.arrival,
+             active=carry.pms.active, sim_time=carry.sim_time)
+
+
+def run_engine(cfg: EngineConfig, model: EngineModel, events: EventBatch,
+               carry: Carry, device=None) -> tuple[Carry, StepOut]:
+    """Run the operator over a whole event stream.  Every input must lie
+    on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    _check_inputs(dev, model, events, carry)
+    return _scan_events(cfg, model, events, carry, 0)
+
+
+def wrap_event_index(start) -> int:
+    """An unbounded event index as an int32-wrapped Python int (the
+    window arithmetic is int32 differences, correct across wraparound as
+    long as windows are << 2^31)."""
+    return _wrap32(int(start))
+
+
+def run_engine_chunk(cfg: EngineConfig, model: EngineModel,
+                     events: EventBatch, carry: Carry, start,
+                     device=None) -> tuple[Carry, StepOut]:
+    """One micro-batch: ``run_engine`` restricted to the events
+    ``[start, start + chunk)`` of a longer stream (global indices)."""
+    dev = resolve_device(device)
+    _check_inputs(dev, model, events, carry)
+    if isinstance(start, torch.Tensor):
+        start = int(start.item())
+    return _scan_events(cfg, model, events, carry, wrap_event_index(start))
+
+
+# ---------------------------------------------------------------------------
+# Results summary
+# ---------------------------------------------------------------------------
+
+def match_sets(outs: StepOut, start: int = 0) -> list[set[tuple]]:
+    """Decode emitted matches into per-pattern sets of match identities
+    ``(open_idx, bind, end_idx)`` (requires ``cfg.emit_matches``)."""
+    m_open = outs.match_open.cpu().numpy()
+    m_bind = outs.match_bind.cpu().numpy()
+    if m_open.ndim != 3 or m_open.shape[-1] == 0:
+        raise ValueError("run had cfg.emit_matches off — no match identity "
+                         "was emitted (match fields are zero-width)")
+    n, P, _ = m_open.shape
+    out: list[set[tuple]] = [set() for _ in range(P)]
+    ev, p, slot = np.nonzero(m_open >= 0)
+    for e, q, s in zip(ev.tolist(), p.tolist(), slot.tolist()):
+        out[q].add((int(m_open[e, q, s]), int(m_bind[e, q, s]),
+                    start + e))
+    return out
+
+
+@dataclasses.dataclass
+class RunResult:
+    complex_count: np.ndarray   # (P,)
+    pms_created: np.ndarray     # (P,)
+    pms_shed: float
+    shed_calls: float
+    overflow: float
+    ebl_dropped: float
+    l_e: np.ndarray             # (n,)
+    n_pm: np.ndarray            # (n,)
+    carry: Carry
+    matches: list | None = None
+
+    @property
+    def match_probability(self) -> np.ndarray:
+        return self.complex_count / np.maximum(self.pms_created, 1.0)
+
+    def false_negatives(self, ground_truth: "RunResult",
+                        weights: np.ndarray | None = None) -> float:
+        """Weighted FN fraction vs a no-shed run on the same stream."""
+        gt = np.maximum(ground_truth.complex_count, 1e-9)
+        fn = np.maximum(gt - self.complex_count, 0.0)
+        w = np.ones_like(gt) if weights is None else np.asarray(weights)
+        return float((w * fn).sum() / (w * gt).sum())
+
+
+def summarize(carry: Carry, outs: StepOut) -> RunResult:
+    emitted = outs.match_open.ndim == 3 and outs.match_open.shape[-1] > 0
+    return RunResult(
+        complex_count=carry.complex_count.cpu().numpy(),
+        pms_created=carry.pms_created.cpu().numpy(),
+        pms_shed=float(carry.pms_shed),
+        shed_calls=float(carry.shed_calls),
+        overflow=float(carry.overflow),
+        ebl_dropped=float(carry.ebl_dropped),
+        l_e=outs.l_e.cpu().numpy(),
+        n_pm=outs.n_pm.cpu().numpy(),
+        carry=carry,
+        matches=match_sets(outs) if emitted else None,
+    )

@@ -1,0 +1,118 @@
+"""The port on the card: each CUDA kernel against its plain PyTorch
+version, and the engine's ``cuda`` backend on the card against its
+``torch`` backend on the CPU — BITWISE.
+
+Every test here is marked ``gpu`` and skips where no CUDA device is
+present.  The module imports only the port (no jax, no reference), so it
+also runs on a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.cep import convert, engine, patterns as pat, runner
+from repro_torch.core import shedder as shd
+from repro_torch.data import streams
+from repro_torch.kernels import nfa_transition as kn
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import shed_select as ks
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [(3, 256, 11, 11, 38), (2, 1000, 5, 7, 9), (1, 37, 4, 3, 3),
+          (8, 53, 11, 2, 3)]
+COST = dict(c_base=3e-4, c_match=6e-5, c_shed_base=1.5e-4, c_shed_pm=5e-7,
+            c_ebl=6e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _inputs(P, N, M, C1, B, dev, seed=0):
+    rng = np.random.default_rng(seed + N)
+    d = dict(
+        state=rng.integers(0, M, (P, N)).astype(np.int32),
+        bind=rng.integers(-1, 3, (P, N)).astype(np.int32),
+        active=rng.random((P, N)) < 0.6,
+        trans=rng.integers(0, M, (P, M, C1)).astype(np.int32),
+        ev_class=rng.integers(0, C1, P).astype(np.int32),
+        ev_bind=rng.integers(-1, 3, P).astype(np.int32),
+        final=np.full(P, M - 1, np.int32),
+        uses=rng.random(P) < 0.5,
+        tables=rng.random((P, B, M)).astype(np.float32),
+        bins=rng.integers(1, 80, P).astype(np.int32),
+        r_w=rng.integers(-50, B * 80 + 50, (P, N)).astype(np.int32),
+        u=np.where(rng.random(P * N) < 0.7, rng.random(P * N),
+                   np.nan).astype(np.float32))
+    return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("P,N,M,C1,B", SHAPES)
+def test_cuda_kernels_equal_plain(cuda, P, N, M, C1, B):
+    t = _inputs(P, N, M, C1, B, cuda)
+    args = (t["state"], t["bind"], t["active"], t["trans"], t["ev_class"],
+            t["ev_bind"], t["final"], t["uses"])
+    before = kops.launch_counts()
+    a, b = kn.nfa_advance(*args), kn.nfa_advance_plain(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    lk = (t["state"], t["r_w"], t["active"], t["tables"], t["bins"])
+    assert torch.equal(ks.utility_lookup(*lk), ks.utility_lookup_plain(*lk))
+    fin = t["u"][~torch.isnan(t["u"])]
+    edges = shd.bucket_edges(fin.min(), fin.max(), 128)
+    assert torch.equal(ks.utility_histogram_edges(t["u"], edges),
+                       ks.utility_histogram_plain(t["u"], edges))
+    after = kops.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_cuda_wrappers_reject_bad_input(cuda):
+    t = _inputs(3, 256, 11, 11, 38, cuda)
+    with pytest.raises(ValueError):
+        kn.nfa_advance(t["state"].long(), t["bind"], t["active"], t["trans"],
+                       t["ev_class"], t["ev_bind"], t["final"], t["uses"])
+    with pytest.raises(ValueError):
+        ks.utility_lookup(t["state"].t(), t["r_w"], t["active"],
+                          t["tables"], t["bins"])
+
+
+@pytest.mark.parametrize("shedder", ["pspice", "pmbl", "ebl"])
+def test_engine_cuda_on_card_equals_torch_on_cpu(cuda, shedder):
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=97, latency_bound=0.005,
+                                shedder=shedder, emit_matches=True,
+                                gather_stats=True, **COST)
+    raw = sc.raw(n=600)
+    rate = 3.0 / (cfg.c_base + cfg.c_match * 30)
+    out = {}
+    for backend, dev in (("cuda", "cuda"), ("torch", "cpu")):
+        c = dataclasses.replace(cfg, backend=backend)
+        ev = streams.classify(specs, raw, rate=rate, seed=1, device=dev)
+        model = engine.make_model(cp, c, device=dev)
+        carry, outs = engine.run_engine(
+            c, model, ev, engine.init_carry(c, seed=1, device=dev),
+            device=dev)
+        out[backend] = convert.tree_to_numpy((carry, outs))
+    (gc, go), (cc, co) = out["cuda"], out["torch"]
+    assert float(cc["shed_calls"]) + float(cc["ebl_dropped"]) > 0
+
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{path}.{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    a = dict(flat({"carry": gc, "outs": go}))
+    b = dict(flat({"carry": cc, "outs": co}))
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    assert not bad, bad

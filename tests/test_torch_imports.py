@@ -1,0 +1,129 @@
+"""Import hygiene and device rules of the port.
+
+* Importing every ``repro_torch`` module leaves no ``jax*`` and no
+  ``repro`` module in ``sys.modules`` (checked in a fresh interpreter),
+  and no port source nor ``chip_smoke.py`` imports jax, triton or the
+  reference package (AST scan).
+* Without CUDA the entry points raise unless ``device="cpu"`` is passed:
+  there is no silent CPU fallback.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "triton", "repro")
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'triton', 'repro'))\n"
+        "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] >= 20 and res["bad"] == [], res
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _stock():
+    from repro_torch.cep import patterns as pat
+    from repro_torch.cep import runner
+    from repro_torch.data import streams
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=16)
+    return sc, specs, cp, cfg
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.cep import engine, runner
+    from repro_torch.data import streams
+    sc, specs, cp, cfg = _stock()
+    raw = sc.raw(n=60)
+    calls = {
+        "classify": lambda: streams.classify(specs, raw, rate=10.0),
+        "make_model": lambda: engine.make_model(cp, cfg),
+        "init_carry": lambda: engine.init_carry(cfg),
+        "run_experiment": lambda: runner.run_experiment(specs, raw,
+                                                        max_pms=16),
+    }
+    ev = streams.classify(specs, raw, rate=10.0, device="cpu")
+    model = engine.make_model(cp, cfg, device="cpu")
+    carry = engine.init_carry(cfg, device="cpu")
+    calls["run_engine"] = lambda: engine.run_engine(cfg, model, ev, carry)
+    calls["build_model"] = lambda: runner.build_model(specs, cfg, ev)
+    calls["run_with_shedder"] = lambda: runner.run_with_shedder(
+        specs, cfg, None, raw, rate=10.0, shedder="none")
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # With device="cpu" the same entry points run.
+    carry2, outs = engine.run_engine(cfg, model, ev, carry, device="cpu")
+    assert outs.l_e.shape == (60,) and outs.l_e.device.type == "cpu"
+
+
+def test_inputs_on_another_device_are_refused():
+    from repro_torch.cep import engine
+    sc, specs, cp, cfg = _stock()
+    model = engine.make_model(cp, cfg, device="cpu")
+    carry = engine.init_carry(cfg, device="cpu")
+    from repro_torch.data import streams
+    ev = streams.classify(specs, sc.raw(n=10), rate=10.0, device="cpu")
+    meta_ev = engine.EventBatch(*(x.to("meta") for x in ev))
+    with pytest.raises(ValueError, match="expected cpu"):
+        engine.run_engine(cfg, model, meta_ev, carry, device="cpu")
+
+
+def test_pattern_parallel_is_a_later_slice():
+    from repro_torch.cep import runner
+    sc, specs, cp, cfg = _stock()
+    with pytest.raises(NotImplementedError, match="dist"):
+        runner.run_experiment(specs, sc.raw(n=60), pattern_parallel=True,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="dist"):
+        runner.run_with_shedder(specs, cfg, None, sc.raw(n=60), rate=1.0,
+                                shedder="none", pattern_parallel=True,
+                                device="cpu")

@@ -7,20 +7,26 @@
 Phases (one line each; any failure raises and exits non-zero):
   card     the GPU's name and power limit, torch/CUDA versions; TF32 off
   build    compiles repro_torch/csrc with nvcc (sm_90a) and loads it
-  kernels  each CUDA kernel against its plain PyTorch version, bitwise,
-           at the stock shapes (P=3, N=256), at N=2048 and at a ragged
-           N=1000, plus an all-inactive and a NaN-laden case; times
-           against the memory bound
+  kernels  each per-event CUDA kernel against its plain PyTorch version,
+           bitwise, at the stock shapes (P=3, N=256), at N=2048 and at a
+           ragged N=1000, plus an all-inactive and a NaN-laden case; the
+           block kernel against its plain version, bitwise, on W=32
+           blocks that fire Algorithm 2 (stock SEQ/at-open at N=256 and
+           N=2048, bus ANY/in-windows, soccer ANY/at-open with E-BL);
+           times against the memory bound
   parity   the engine on stock specs, N=2048, 3000 events, all four
-           shedders with fires: backend "cuda" on the card == backend
-           "torch" on the card == backend "torch" on the CPU, whole carry
-           and every StepOut, bitwise
+           shedders with fires: backends "cuda" and "cuda_block" on the
+           card == backend "torch" on the card == backend "torch" on the
+           CPU, whole carry and every StepOut, bitwise
   main     run_experiment on the stock scenario at its full 30000 events
-           (backend "cuda"), launch counts of every kernel, the headline
-           FN ordering and the committed headline within a tolerance;
-           then soccer and bus at 12000 events
-  profile  torch.profiler over one stock pspice run (backend "cuda"):
-           device busy time by kernel and the device's idle share
+           and on soccer and bus at 12000, first through the per-event
+           kernels (backend "cuda"), then through the block kernel
+           (backend "cuda_block"), with the launch counts of each path's
+           kernels; the headline FN ordering, the committed headline
+           within a tolerance, and FN, fires and compliance equal across
+           the two paths
+  profile  torch.profiler over one stock pspice run per path: device
+           busy time by kernel and the device's idle share
 The last lines are the kernels' JSON record, the nvidia-smi line and the
 contract line.  The script needs CUDA and the repository around it.
 """
@@ -54,7 +60,13 @@ KERNEL_META = {
                        "src/repro/kernels/shed_select.py:38"),
     "utility_histogram": ("src/repro_torch/csrc/shed_select.cu",
                           "src/repro/kernels/shed_select.py:115"),
+    "block_step": ("src/repro_torch/csrc/block_step.cu",
+                   "src/repro/kernels/block_step.py:87"),
 }
+# The engine path whose run counts each kernel's launches.
+KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
+               "utility_histogram": "cuda", "block_step": "cuda_block"}
+W_BLOCK = 32                       # block_events on the block path
 
 
 def log(phase: str, msg: str) -> None:
@@ -139,7 +151,8 @@ def bound_bytes(torch, c, nbins: int) -> dict:
     # binding patterns, the event's binding.
     cls = c["ev_class"][:, None]
     gathers = active & (~uses[:, None] | (c["bind"] == c["ev_bind"][:, None])
-                        ) & (state >= 0) & (state < M) & (cls >= 0) &         (cls < C1)
+                        ) & (state >= 0) & (state < M) & (cls >= 0) & \
+        (cls < C1)
     n_col = int(torch.unique(pidx[gathers] * M + state[gathers]).numel())
     nfa = n_pm * (4 + 1 + 4 + 1) + n_bind * N * 4 + n_col * 4 + \
         P * (4 + 4 + 1) + n_bind * 4
@@ -279,9 +292,178 @@ def phase_kernels(torch, np) -> dict:
                         record[name] = dict(ms=k_ms, plain_ms=p_ms,
                                             bound_ms=bound)
     for name, err in errs.items():
+        if name == "block_step":
+            continue
         record[name]["max_abs_err"] = err
         log("kernels", f"{name}: max |kernel - plain| {err!r} over every "
             "case and N")
+    record["block_step"] = phase_block_kernel(torch, np)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# The block kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def carry_leaves(carry):
+    return list(carry.pms) + [v for k, v in carry._asdict().items()
+                              if k != "pms"]
+
+
+def block_bytes(torch, cfg, model, carry, blk, i0: int) -> int:
+    """Bytes one block step must move on this block: each element it reads
+    counted once, each output once.  What it reads depends on the data, so
+    ``carry`` (a copy; it is advanced) is stepped one event at a time
+    through the plain version and the reads are counted from the store
+    each event meets, not the most the kernel could read:
+    - every slot's active flag; the event rows; the per-pattern model
+      columns, counters and scalars; the ring when patterns spawn in
+      windows;
+    - open_idx of the slots active at the block's start (the first
+      event's expiry test), and state, bind (patterns that bind or spawn
+      in windows) and the idset (ANY patterns) of those still live after
+      that event's expiries.  Every other store value the block reads was
+      written by the block itself.  A PM that a PM-BL fire in the first
+      event drops is counted as read;
+    - each distinct transition-table entry that a live, binding-matched
+      SEQ PM gathers, and each distinct utility-table entry (rows j0 and
+      j1) that a pSPICE fire reads for a live PM;
+    - the observation cells the stats add into.
+    Outputs: the whole store, ring, counters and scalars, the W rows and
+    latency-ring entries, the match tiles and the observation matrices."""
+    from repro_torch.cep import patterns as pat
+    from repro_torch.kernels import block_step as kb
+
+    P, N, M, A, K = (cfg.num_patterns, cfg.max_pms, cfg.max_states,
+                     cfg.max_any_ids, cfg.ring_size)
+    W, C1, B = (cfg.block_events, model.trans.shape[2],
+                model.ut_tables.shape[1])
+    in_win = cfg.spawn_modes != "at_open"
+    pms = carry.pms
+    pidx = torch.arange(P, device=pms.state.device)[:, None]
+    ws = model.window_size[:, None]
+    seq = (model.kind == pat.KIND_SEQ)[:, None]
+    uses = model.uses_binding[:, None]
+    bins = model.ut_bins.float()[:, None]
+    obs0 = carry.obs_counts.clone()
+    rows = kb.new_rows(cfg, W, pms.state.device)
+    gathers, entries = [], []
+    for j in range(W):
+        i = ((i0 + j + 2 ** 31) % 2 ** 32) - 2 ** 31
+        active, state = pms.active.clone(), pms.state.clone()
+        open_idx, bind = pms.open_idx.clone(), pms.bind.clone()
+        live = active & ((i - open_idx) < ws)
+        if j == 0:
+            n_open = int(active.sum())
+            n_state = int(live.sum())
+            n_bind = int((live & (uses | in_win)).sum())
+            n_ids = int((live & ~seq).sum()) if cfg.kinds != "seq" else 0
+        calls = float(carry.shed_calls)
+        kb.block_step_plain(cfg, model, carry, blk, i0, j, j + 1, rows)
+        ec, eb = blk.ev_class[j][:, None], blk.ev_bind[j][:, None]
+        ok = live & (state >= 0) & (state < M)
+        if cfg.kinds != "any" and not bool(rows["dropped"][j]):
+            go = ok & seq & (~uses | (bind == eb)) & (ec >= 0) & (ec < C1)
+            gathers.append(((pidx * M + state) * C1 + ec)[go])
+        if cfg.shedder == "pspice" and float(carry.shed_calls) > calls:
+            pos = ((ws - (i - open_idx)).float() / bins - 1.0).clamp(
+                0.0, float(B - 1))
+            j0 = pos.floor().long()
+            for jj in (j0, (j0 + 1).clamp(max=B - 1)):
+                entries.append(((pidx * B + jj) * M + state)[ok])
+    n_trans = int(torch.cat(gathers).unique().numel()) if gathers else 0
+    n_table = int(torch.cat(entries).unique().numel()) if entries else 0
+    n_obs = int((carry.obs_counts != obs0).sum()) if cfg.gather_stats else 0
+    scalars = 2 * P * 4 + 12 * 4 + 2 * 4     # counters, scalars, key
+    ring = (P * K * 4 + P * 4) if in_win else 0
+    reads = (P * N + n_open * 4 + n_state * 4 + n_bind * 4 + n_ids * A * 4 +
+             ring + n_trans * 4 + n_table * 4 + W * (P * (4 + 4 + 1) + 4 * 4)
+             + P * 22 + scalars + 2 * n_obs * 4)
+    store = P * N * (1 + 4 * 3) + (P * N * A * 4 if cfg.kinds != "seq"
+                                   else 0)
+    writes = store + ring + scalars + W * (4 + 4 + 1 + 1) + W * 2 * 4
+    if cfg.emit_matches:
+        writes += 2 * W * P * N * 4
+    if cfg.gather_stats:
+        writes += 2 * P * M * M * 4
+    return reads + writes
+
+
+def phase_block_kernel(torch, np) -> dict:
+    from repro_torch.cep import block_cases, convert
+    from repro_torch.kernels import block_step as kb
+
+    dev = torch.device("cuda")
+    record, err = {}, 0.0
+    for name, N, shedder in block_cases.CASES:
+        cfg, model, carry, blk, i0 = block_cases.firing_block(
+            name, N, shedder, dev, W=W_BLOCK, **COST)
+        saved = convert.tree_to_numpy(carry)
+        work = {}
+        for label, fn in (("kernel", kb.block_step),
+                          ("plain", kb.block_step_plain)):
+            c = convert.carry_from_numpy(saved, dev)
+            rows = kb.new_rows(cfg, W_BLOCK, dev)
+            c, rows, status = fn(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
+            torch.cuda.synchronize()
+            work[label] = (c, rows, status)
+        (ck, rk, sk), (cp_, rp, sp) = work["kernel"], work["plain"]
+        pairs = list(zip(carry_leaves(ck), carry_leaves(cp_))) + \
+            [(rk[k], rp[k]) for k in rk] + [(sk, sp)]
+        if not all(same(torch, a, b) for a, b in pairs):
+            raise AssertionError(f"block_step != plain on {name} N={N} "
+                                 f"{shedder}")
+        err = max([err] + [max_abs_err(torch, a, b) for a, b in pairs])
+        fires = int(sp[0])
+        if shedder in ("pspice", "pmbl") and fires < 1:
+            raise AssertionError(f"block {name} N={N} {shedder}: no fire")
+        # Times: each launch starts from the same carry, restored by
+        # copies that are timed alone and subtracted.
+        base = convert.carry_from_numpy(saved, dev)
+        c = convert.carry_from_numpy(saved, dev)
+        rows = kb.new_rows(cfg, W_BLOCK, dev)
+
+        def restore():
+            for dst, src in zip(carry_leaves(c), carry_leaves(base)):
+                dst.copy_(src)
+
+        def launch():
+            restore()
+            kb.block_step(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
+
+        def plain():
+            restore()
+            kb.block_step_plain(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
+
+        # The kernel's own time is its device time in the profiler (the
+        # host-clocked restore + launch pairs are host-bound); the plain
+        # version's is host-clocked, less the restore.
+        t_restore = cuda_ms(torch, restore, iters=100)
+        d_us = device_us(torch, launch, "block_step_kernel", iters=20)
+        k_ms = d_us / 1e3 if d_us is not None else \
+            cuda_ms(torch, launch, iters=100) - t_restore
+        p_ms = cuda_ms(torch, plain, iters=3) - t_restore
+        stepped = convert.carry_from_numpy(saved, dev)
+        nbytes = block_bytes(torch, cfg, model, stepped, blk, i0)
+        if not all(same(torch, a, b) for a, b in zip(
+                carry_leaves(stepped), carry_leaves(cp_))):
+            raise AssertionError(f"block {name} N={N} {shedder}: the "
+                                 "event-by-event count left another carry")
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        src = "device time" if d_us is not None else \
+            "host clock, device time not measured"
+        log("kernels", f"block_step {name} P={cfg.num_patterns} N={N} "
+            f"W={W_BLOCK} {shedder} ({cfg.kinds}/{cfg.spawn_modes}, "
+            f"{fires} fires in the block): bitwise ok; kernel "
+            f"{k_ms:.6f} ms per launch ({k_ms / W_BLOCK * 1e3:.3f} us per "
+            f"event; {src}), plain {p_ms:.6f} ms, library none, bound "
+            f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
+        if (name, N, shedder) == block_cases.CASES[0]:
+            record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                          us_per_event=k_ms / W_BLOCK * 1e3)
+    record["max_abs_err"] = err
+    log("kernels", f"block_step: max |kernel - plain| {err!r} over every "
+        "case")
     return record
 
 
@@ -290,6 +472,7 @@ def phase_kernels(torch, np) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_parity(torch, np, runs=(("cuda@gpu", "cuda", "cuda"),
+                                   ("cuda_block@gpu", "cuda_block", "cuda"),
                                    ("torch@gpu", "torch", "cuda"),
                                    ("torch@cpu", "torch", "cpu")),
                  n: int = 3000, N: int = 2048) -> None:
@@ -369,8 +552,10 @@ def _leaves(a, b, path=""):
 # The main path: run_experiment on the card
 # ---------------------------------------------------------------------------
 
-def run_scenario(torch, name: str, n: int, device: str = "cuda"
-                 ) -> tuple[dict, dict, float, int]:
+def run_scenario(torch, name: str, n: int, backend: str,
+                 device: str = "cuda") -> tuple[dict, dict, float, int]:
+    """run_experiment on one scenario through one engine path, with the
+    launch counts and host syncs set to 0 just before and read after."""
     from repro_torch.cep import engine as eng, runner
     from repro_torch.data import streams
     from repro_torch.kernels import ops as kops
@@ -378,22 +563,22 @@ def run_scenario(torch, name: str, n: int, device: str = "cuda"
     sc = streams.get_scenario(name)
     raw = sc.raw(n=n)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
     kops.reset_launch_counts()
     eng.host_syncs = 0
-    sync()
     t0 = time.perf_counter()
     res = runner.run_experiment(
         sc.specs(), raw, shedders=("pspice", "pmbl", "ebl"),
         rate_multiplier=1.2, max_pms=sc.max_pms, bin_size=sc.bin_size,
-        latency_bound=sc.latency_bound, seed=sc.seed, backend="cuda",
-        device=device, **COST)
+        latency_bound=sc.latency_bound, seed=sc.seed, backend=backend,
+        block_events=W_BLOCK, device=device, **COST)
     sync()
     wall = time.perf_counter() - t0
     counts = kops.launch_counts()
     syncs = eng.host_syncs
     n_run = raw.n - int(raw.n * 0.3)
     for sh, er in res.items():
-        log("main", f"{name} n={n} {sh}: fn {er.fn:.6f} fn_match "
+        log("main", f"{name} n={n} {backend} {sh}: fn {er.fn:.6f} fn_match "
             f"{er.fn_match:.6f} lb_compliance {er.lb_compliance:.6f} "
             f"shed_calls {er.result.shed_calls:g} run {er.seconds:.2f} s "
             f"({n_run / er.seconds:.1f} events/s)")
@@ -402,35 +587,69 @@ def run_scenario(torch, name: str, n: int, device: str = "cuda"
             fn["pspice"] <= fn["ebl"] + 1e-9):
         raise AssertionError(f"{name}: headline ordering violated: {fn}")
     events = n_run * 4 + int(raw.n * 0.3)
-    log("main", f"{name}: wall {wall:.2f} s for {events} engine events "
-        f"({events / wall:.1f} events/s); launches {counts}; host syncs "
-        f"{syncs} ({syncs / events:.3f} per event); ordering ok {fn}")
+    built = res["pspice"].built
+    log("main", f"{name} {backend}: wall {wall:.2f} s for {events} engine "
+        f"events ({events / wall:.1f} events/s, {wall / events * 1e6:.2f} "
+        f"us/event); launches {counts}; host syncs {syncs} "
+        f"({syncs / events:.3f} per event); f kind "
+        f"{int(built.f_model.kind)} g kind {int(built.g_model.kind)} "
+        f"(0 = LINEAR); ordering ok {fn}")
     return res, counts, wall, events
 
 
 def phase_main(torch) -> dict:
-    res, counts, _, _ = run_scenario(torch, "stock", 30000)
-    for name, k in counts.items():
-        if k <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    for sh, want in STOCK_HEADLINE.items():
-        got = res[sh].fn_match
-        if abs(got - want) > HEADLINE_TOL:
-            raise AssertionError(f"stock {sh} FN {got:.4f} vs committed "
-                                 f"{want:.4f} beyond {HEADLINE_TOL}")
-    log("main", f"stock FN within {HEADLINE_TOL} of the committed headline "
-        f"{STOCK_HEADLINE}")
-    for name in ("soccer", "bus"):
-        run_scenario(torch, name, 12000)
-    return counts
+    """Both engine paths on every scenario.  Returns each kernel's
+    launches from the run of its own path on the stock scenario."""
+    launches = {}
+    for name, n in (("stock", 30000), ("soccer", 12000), ("bus", 12000)):
+        runs = {}
+        for backend in ("cuda", "cuda_block"):
+            res, counts, wall, events = run_scenario(torch, name, n, backend)
+            runs[backend] = res
+            path = [k for k, b in KERNEL_PATH.items() if b == backend]
+            if name == "stock":      # stock runs every kernel of its path
+                for k in path:
+                    if counts[k] <= 0:
+                        raise AssertionError(f"kernel {k} never launched on "
+                                             f"the {backend} path")
+                launches.update({k: counts[k] for k in path})
+            if backend == "cuda_block":
+                want = sum(-(-e // W_BLOCK) for e in (
+                    int(n * 0.3),) + (n - int(n * 0.3),) * 4)
+                log("main", f"{name} cuda_block: {counts['block_step']} "
+                    f"block launches (ceil(n/W) per run: {want}); "
+                    f"{wall / counts['block_step'] * 1e3:.4f} ms of wall "
+                    "per launch")
+                if counts["block_step"] != want:
+                    raise AssertionError(f"{name}: {counts['block_step']} "
+                                         f"block launches, expected {want}")
+        for sh in runs["cuda"]:
+            a, b = runs["cuda"][sh], runs["cuda_block"][sh]
+            got = (b.fn, b.fn_match, b.result.shed_calls, b.lb_compliance)
+            want = (a.fn, a.fn_match, a.result.shed_calls, a.lb_compliance)
+            if got != want:
+                raise AssertionError(f"{name} {sh}: cuda_block {got} != "
+                                     f"cuda {want}")
+        log("main", f"{name}: cuda_block == cuda in FN, fires and LB "
+            "compliance for every shedder")
+        if name == "stock":
+            for sh, want in STOCK_HEADLINE.items():
+                got = runs["cuda_block"][sh].fn_match
+                if abs(got - want) > HEADLINE_TOL:
+                    raise AssertionError(f"stock {sh} FN {got:.4f} vs "
+                                         f"committed {want:.4f} beyond "
+                                         f"{HEADLINE_TOL}")
+            log("main", f"stock FN within {HEADLINE_TOL} of the committed "
+                f"headline {STOCK_HEADLINE}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
 # Where the time goes: one engine run under torch.profiler
 # ---------------------------------------------------------------------------
 
-def phase_profile(torch, n: int = 6000, device: str = "cuda") -> None:
+def phase_profile(torch, backend: str, n: int = 6000,
+                  device: str = "cuda") -> None:
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -443,7 +662,8 @@ def phase_profile(torch, n: int = 6000, device: str = "cuda") -> None:
     cp = pat.compile_patterns(specs)
     cfg = runner.default_config(cp, max_pms=sc.max_pms,
                                 latency_bound=sc.latency_bound,
-                                emit_matches=True, backend="cuda", **COST)
+                                emit_matches=True, backend=backend,
+                                block_events=W_BLOCK, **COST)
     raw = sc.raw(n=n + 3000)
     cut = lambda a, b: dataclasses.replace(  # noqa: E731
         raw, n=b - a, type_id=raw.type_id[a:b], attr=raw.attr[a:b],
@@ -488,7 +708,8 @@ def phase_profile(torch, n: int = 6000, device: str = "cuda") -> None:
         log("profile", "device time not measured (the profiler saw no CUDA "
             "activity)")
         return
-    log("profile", f"stock pspice N={sc.max_pms} {n} events, backend cuda: "
+    log("profile", f"stock pspice N={sc.max_pms} {n} events, backend "
+        f"{backend}: "
         f"wall {wall:.3f} s unprofiled ({n / wall:.1f} events/s, "
         f"{wall / n * 1e3:.4f} ms/event), fires "
         f"{float(carry.shed_calls):g}; device busy {busy:.4f} s "
@@ -496,6 +717,11 @@ def phase_profile(torch, n: int = 6000, device: str = "cuda") -> None:
     for dev_us, count, key in rows[:8]:
         log("profile", f"  {dev_us / 1e3:.3f} ms device, {count} calls, "
             f"{dev_us / max(count, 1):.3f} us/call: {key[:90]}")
+    for dev_us, count, key in rows:
+        if "block_step_kernel" in key:
+            log("profile", f"block kernel: {dev_us / count:.3f} us per "
+                f"launch, {dev_us / n:.3f} us per event ({count} launches "
+                f"for {n} events); {dev_us / 1e6 / wall:.4%} of wall")
 
 
 def main() -> int:
@@ -539,7 +765,8 @@ def main() -> int:
     for phase, fn in (("kernels", lambda: phase_kernels(torch, np)),
                       ("parity", lambda: phase_parity(torch, np)),
                       ("main", lambda: phase_main(torch)),
-                      ("profile", lambda: phase_profile(torch))):
+                      ("profile", lambda: [phase_profile(torch, b) for b in
+                                           ("cuda", "cuda_block")])):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -561,6 +788,8 @@ def main() -> int:
             launches=r.get("launches", 0), max_abs_err=r.get("max_abs_err"),
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by="bytes", library_ms=None))
+        if "us_per_event" in r:
+            kernels[-1]["us_per_event"] = r["us_per_event"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,14 @@ second), and every float32 operation rounds as the reference's does —
 ``fp.fma32`` wherever XLA fuses a multiply into an add — so the carry and
 every ``StepOut`` equal the reference bit for bit.
 
-Backends: ``"torch"`` (plain PyTorch ops; counterpart of ``xla``) and
+Backends: ``"torch"`` (plain PyTorch ops; counterpart of ``xla``),
 ``"cuda"`` (counterpart of ``pallas``: the SEQ advance, the utility
 lookup and the shed histogram go through the hand-written kernels of
-``repro_torch.kernels``).
+``repro_torch.kernels``) and ``"cuda_block"`` (counterpart of
+``pallas_block``: one launch of the event-block megakernel,
+``kernels/block_step.py``, per ``block_events`` events, with the whole
+operator state on the device and no host sync inside a block; on CPU
+tensors it runs the kernel's plain version).
 """
 from __future__ import annotations
 
@@ -42,14 +46,17 @@ from repro_torch.cep import patterns as pat
 from repro_torch.core import overload as ovl
 from repro_torch.core import shedder as shd
 from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels import block_step as kblock
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import tiling as ktile
 
 F32 = fp.F32
 
 SHED_NONE, SHED_PSPICE, SHED_PMBL, SHED_EBL = "none", "pspice", "pmbl", "ebl"
 
 BACKEND_TORCH, BACKEND_CUDA = "torch", "cuda"
-BACKENDS = (BACKEND_TORCH, BACKEND_CUDA)
+BACKEND_CUDA_BLOCK = "cuda_block"
+BACKENDS = (BACKEND_TORCH, BACKEND_CUDA, BACKEND_CUDA_BLOCK)
 
 # Host syncs made by the event loop (device→host reads), for telemetry.
 host_syncs = 0
@@ -79,12 +86,14 @@ class EngineConfig:
     c_shed_pm: float = 2e-9
     c_ebl: float = 5e-7
     # backend: "torch" runs plain PyTorch ops; "cuda" routes advance /
-    # utility lookup / shed histogram through the CUDA kernels.
-    # block_events / block_shed size the event-block megakernel path of a
-    # later slice; the per-event engine ignores them.
+    # utility lookup / shed histogram through the CUDA kernels;
+    # "cuda_block" runs block_events (W) events per launch of the block
+    # megakernel.  block_shed: "fused" handles Algorithm-2 fires inside
+    # the kernel; "replay" stops the kernel at a fire and replays that
+    # event through the per-event step (forced by shed_plan="sort").
     backend: str = BACKEND_TORCH
-    block_events: int = 32
-    block_shed: str = "fused"
+    block_events: int = 32              # W — events fused per block launch
+    block_shed: str = "fused"           # "fused" (in-kernel Alg. 2) | "replay"
     spawn_alloc: str = "cumsum"         # "cumsum" (O(N)) | "argsort" (legacy)
     shed_plan: str = "threshold"        # "threshold" (O(N)) | "sort" (legacy)
     # Static pattern census: skip the op family no pattern needs.
@@ -808,6 +817,98 @@ def _scan_events(cfg: EngineConfig, model: EngineModel, events: EventBatch,
 
 
 # ---------------------------------------------------------------------------
+# Event-block execution (backend="cuda_block")
+# ---------------------------------------------------------------------------
+
+def _pad_event_blocks(events: EventBatch, n: int,
+                      w: int) -> tuple[EventBatch, int]:
+    """Pad the event axis with zeros to a whole number of ``w``-event
+    blocks (the kernel masks the tail); returns (padded events, nb)."""
+    pad = ktile.tile_pad(w, n)
+    nb = max(1, (n + pad) // w)
+    pad = nb * w - n
+
+    def f(x):
+        if not pad:
+            return x.contiguous()
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    return EventBatch(*(f(x) for x in events)), nb
+
+
+def _own(carry: Carry) -> Carry:
+    """A contiguous copy of the carry: the block kernel updates its
+    tensors in place, and the caller's carry stays as it was."""
+    cp = lambda t: t.clone(memory_format=torch.contiguous_format)  # noqa
+    return Carry(pms=PMStore(*(cp(t) for t in carry.pms)),
+                 **{k: cp(v) for k, v in carry._asdict().items()
+                    if k != "pms"})
+
+
+def _run_block(cfg: EngineConfig, model: EngineModel, carry: Carry,
+               blk: EventBatch, i0: int, n_valid: int,
+               rows: dict) -> Carry:
+    """One event block through the block kernel.
+
+    Fused (the default): ONE launch per block for every shedder, with
+    Algorithm-2 fires handled in the kernel and no host sync.  Replay
+    (``block_shed="replay"`` or ``shed_plan="sort"``): the kernel commits
+    events up to the first fire; the fired event is replayed through the
+    per-event step (which re-derives the same decision, splits the key
+    and sheds), and the kernel re-enters at ``fire_idx + 1``.  Each
+    re-entry reads the kernel's status: one host sync per launch."""
+    if cfg.shedder not in (SHED_PSPICE, SHED_PMBL) or kblock.fused_shed(cfg):
+        carry, _, _ = kblock.block_step(cfg, model, carry, blk, i0, 0,
+                                        n_valid, rows)
+        return carry
+    replay_cfg = dataclasses.replace(cfg, backend=BACKEND_CUDA)
+    s = 0
+    while s < n_valid:
+        carry, _, status = kblock.block_step(cfg, model, carry, blk, i0, s,
+                                             n_valid, rows)
+        fired, j = (int(v) for v in _read(status))
+        if not fired:
+            break
+        one = EventBatch(*(x[j:j + 1] for x in blk))
+        carry, row = _scan_events(replay_cfg, model, one, carry,
+                                  _wrap32(i0 + j))
+        carry = _own(carry)
+        for name, v in zip(StepOut._fields, row):
+            rows[name][j] = v[0]
+        s = j + 1
+    return carry
+
+
+def _scan_event_blocks(cfg: EngineConfig, model: EngineModel,
+                       events: EventBatch, carry: Carry,
+                       start: int) -> tuple[Carry, StepOut]:
+    """``_scan_events`` with one kernel launch per ``cfg.block_events``
+    events.  Event indices stay global, so monolithic, chunked and
+    blocked runs replay the same operator sequence."""
+    n = events.ev_class.shape[0]
+    W = cfg.block_events
+    blocks, nb = _pad_event_blocks(events, n, W)
+    carry = _own(carry)
+    rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device)
+    for b in range(nb):
+        off = b * W
+        blk = EventBatch(*(x[off:off + W] for x in blocks))
+        carry = _run_block(cfg, model, carry, blk, _wrap32(start + off),
+                           min(max(n - off, 0), W),
+                           {k: v[off:off + W] for k, v in rows.items()})
+    return carry, StepOut(**{k: v[:n] for k, v in rows.items()})
+
+
+def _scan_events_backend(cfg: EngineConfig, model: EngineModel,
+                         events: EventBatch, carry: Carry,
+                         start: int) -> tuple[Carry, StepOut]:
+    """Backend dispatch of run_engine and run_engine_chunk."""
+    if cfg.backend == BACKEND_CUDA_BLOCK:
+        return _scan_event_blocks(cfg, model, events, carry, start)
+    return _scan_events(cfg, model, events, carry, start)
+
+
+# ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
@@ -824,7 +925,7 @@ def run_engine(cfg: EngineConfig, model: EngineModel, events: EventBatch,
     on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     _check_inputs(dev, model, events, carry)
-    return _scan_events(cfg, model, events, carry, 0)
+    return _scan_events_backend(cfg, model, events, carry, 0)
 
 
 def wrap_event_index(start) -> int:
@@ -843,7 +944,8 @@ def run_engine_chunk(cfg: EngineConfig, model: EngineModel,
     _check_inputs(dev, model, events, carry)
     if isinstance(start, torch.Tensor):
         start = int(start.item())
-    return _scan_events(cfg, model, events, carry, wrap_event_index(start))
+    return _scan_events_backend(cfg, model, events, carry,
+                                wrap_event_index(start))
 
 
 # ---------------------------------------------------------------------------

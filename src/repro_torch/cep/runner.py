@@ -42,8 +42,13 @@ class BuiltModel:
 
 def default_config(cp: pat.CompiledPatterns, **kw) -> eng.EngineConfig:
     """Engine config with the static pattern census filled in.
-    ``backend`` picks plain PyTorch ops ("torch") or the CUDA kernels
-    ("cuda"); unknown names fail here, never as a silent fallback."""
+
+    ``backend`` selects the hot-path implementation: plain PyTorch ops
+    ("torch"), the per-event CUDA kernels ("cuda"), or the event-block
+    megakernel ("cuda_block", with ``block_events=W`` events fused per
+    launch) — all bitwise-equivalent, so experiments may pick purely on
+    speed.  Unknown backends and bad block sizes fail here
+    (``EngineConfig.__post_init__``), never as a silent fallback."""
     kind, sm = np.asarray(cp.kind), np.asarray(cp.spawn_mode)
     base = dict(
         num_patterns=cp.num_patterns,
@@ -156,6 +161,7 @@ class ExperimentResult:
     n_gt_matches: int = 0
     n_found_matches: int = 0
     seconds: float = 0.0      # wall time of this shedder's run
+    built: BuiltModel | None = None    # the model the run used
 
     @property
     def lb_violations(self) -> float:
@@ -182,7 +188,10 @@ def run_experiment(specs: Sequence[pat.PatternSpec], raw: streams.RawStream,
                    emit_matches: bool = True, device=None,
                    **cfg_kw) -> dict[str, ExperimentResult]:
     """The full paper methodology on one stream; per-shedder results with
-    count-based ``fn`` and (``emit_matches``) match-set recall/fn_match."""
+    count-based ``fn`` and (``emit_matches``) match-set recall/fn_match.
+    ``cfg_kw`` reaches ``default_config``: e.g. ``backend="cuda_block"``
+    with ``block_events=32`` runs the warm-up, the ground truth and every
+    shedder run through the block kernel."""
     if pattern_parallel:
         raise NotImplementedError(
             "pattern_parallel=True belongs to the port's later 'dist' "
@@ -230,7 +239,7 @@ def run_shedders(specs, cfg: eng.EngineConfig, built: BuiltModel,
             match_probability=float(
                 gt.complex_count.sum() / max(gt.pms_created.sum(), 1.0)),
             max_rate=built.max_rate, result=res, ground_truth=gt,
-            latency_bound=latency_bound, seconds=seconds)
+            latency_bound=latency_bound, seconds=seconds, built=built)
         if res.matches is not None and gt.matches is not None:
             rep = Q.compare_match_sets(res.matches, gt.matches, weights)
             er.recall = rep.recall

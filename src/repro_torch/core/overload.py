@@ -101,6 +101,11 @@ def invert_latency(model: LatencyModel,
     return torch.where(model.kind == LINEAR, t, _newton(t))
 
 
+# The reference's name for the inverse its block kernel runs; the same
+# function here.
+invert_latency_lazy = invert_latency
+
+
 class OverloadDecision(NamedTuple):
     shed: torch.Tensor   # () bool — does l_e + l_s (+ b_s) exceed LB?
     rho: torch.Tensor    # () int32 — PMs to drop (0 if not shedding)

@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -40,13 +42,8 @@ __global__ void nfa_advance_kernel(
   const int32_t s = state[at];
   const bool live = active[at] != 0;
   const bool bind_ok = !uses_binding[p] || bind[at] == ev_bind[p];
-  const int32_t cls = ev_class[p];
-  int32_t nxt = s;
-  // States and classes are always in range on the engine's path; the
-  // guard only keeps a corrupt store from reading out of bounds.
-  if (live && bind_ok && s >= 0 && s < m && cls >= 0 && cls < c1) {
-    nxt = trans[(static_cast<int64_t>(p) * m + s) * c1 + cls];
-  }
+  const int32_t nxt = repro::nfa_next(trans, p, s, ev_class[p], m, c1,
+                                      live && bind_ok);
   const int32_t fin = final_state[p];
   new_state[at] = nxt;
   completed[at] = (live && nxt == fin && s != fin) ? 1 : 0;

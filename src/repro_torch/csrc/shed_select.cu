@@ -31,6 +31,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,20 +51,8 @@ __global__ void utility_lookup_kernel(
     out[at] = kInactive;
     return;
   }
-  const float bs = __int2float_rn(bins[p]);
-  float pos = __fsub_rn(__fdiv_rn(__int2float_rn(r_w[at]), bs), 1.0f);
-  pos = fminf(fmaxf(pos, 0.0f), __int2float_rn(num_bins - 1));
-  const int j0 = __float2int_rd(pos);
-  const int j1 = min(j0 + 1, num_bins - 1);
-  const float frac = __fsub_rn(pos, __int2float_rn(j0));
-  const int32_t s = state[at];
-  float u0 = 0.0f, u1 = 0.0f;   // an out-of-range state reads zeros,
-  if (s >= 0 && s < m) {        // as the one-hot form does
-    const float* tab = tables + static_cast<int64_t>(p) * num_bins * m;
-    u0 = tab[j0 * m + s];
-    u1 = tab[j1 * m + s];
-  }
-  out[at] = __fmaf_rn(u0, __fsub_rn(1.0f, frac), __fmul_rn(u1, frac));
+  out[at] = repro::utility_at(tables, p, num_bins, m, state[at], r_w[at],
+                              bins[p]);
 }
 
 __global__ void utility_histogram_kernel(const float* __restrict__ u,
@@ -79,16 +69,8 @@ __global__ void utility_histogram_kernel(const float* __restrict__ u,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
-    const float v = u[i];
-    if (!(v >= e[0])) continue;          // below the range, or NaN
-    int lo = 0, hi = nbins;              // largest b with e[b] <= v
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (e[mid] <= v) lo = mid; else hi = mid - 1;
-    }
-    if (lo < nbins && v >= e[lo] && v < e[lo + 1]) {
-      atomicAdd(&counts[lo], 1);
-    }
+    const int b = repro::bucket_of(u[i], e, nbins);
+    if (b >= 0) atomicAdd(&counts[b], 1);
   }
   __syncthreads();
   for (int b = threadIdx.x; b < nbins; b += blockDim.x) {

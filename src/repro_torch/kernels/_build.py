@@ -20,7 +20,8 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("nfa_transition.cu", "shed_select.cu")
+SOURCES = ("nfa_transition.cu", "shed_select.cu", "block_step.cu")
+HEADERS = ("common.cuh",)
 LIB_NAME = "librepro_torch_kernels.so"
 # -fmad=false: no multiply-add is contracted behind the kernels' backs —
 # the one fused multiply-add they need is written out as __fmaf_rn.
@@ -32,6 +33,8 @@ _SIGNATURES = {
     "nfa_advance_launch": [_VP] * 8 + [_I] * 4 + [_VP] * 3,
     "utility_lookup_launch": [_VP] * 5 + [_I] * 4 + [_VP] * 2,
     "utility_histogram_launch": [_VP, _LL, _VP, _I, _VP, _VP],
+    "block_step_launch": [_VP, _VP],
+    "threefry_probe_launch": [_VP, _I, _VP, _VP, _VP],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -53,7 +56,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

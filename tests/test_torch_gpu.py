@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the engine's ``cuda`` backend on the card against its
-``torch`` backend on the CPU — BITWISE.
+version, the block kernel's threefry against ``repro_torch.prng``, and
+the engine's ``cuda`` and ``cuda_block`` backends on the card against
+its ``torch`` backend on the CPU — BITWISE.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is
 present.  The module imports only the port (no jax, no reference), so it
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cep import convert, engine, patterns as pat, runner
+from repro_torch.cep import block_cases, convert, engine, patterns as pat
+from repro_torch.cep import runner
 from repro_torch.core import shedder as shd
+from repro_torch import prng
 from repro_torch.data import streams
+from repro_torch.kernels import block_step as kblock
 from repro_torch.kernels import nfa_transition as kn
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import shed_select as ks
@@ -70,7 +74,8 @@ def test_cuda_kernels_equal_plain(cuda, P, N, M, C1, B):
     assert torch.equal(ks.utility_histogram_edges(t["u"], edges),
                        ks.utility_histogram_plain(t["u"], edges))
     after = kops.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1 for k in
+               ("nfa_advance", "utility_lookup", "utility_histogram"))
 
 
 def test_cuda_wrappers_reject_bad_input(cuda):
@@ -83,8 +88,9 @@ def test_cuda_wrappers_reject_bad_input(cuda):
                           t["tables"], t["bins"])
 
 
+@pytest.mark.parametrize("backend", ["cuda", "cuda_block"])
 @pytest.mark.parametrize("shedder", ["pspice", "pmbl", "ebl"])
-def test_engine_cuda_on_card_equals_torch_on_cpu(cuda, shedder):
+def test_engine_cuda_on_card_equals_torch_on_cpu(cuda, shedder, backend):
     sc = streams.get_scenario("stock")
     specs = sc.specs()
     cp = pat.compile_patterns(specs)
@@ -94,15 +100,15 @@ def test_engine_cuda_on_card_equals_torch_on_cpu(cuda, shedder):
     raw = sc.raw(n=600)
     rate = 3.0 / (cfg.c_base + cfg.c_match * 30)
     out = {}
-    for backend, dev in (("cuda", "cuda"), ("torch", "cpu")):
-        c = dataclasses.replace(cfg, backend=backend)
+    for name, dev in ((backend, "cuda"), ("torch", "cpu")):
+        c = dataclasses.replace(cfg, backend=name)
         ev = streams.classify(specs, raw, rate=rate, seed=1, device=dev)
         model = engine.make_model(cp, c, device=dev)
         carry, outs = engine.run_engine(
             c, model, ev, engine.init_carry(c, seed=1, device=dev),
             device=dev)
-        out[backend] = convert.tree_to_numpy((carry, outs))
-    (gc, go), (cc, co) = out["cuda"], out["torch"]
+        out[name] = convert.tree_to_numpy((carry, outs))
+    (gc, go), (cc, co) = out[backend], out["torch"]
     assert float(cc["shed_calls"]) + float(cc["ebl_dropped"]) > 0
 
     def flat(tree, path=""):
@@ -116,3 +122,65 @@ def test_engine_cuda_on_card_equals_torch_on_cpu(cuda, shedder):
     b = dict(flat({"carry": cc, "outs": co}))
     bad = [k for k in a if not np.array_equal(a[k], b[k])]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# The event-block kernel
+# ---------------------------------------------------------------------------
+
+BLOCK_CASES = block_cases.CASES + (("stock", 97, "none"),)
+
+
+def _block_case(name, N, shedder, dev):
+    return block_cases.firing_block(name, N, shedder, dev, **COST)
+
+
+@pytest.mark.parametrize("name,N,shedder", BLOCK_CASES)
+def test_block_kernel_equals_plain(cuda, name, N, shedder):
+    cfg, model, carry, blk, i0 = _block_case(name, N, shedder, cuda)
+    W = cfg.block_events
+    got = {}
+    for label, fn in (("kernel", kblock.block_step),
+                      ("plain", kblock.block_step_plain)):
+        c = convert.carry_from_numpy(convert.tree_to_numpy(carry), cuda)
+        rows = kblock.new_rows(cfg, W, cuda)
+        before = kblock.block_step.launches
+        c, rows, status = fn(cfg, model, c, blk, i0, 0, W, rows)
+        if label == "kernel":
+            assert kblock.block_step.launches == before + 1
+        torch.cuda.synchronize()
+        got[label] = convert.tree_to_numpy((c, rows, status))
+    if shedder in ("pspice", "pmbl"):
+        assert int(got["plain"][2][0]) > 0, "the block must fire Alg. 2"
+    a = dict(_flat(got["kernel"]))
+    b = dict(_flat(got["plain"]))
+    assert a.keys() == b.keys()
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    assert not bad, bad
+
+
+def test_block_kernel_rejects_bad_input(cuda):
+    cfg, model, carry, blk, i0 = _block_case("stock", 97, "none", cuda)
+    bad = engine.EventBatch(*blk[:-1], blk.arrival.double())
+    with pytest.raises(ValueError, match="arrival"):
+        kblock.block_step(cfg, model, carry, bad, i0, 0, cfg.block_events)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 123456789])
+def test_threefry_on_card_equals_prng(cuda, seed):
+    key = prng.PRNGKey(seed, device=cuda)
+    keys, u = kblock.threefry_probe(key, 5000)
+    want = prng.split(key)
+    assert torch.equal(keys, want)
+    assert torch.equal(u, prng.uniform(want[1], (5000,)))
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{path}[{i}]")
+    else:
+        yield path, np.asarray(tree)

@@ -2,8 +2,9 @@
 
 A package of its own beside ``repro`` (the JAX reference).  It keeps the
 reference's module layout (``cep``, ``core``, ``data``, ``eval``,
-``kernels``) so every module has an obvious counterpart, and never
-imports ``jax`` or ``repro``.
+``kernels``, and for the model zoo's serving path ``configs``,
+``models``, ``serving``, ``launch``) so every module has an obvious
+counterpart, and never imports ``jax`` or ``repro``.
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
 when no card is present; the CPU is used only when a caller passes
@@ -11,8 +12,8 @@ when no card is present; the CPU is used only when a caller passes
 """
 import importlib
 
-__all__ = ["cep", "core", "data", "device", "eval", "fp", "kernels",
-           "prng"]
+__all__ = ["cep", "configs", "core", "data", "device", "eval", "fp",
+           "kernels", "launch", "models", "prng", "serving"]
 
 
 def __getattr__(name: str):

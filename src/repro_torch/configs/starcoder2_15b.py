@@ -1,0 +1,17 @@
+"""starcoder2-15b [dense] — GQA, RoPE [arXiv:2402.19173; hf].
+40L d_model=6144 48H (kv=4) d_ff=24576 vocab=49152."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-15b", family="dense",
+    num_layers=40, d_model=6144, num_heads=48, num_kv_heads=4,
+    head_dim=128, d_ff=24576, vocab_size=49152,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="starcoder2-smoke", family="dense",
+        num_layers=3, d_model=64, num_heads=8, num_kv_heads=2,
+        head_dim=8, d_ff=128, vocab_size=256, dtype="float32",
+    )

@@ -20,21 +20,26 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("nfa_transition.cu", "shed_select.cu", "block_step.cu")
+SOURCES = ("nfa_transition.cu", "shed_select.cu", "block_step.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "librepro_torch_kernels.so"
 # -fmad=false: no multiply-add is contracted behind the kernels' backs —
-# the one fused multiply-add they need is written out as __fmaf_rn.
+# the CEP kernels write the one fused multiply-add they need as __fmaf_rn,
+# and the flash kernel, which has no bitwise bar, writes its products as
+# fmaf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
 _SIGNATURES = {
     "nfa_advance_launch": [_VP] * 8 + [_I] * 4 + [_VP] * 3,
     "utility_lookup_launch": [_VP] * 5 + [_I] * 4 + [_VP] * 2,
     "utility_histogram_launch": [_VP, _LL, _VP, _I, _VP, _VP],
     "block_step_launch": [_VP, _VP],
     "threefry_probe_launch": [_VP, _I, _VP, _VP, _VP],
+    "flash_attention_launch": [_VP] * 4 + [_I] * 10 + [_F, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,174 @@
+"""Online-softmax (flash) attention: the kernel and its plain version.
+
+Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
+``_flash_kernel``) and of the function it implements,
+``repro.models.layers.flash_attention``.  ``flash_attention`` launches
+the hand-written CUDA kernel (``csrc/flash_attention.cu``) for CUDA
+tensors and computes ``flash_attention_plain`` for CPU tensors; nothing
+falls back from one to the other.
+
+The plain version transliterates ``layers.flash_attention``: the same
+``_divisor_chunk`` chunking, the same ``causal_skip`` pair list and the
+same cast of the probabilities to v's type before the PV product.  The
+kernel keeps them in float32 (as the TPU kernel does), so on bf16 inputs
+the two differ by that rounding: they are held to a tolerance, not to
+bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+# The plain version's default chunk sizes (the reference's settings).
+Q_CHUNK = 512
+KV_CHUNK = 1024
+
+
+def _divisor_chunk(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target (e.g. whisper's 1500 frames
+    -> 500 for a 512 target)."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          q_chunk: int = Q_CHUNK,
+                          kv_chunk: int = KV_CHUNK,
+                          causal_skip: bool = True, q_offset: int = 0,
+                          scale: float | None = None) -> torch.Tensor:
+    """Chunked online-softmax attention in plain PyTorch.
+
+    q: (B, Sq, H, Dk); k: (B, Sk, KVH, Dk); v: (B, Sk, KVH, Dv); GQA via
+    KVH | H.  ``causal_skip`` visits only the (q chunk, kv chunk) pairs
+    that meet the causal triangle; ``q_offset`` is the global position of
+    q[0].  Returns (B, Sq, H, Dv) in q's type.
+    """
+    B, Sq, H, Dk = q.shape
+    _, Sk, KVH, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // KVH
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dk)
+    cq = _divisor_chunk(Sq, q_chunk)
+    ck = _divisor_chunk(Sk, kv_chunk)
+    nq, nk = Sq // cq, Sk // ck
+    dev = q.device
+
+    qr = q.reshape(B, nq, cq, H, Dk)
+    kr = k.reshape(B, nk, ck, KVH, Dk)
+    vr = v.reshape(B, nk, ck, KVH, Dv)
+    acc = torch.zeros((B, nq, cq, H, Dv), dtype=torch.float32, device=dev)
+    m = torch.full((B, nq, cq, H), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, nq, cq, H), dtype=torch.float32, device=dev)
+
+    if causal and causal_skip:
+        pairs = [(i, j) for i in range(nq) for j in range(nk)
+                 if (q_offset + (i + 1) * cq - 1) >= j * ck]
+    else:
+        pairs = [(i, j) for i in range(nq) for j in range(nk)]
+    for i, j in pairs:
+        qi = qr[:, i]
+        kj_h = kr[:, j].repeat_interleave(G, dim=2)   # (B, ck, H, Dk)
+        vj_h = vr[:, j].repeat_interleave(G, dim=2)
+        # (B, cq, H, ck); the reference asks for float32 products.
+        s = torch.einsum("bqhd,bkhd->bqhk", qi.float(), kj_h.float()) * scale
+        if causal:
+            qpos = q_offset + i * cq + torch.arange(cq, device=dev)
+            kpos = j * ck + torch.arange(ck, device=dev)
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask[None, :, None, :], s,
+                            torch.full_like(s, float("-inf")))
+        mi, li, ai = m[:, i], l[:, i], acc[:, i]
+        m_new = torch.maximum(mi, s.amax(dim=-1))
+        # guard fully-masked rows
+        m_safe = torch.where(torch.isneginf(m_new),
+                             torch.zeros_like(m_new), m_new)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.where(torch.isneginf(mi), torch.zeros_like(mi),
+                           torch.exp(mi - m_safe))
+        l[:, i] = li * corr + p.sum(dim=-1)
+        acc[:, i] = ai * corr[..., None] + torch.einsum(
+            "bqhk,bkhd->bqhd", p.to(v.dtype).float(), vj_h.float())
+        m[:, i] = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be 4-D "
+                         "(B, S, heads, head_dim)")
+    B, Sq, H, D = q.shape
+    Bk, Sk, KVH, Dk = k.shape
+    Dv = v.shape[-1]
+    if (Bk, Sk, KVH) != tuple(v.shape[:3]) or Bk != B or Dk != D:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {KVH} KV heads")
+    for name, d in (("head_dim", D), ("v head_dim", Dv)):
+        if not (0 < d <= 128 and d % 8 == 0):
+            raise ValueError(f"flash_attention: the kernel takes a {name} "
+                             f"that is a multiple of 8 up to 128, got {d}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         "grid's 65535")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q, k, v must all be float32 or "
+                         f"all bfloat16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             "and 16-byte aligned")
+    if int(q_offset) < 0:
+        raise ValueError("flash_attention: q_offset must be >= 0")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """softmax(q·kᵀ·scale [causal]) · v over GQA heads.
+
+    q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv); returns
+    (B, Sq, H, Dv) in q's type.  On CUDA tensors the kernel runs (D and
+    Dv multiples of 8 up to 128, float32 or bfloat16, contiguous); on CPU
+    tensors the plain version runs with its default chunks.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=int(q_offset), scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, Dv = v.shape
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+        H, KVH, D, Dv, int(bool(causal)), int(q_offset),
+        int(q.dtype == torch.bfloat16), float(scale), stream),
+        "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

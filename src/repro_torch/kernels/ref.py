@@ -1,6 +1,10 @@
-"""Plain PyTorch oracles for every kernel of the slice (port of
-``repro.kernels.ref``, single-pattern signatures as in the reference)."""
+"""Plain PyTorch oracles for every kernel of the port (port of
+``repro.kernels.ref``, single-pattern signatures as in the reference;
+``attention_ref`` is the port of ``repro.models.layers.attention_ref``,
+the flash kernel's oracle)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,3 +40,24 @@ def shed_lowest_ref(active, state, r_w, table, rho, bin_size):
     return _shedder.drop_lowest_utility(
         active, torch.where(active, u, torch.full_like(u, float("inf"))),
         rho)
+
+
+def attention_ref(q, k, v, *, causal=True, q_offset=0, scale=None):
+    """Naive softmax attention in float32 (the flash oracle): q (B, Sq, H,
+    D), k/v (B, Sk, KVH, ·), GQA via KVH | H; returns q's type."""
+    B, Sq, H, Dk = q.shape
+    _, Sk, KVH, _ = k.shape
+    G = H // KVH
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dk)
+    kh = k.repeat_interleave(G, dim=2)
+    vh = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        mask = qpos[:, None] >= torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(mask[None, None], s,
+                        torch.full_like(s, float("-inf")))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh.float())
+    return out.to(q.dtype)

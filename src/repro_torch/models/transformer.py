@@ -1,0 +1,115 @@
+"""The dense decoder-LM of the model zoo (port of
+``repro.models.transformer``): init, embedding, the layer stack's forward
+and the LM head.
+
+Covers the dense families (starcoder2, qwen1.5 with QKV bias, internlm2,
+minitron) and the VLM's LM backbone (internvl2, patch embeddings
+prepended).  Layer parameters stay stacked along a leading L axis and
+the layer loop is ``settings.scan`` (a Python loop); the forward is
+inference only, so the reference's ``remat`` has nothing to do here.
+MoE, MLA, SSM/hybrid and encoder-decoder configs raise
+``NotImplementedError`` naming the ROADMAP item that ports them;
+``chunked_ce_loss`` and ``forward_train`` wait for the training slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import settings as SET
+from repro_torch.models.config import ModelConfig
+
+# What each unported family waits for (ROADMAP queue 1 item 11).
+_LATER = (("moe", "MoE layers"), ("use_mla", "MLA attention"),
+          ("ssm", "SSM and hybrid (mamba2/zamba2) layers"),
+          ("enc_dec", "the encoder-decoder (whisper)"))
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config whose layers the port does not have yet."""
+    for flag, what in _LATER:
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} are not ported yet — ROADMAP queue 1 "
+                f"item 11 ({what}); the port serves the dense configs")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random weights (the reference's distributions and layouts) drawn
+    from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = _dtype(cfg)
+    Ln, d = cfg.num_layers, cfg.d_model
+    embed = torch.randn((cfg.vocab_size, d), generator=gen,
+                        dtype=torch.float32, device=dev)
+    params: dict = {
+        "embed": (embed * (1.0 / math.sqrt(d))).to(dtype),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+    }
+    del embed
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_dense(gen, d, cfg.vocab_size, dtype)
+    layers = {"norm1": torch.ones((Ln, d), dtype=dtype, device=dev),
+              "attn": L.init_attention(gen, cfg, dtype, lead=(Ln,)),
+              "norm2": torch.ones((Ln, d), dtype=dtype, device=dev)}
+    if cfg.d_ff:
+        layers["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, lead=(Ln,))
+    params["layers"] = layers
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill compute)
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor):
+    """One backbone layer (no cache).  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    h = L.attention_block(lp["attn"], h, cfg)
+    x = x + h
+    h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    h = L.mlp_block(lp["mlp"], h) if cfg.d_ff else torch.zeros_like(x)
+    return x + h, aux
+
+
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
+    """Run the stacked layers over x (B, S, d).  Returns (hidden,
+    total_aux_loss)."""
+    check_supported(cfg)
+
+    def body(carry, lp):
+        x, aux = carry
+        x, a = _layer_fwd(cfg, lp, x)
+        return (x, aux + a), None
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    return SET.scan(body, (x, aux0), params["layers"])
+
+
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """tokens (+ stubbed patch embeddings) -> (B, S, d)."""
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.vlm_patches and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
+
+
+def lm_head_logits(cfg: ModelConfig, params: dict,
+                   h: torch.Tensor) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", h, w.to(h.dtype))

@@ -184,3 +184,84 @@ def _flat(tree, path=""):
             yield from _flat(v, f"{path}[{i}]")
     else:
         yield path, np.asarray(tree)
+
+
+# ---------------------------------------------------------------------------
+# The flash kernel and the dense serving path
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, causal, q_offset)
+    (1, 128, 128, 2, 2, 32, True, 0), (2, 256, 256, 4, 2, 64, False, 0),
+    (1, 256, 256, 8, 1, 64, True, 0),          # MQA
+    (2, 128, 256, 4, 4, 128, False, 0),        # Sq != Sk
+    (1, 2047, 2047, 4, 2, 8, True, 0),         # ragged S
+    (2, 48, 48, 4, 2, 16, True, 0),
+    (2, 64, 192, 4, 2, 32, True, 100),         # a fully masked KV tile
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,q_off", FLASH_SHAPES)
+def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, KVH, D, causal,
+                                   q_off, dtype):
+    from repro_torch.kernels import flash_attention as kfa
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
+                                          (B, Sk, KVH, D)))
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_off)
+    assert kfa.flash_attention.launches == before + 1
+    want = kfa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_off)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) <= \
+        FLASH_TOL[dtype]
+
+
+def test_flash_kernel_rejects_bad_input(cuda):
+    from repro_torch.kernels import flash_attention as kfa
+    q = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kfa.flash_attention(q[..., :12].contiguous(), q[..., :12].contiguous(),
+                            q[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="float32 or"):
+        kfa.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen1.5-110b"])
+def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
+    """prefill and decode_step of a smoke config (float32) on the card
+    (the flash kernel in each layer) against the CPU (its plain
+    version)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cfg = registry.get_smoke_config(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33))
+                            .astype(np.int32))
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        before = kfa.flash_attention.launches
+        cache, lg = D.prefill(cfg, p, {"tokens": toks[:, :32].to(dev)}, 40)
+        if dev == "cuda":
+            assert kfa.flash_attention.launches == before + cfg.num_layers
+        lg2, cache = D.decode_step(cfg, p, cache, toks[:, 32].to(dev))
+        out[dev] = [x.cpu() for x in (lg, lg2, cache["k"], cache["v"])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

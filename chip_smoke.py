@@ -35,9 +35,14 @@ Phases (one line each; any failure raises and exits non-zero):
            that the float32 bound must catch; then the port's serve()
            with the reference CLI's defaults under each policy, all at
            the step cost the first run measures
-The kernels phase also holds the flash kernel against its plain version
-(f32 and bf16, GQA/MQA, ragged, a fully masked KV tile) and times it at
-the prefill shape beside scaled_dot_product_attention.
+The build phase reports ptxas's registers and spills of the bf16 flash
+kernel (a spill fails it).  The kernels phase also runs the wgmma probe
+against torch.matmul, holds the flash kernels against their plain version
+(float32 on the SIMT kernel, bf16 on the wgmma/TMA kernel; GQA/MQA,
+ragged, Dv != D, decode-style, a fully masked KV tile; bf16 also row by
+row, scaled to the output, with planted faults that this bar must catch)
+and times the bf16 kernel at the prefill shape in turns with
+scaled_dot_product_attention.
 The last lines are the kernels' JSON record, the nvidia-smi line and the
 contract line.  The script needs CUDA and the repository around it.
 """
@@ -46,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -75,7 +81,7 @@ KERNEL_META = {
                           "src/repro/kernels/shed_select.py:115"),
     "block_step": ("src/repro_torch/csrc/block_step.cu",
                    "src/repro/kernels/block_step.py:87"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:29"),
 }
 # The path whose run counts each kernel's launches: an engine backend of
@@ -751,36 +757,173 @@ def phase_profile(torch, backend: str, n: int = 6000,
 # The flash kernel against its plain version
 # ---------------------------------------------------------------------------
 
-# (label, B, Sq, Sk, H, KVH, D, causal, q_offset): the prefill shape of the
-# model phase (timed in bf16, held in both types), the shapes of tests/test_kernels.py:17-22, ragged S with
-# D in {8, 16, 64}, and a block at q_offset 100 whose rows 0..27 meet a KV
-# tile (keys 128..191) where every key is masked.
-FLASH_PREFILL = ("prefill", 4, 2048, 2048, 16, 8, 128, True, 0)
+# (label, B, Sq, Sk, H, KVH, D, Dv, causal, q_offset): the prefill shape of
+# the model phase (timed in bf16, held in both types), the shapes of
+# tests/test_kernels.py:17-22, ragged S with D in {8, 16, 64, 128} (Sq and
+# Sk not multiples of the bf16 kernel's 128-row tiles), Dv != D, a
+# decode-style block (Sq < Sk at q_offset = Sk - Sq), and a block at
+# q_offset 100 whose rows 0..27 meet a KV tile (keys 128..191) where every
+# key is masked.
+FLASH_PREFILL = ("prefill", 4, 2048, 2048, 16, 8, 128, 128, True, 0)
 FLASH_CASES = (
-    ("kernels_test", 1, 128, 128, 2, 2, 32, True, 0),
-    ("kernels_test", 1, 128, 128, 2, 2, 32, False, 0),
-    ("kernels_test", 2, 256, 256, 4, 2, 64, True, 0),
-    ("mqa", 1, 256, 256, 8, 1, 64, True, 0),
-    ("mqa", 1, 256, 256, 8, 1, 64, False, 0),
-    ("sq_ne_sk", 2, 128, 256, 4, 4, 128, False, 0),
-    ("ragged", 1, 2047, 2047, 4, 2, 8, True, 0),
-    ("ragged", 2, 48, 48, 4, 2, 16, True, 0),
-    ("ragged", 1, 2047, 2047, 2, 1, 64, True, 0),
-    ("masked_tile", 2, 64, 192, 4, 2, 32, True, 100),
+    ("kernels_test", 1, 128, 128, 2, 2, 32, 32, True, 0),
+    ("kernels_test", 1, 128, 128, 2, 2, 32, 32, False, 0),
+    ("kernels_test", 2, 256, 256, 4, 2, 64, 64, True, 0),
+    ("mqa", 1, 256, 256, 8, 1, 64, 64, True, 0),
+    ("mqa", 1, 256, 256, 8, 1, 64, 64, False, 0),
+    ("sq_ne_sk", 2, 128, 256, 4, 4, 128, 128, False, 0),
+    ("ragged", 1, 2047, 2047, 4, 2, 8, 8, True, 0),
+    ("ragged", 2, 48, 48, 4, 2, 16, 16, True, 0),
+    ("ragged", 1, 2047, 2047, 2, 1, 64, 64, True, 0),
+    ("ragged", 2, 300, 300, 4, 2, 128, 128, True, 0),
+    ("ragged", 1, 130, 383, 2, 2, 128, 128, False, 0),
+    ("dv_ne_d", 2, 256, 256, 4, 2, 64, 128, True, 0),
+    ("decode_style", 2, 200, 328, 4, 2, 128, 128, True, 128),
+    ("masked_tile", 2, 64, 192, 4, 2, 32, 32, True, 100),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# The bf16 kernel's second bar, scaled to the output: the largest
+# ‖kernel − plain‖ / ‖plain‖ over the Dv columns of one (b, i, h) row.
+# A causal row that sees i keys of unit-normal K and V has outputs of
+# about sqrt(e / i) (0.05 at i = 1 024), so the absolute 3e-2 alone is
+# about a late row's size.  A sound kernel differs from the plain version
+# by the bf16 rounding of P (taken against another running max) and of
+# the output: ~4e-3 of a row (up to ~7e-3 at D = 8, whose rows have 8
+# columns).  The faults that flash_faults plants, confined to the rows
+# from FLASH_FAULT_ROW0 on, must read above this bar.
+FLASH_ROW_TOL = 2e-2
+FLASH_FAULT_ROW0 = 1024
+# The bf16 kernel is timed in turns with scaled_dot_product_attention in
+# this order, each turn FLASH_WINDOWS windows of FLASH_CALLS calls.
+FLASH_ORDER = ("kernel", "sdpa", "sdpa", "kernel")
+FLASH_WINDOWS, FLASH_CALLS = 5, 20
 
 
-def flash_work(B, Sq, Sk, H, KVH, D, causal, q_offset, esize):
-    """(bytes, operations) the attention needs: Q, K, V read once and O
+def flash_work(B, Sq, Sk, H, KVH, D, Dv, causal, q_offset, esize):
+    """(bytes, operations) the attention needs: Q, K and V read once and O
     written once; 2·(D + Dv) operations per visible (query, key) pair,
     counted from this case's mask."""
     if causal:
         pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq))
     else:
         pairs = Sq * Sk
-    nbytes = (B * Sq * H * D * 2 + B * Sk * KVH * D * 2) * esize
-    return nbytes, B * H * pairs * 2 * (D + D)
+    nbytes = (B * Sq * H * D + B * Sk * KVH * (D + Dv) +
+              B * Sq * H * Dv) * esize
+    return nbytes, B * H * pairs * 2 * (D + Dv)
+
+
+def row_rel_err(torch, got, want) -> float:
+    """The largest ‖got − want‖ / ‖want‖ over the last dim of one row."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def flash_faults(torch, kfa, q, k, v, want) -> None:
+    """Faults planted through the bf16 kernel's inputs at the prefill
+    shape, each held against the plain version on the true inputs over
+    the rows from FLASH_FAULT_ROW0 on, where it must exceed FLASH_ROW_TOL:
+    the softmax temperature 5 % off; the keys of one 128-key tile read
+    from the previous lap of its stage of the 2-stage ring (a stale
+    stage); the causal mask one key late."""
+    import math
+    r0, n = FLASH_FAULT_ROW0, 128
+    stale_k, stale_v = k.clone(), v.clone()
+    stale_k[:, r0:r0 + n] = k[:, r0 - 2 * n:r0 - n]
+    stale_v[:, r0:r0 + n] = v[:, r0 - 2 * n:r0 - n]
+    faults = {
+        "softmax scale x 1.05": lambda: kfa.flash_attention(
+            q, k, v, scale=1.05 / math.sqrt(q.shape[-1])),
+        f"keys {r0}..{r0 + n - 1} read from a stale ring stage": lambda:
+            kfa.flash_attention(q, stale_k, stale_v),
+        "causal mask one key late": lambda: kfa.flash_attention(
+            q, k, v, q_offset=1),
+    }
+    for name, run in faults.items():
+        got = run()
+        torch.cuda.synchronize()
+        row = row_rel_err(torch, got[:, r0:], want[:, r0:])
+        err = max_abs_err(torch, got[:, r0:], want[:, r0:])
+        log("kernels", f"flash_attention planted fault ({name}), rows >= "
+            f"{r0}: row-relative {row:.3e} (bar {FLASH_ROW_TOL}), max "
+            f"|kernel - plain| {err:.3e}")
+        if not row > FLASH_ROW_TOL:
+            raise AssertionError(f"planted fault {name!r} reads {row!r}, "
+                                 f"inside the bar {FLASH_ROW_TOL}")
+
+
+def windows_ms(torch, fns: dict, order, windows: int, calls: int) -> dict:
+    """Per name, the per-call device times (CUDA events) of its windows of
+    ``calls`` back-to-back calls; the names take turns in ``order``, each
+    turn ``windows`` windows, so that both see the same card state."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {name: [] for name in fns}
+    for name in order:
+        for _ in range(windows):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            out[name].append(start.elapsed_time(end) / calls)
+    return out
+
+
+def ptxas_report(log_text: str, kernel: str) -> list:
+    """(mangled name, registers, spill stores, spill loads, static smem
+    bytes) of every entry function whose name contains ``kernel``, read
+    from the nvcc/ptxas log of the build."""
+    import re
+    rows = []
+    for block in log_text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if kernel not in name:
+            continue
+
+        def num(pattern):
+            m = re.search(pattern, block)
+            return int(m.group(1)) if m else 0
+        rows.append((name, num(r"Used (\d+) registers"),
+                     num(r"(\d+) bytes spill stores"),
+                     num(r"(\d+) bytes spill loads"),
+                     num(r"(\d+) bytes smem")))
+    return rows
+
+
+# The probe's bar: C = A·Bᵀ sums 128 products of N(0, 1) bf16 values
+# (|C| up to ~50) and E = bf16(C)·V sums 64 of about 11 (|E| up to
+# ~400), both in float32 in another order than torch.matmul, which moves
+# an entry by ~1e-5 of its size.  A fault of the descriptors, the swizzle
+# or the fragment layout moves entries by their own size.
+PROBE_TOL = 1e-2
+
+
+def phase_probe(torch, np) -> None:
+    """The bf16 flash kernel's building blocks (TMA with the 128-byte
+    swizzle, wgmma from shared memory and from registers, the transposed
+    V operand) against torch.matmul of the same tiles."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    rng = np.random.default_rng(14)
+    a, b, v = (torch.from_numpy(rng.standard_normal((64, 128)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(3))
+    c, e = kfa.wgmma_probe(a, b, v)
+    want_c = torch.matmul(a.float(), b.float().t())
+    want_e = torch.matmul(c.to(torch.bfloat16).float(), v.float())
+    torch.cuda.synchronize()
+    err_c = max_abs_err(torch, c, want_c)
+    err_e = max_abs_err(torch, e, want_e)
+    log("kernels", f"wgmma probe: C = A·Bᵀ (8 x m64n64k16, K-major "
+        f"operands) max |probe - matmul| {err_c:.3e} of max |C| "
+        f"{float(want_c.abs().max()):.3e}; E = bf16(C)·V (4 x m64n128k16, "
+        f"A from registers, V transposed) {err_e:.3e} of max |E| "
+        f"{float(want_e.abs().max()):.3e} (tol {PROBE_TOL})")
+    if not (err_c <= PROBE_TOL and err_e <= PROBE_TOL):
+        raise AssertionError(f"wgmma probe beyond {PROBE_TOL}: C {err_c!r}, "
+                             f"E {err_e!r}")
 
 
 def phase_flash_kernel(torch, np) -> dict:
@@ -789,70 +932,109 @@ def phase_flash_kernel(torch, np) -> dict:
     from repro_torch.kernels import flash_attention as kfa
 
     dev = torch.device("cuda")
+    phase_probe(torch, np)
     errs = dict.fromkeys(FLASH_TOL, 0.0)
+    row_max = 0.0
     record = {}
     for case in (FLASH_PREFILL,) + FLASH_CASES:
-        label, B, Sq, Sk, H, KVH, D, causal, q_off = case
-        rng = np.random.default_rng(B * Sq + H * D + q_off)
+        label, B, Sq, Sk, H, KVH, D, Dv, causal, q_off = case
+        rng = np.random.default_rng(B * Sq + H * D + Dv + q_off)
         host = [rng.standard_normal(s).astype(np.float32) for s in
-                ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D))]
+                ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, Dv))]
         for dt in FLASH_TOL:
             q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dt))
                        for a in host)
             n0 = kfa.flash_attention.launches
+            n0_tc = kfa.flash_attention.sm90_launches
             got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_off)
             want = kfa.flash_attention_plain(q, k, v, causal=causal,
                                              q_offset=q_off)
             torch.cuda.synchronize()
-            if kfa.flash_attention.launches != n0 + 1:
-                raise AssertionError("flash_attention did not count its "
-                                     "launch")
+            tc = int(dt == "bfloat16")
+            if (kfa.flash_attention.launches != n0 + 1 or
+                    kfa.flash_attention.sm90_launches != n0_tc + tc):
+                raise AssertionError(f"flash_attention {dt} did not count "
+                                     "its launch on its own kernel")
             err = max_abs_err(torch, got, want)
             errs[dt] = max(errs[dt], err)
-            if not bool(torch.isfinite(got).all()) or err > FLASH_TOL[dt]:
+            row = row_rel_err(torch, got, want) if tc else 0.0
+            row_max = max(row_max, row)
+            if (not bool(torch.isfinite(got).all()) or err > FLASH_TOL[dt]
+                    or row > FLASH_ROW_TOL):
                 raise AssertionError(f"flash {label} {case[1:]} {dt}: max "
                                      f"|kernel - plain| {err!r} beyond "
-                                     f"{FLASH_TOL[dt]}")
+                                     f"{FLASH_TOL[dt]}, or row-relative "
+                                     f"{row!r} beyond {FLASH_ROW_TOL}")
+            row_txt = (f"; row-relative {row:.3e} (bar {FLASH_ROW_TOL})"
+                       if tc else "")
             log("kernels", f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} "
-                f"H={H} KVH={KVH} D={D} causal={causal} q_offset={q_off} "
-                f"{dt}: max |kernel - plain| {err:.3e} (tol {FLASH_TOL[dt]})")
+                f"H={H} KVH={KVH} D={D} Dv={Dv} causal={causal} "
+                f"q_offset={q_off} {dt} ({'wgmma' if tc else 'SIMT'} "
+                f"kernel): max |kernel - plain| {err:.3e} (tol "
+                f"{FLASH_TOL[dt]}){row_txt}")
             if label != "prefill" or dt != "bfloat16":
                 continue
-            nbytes, ops = flash_work(B, Sq, Sk, H, KVH, D, causal, q_off,
-                                     q.element_size())
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS_PER_S[dt] * 1e3
-            k_ms = cuda_ms(torch, lambda: kfa.flash_attention(
-                q, k, v, causal=causal), iters=20)
-            d_us = device_us(torch, lambda: kfa.flash_attention(
-                q, k, v, causal=causal), "flash_attention_kernel", iters=10)
-            p_ms = cuda_ms(torch, lambda: kfa.flash_attention_plain(
-                q, k, v, causal=causal), iters=5)
-            # The yardstick: one PyTorch call of the same function (the
-            # port never calls it).
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
-            lib_err = max_abs_err(torch, sdpa().transpose(1, 2), got)
-            lib_ms = cuda_ms(torch, sdpa, iters=20)
-            bound = max(t_bytes, t_ops)
-            by = "operations" if t_ops >= t_bytes else "bytes"
-            d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
-            log("kernels", f"flash_attention prefill shape {dt}: kernel "
-                f"{k_ms:.6f} ms per call (device-only {d_txt}), plain "
-                f"{p_ms:.6f} ms, library (scaled_dot_product_attention, "
-                f"enable_gqa; max |sdpa - kernel| {lib_err:.3e}) "
-                f"{lib_ms:.6f} ms, bound {bound:.6f} ms by {by} ({nbytes} B "
-                f"at 3.35 TB/s = {t_bytes:.6f} ms; {ops} operations at "
-                f"{PEAK_OPS_PER_S[dt]:.3g}/s = {t_ops:.6f} ms); kernel "
-                f"{k_ms / bound:.1f}x its bound, {k_ms / lib_ms:.1f}x the "
-                "library call")
-            record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                          bound_by=by, library_ms=lib_ms)
+            flash_faults(torch, kfa, q, k, v, want)
+            record = flash_timing(torch, F, kfa, q, k, v, got, case)
     record["max_abs_err"] = max(errs.values())
     log("kernels", f"flash_attention: max |kernel - plain| {errs} over "
-        "every case")
+        f"every case; bf16 row-relative {row_max:.3e} (bar {FLASH_ROW_TOL})")
     return record
+
+
+def flash_timing(torch, F, kfa, q, k, v, got, case) -> dict:
+    """The bf16 kernel at the prefill shape in turns with
+    scaled_dot_product_attention (the yardstick; the port never calls
+    it), its device-only time, the plain version's time and the bound."""
+    label, B, Sq, Sk, H, KVH, D, Dv, causal, q_off = case
+    nbytes, ops = flash_work(B, Sq, Sk, H, KVH, D, Dv, causal, q_off,
+                             q.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    kernel = lambda: kfa.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, q_offset=q_off)
+    lib_err = max_abs_err(torch, sdpa().transpose(1, 2), got)
+    times = windows_ms(torch, {"kernel": kernel, "sdpa": sdpa}, FLASH_ORDER,
+                       FLASH_WINDOWS, FLASH_CALLS)
+    med = {n: statistics.median(t) for n, t in times.items()}
+    spread = {n: (min(t), max(t)) for n, t in times.items()}
+    d_us = device_us(torch, kernel, "flash_attention_sm90_kernel", iters=20)
+    # Host time per call: the wrapper's checks, three tensor-map encodes,
+    # the shared-memory opt-in and the launch, with the card still busy
+    # with earlier calls (the launch queue does not fill in 20 calls).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FLASH_CALLS):
+        kernel()
+    host_us = (time.perf_counter() - t0) / FLASH_CALLS * 1e6
+    torch.cuda.synchronize()
+    p_ms = cuda_ms(torch, lambda: kfa.flash_attention_plain(
+        q, k, v, causal=causal, q_offset=q_off), iters=5)
+    k_ms, lib_ms = med["kernel"], med["sdpa"]
+    d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
+    log("kernels", f"flash_attention prefill shape bfloat16, in turns "
+        f"{'/'.join(FLASH_ORDER)} ({FLASH_WINDOWS} windows of "
+        f"{FLASH_CALLS} calls per turn): kernel median {k_ms:.6f} ms per "
+        f"call (windows {spread['kernel'][0]:.6f}-{spread['kernel'][1]:.6f}"
+        f"; device-only {d_txt}), scaled_dot_product_attention (enable_gqa"
+        f"; max |sdpa - kernel| {lib_err:.3e}) median {lib_ms:.6f} ms "
+        f"(windows {spread['sdpa'][0]:.6f}-{spread['sdpa'][1]:.6f}); "
+        f"kernel / sdpa {k_ms / lib_ms:.3f}")
+    log("kernels", f"flash_attention prefill shape bfloat16: plain "
+        f"{p_ms:.6f} ms; bound {bound:.6f} ms by {by} ({nbytes} B at 3.35 "
+        f"TB/s = {t_bytes:.6f} ms; {ops} operations at 989e12/s = "
+        f"{t_ops:.6f} ms); kernel {ops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{k_ms / bound:.2f}x its bound ({bound / k_ms:.1%} of it); sdpa "
+        f"{ops / lib_ms / 1e9:.1f} TFLOP/s; host time per kernel call "
+        f"{host_us:.3f} us (wrapper, tensor-map encodes, launch)")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, device_us=d_us,
+                tflops=ops / k_ms / 1e9)
 
 
 # ---------------------------------------------------------------------------
@@ -978,11 +1160,13 @@ def phase_model(torch, np) -> dict:
     # The path's run: prefill + greedy decode, launch count from 0.
     torch.cuda.synchronize()
     kfa.flash_attention.launches = 0
+    kfa.flash_attention.sm90_launches = 0
     t0 = time.perf_counter()
     cache, logits = D.prefill(cfg, params, {"tokens": toks}, MODEL_MAX_LEN)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     n_prefill = kfa.flash_attention.launches
+    n_tc = kfa.flash_attention.sm90_launches
     tok = logits.argmax(-1).to(torch.int32)
     step_logits = []
     t0 = time.perf_counter()
@@ -993,8 +1177,9 @@ def phase_model(torch, np) -> dict:
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = kfa.flash_attention.launches
-    if n_prefill != n_layers or launches != n_layers:
-        raise AssertionError(f"flash launches: {n_prefill} in prefill, "
+    if n_prefill != n_layers or launches != n_layers or n_tc != n_layers:
+        raise AssertionError(f"flash launches: {n_prefill} in prefill "
+                             f"({n_tc} on the bf16 tensor-core kernel), "
                              f"{launches} after decode; expected {n_layers}")
     finite = bool(torch.isfinite(logits).all()) and all(
         bool(torch.isfinite(x).all()) for x in step_logits)
@@ -1016,7 +1201,7 @@ def phase_model(torch, np) -> dict:
     log("model", f"prefill B={B} S={S} max_len {MODEL_MAX_LEN}: "
         f"{t_pre * 1e3:.2f} ms warm ({B * S / t_pre:.1f} tokens/s; first "
         f"call {t_first * 1e3:.2f} ms), flash launches {n_prefill} per "
-        f"prefill; {MODEL_DECODE} greedy decode steps {t_dec * 1e3:.2f} ms "
+        f"prefill, all {n_tc} on the bf16 wgmma kernel; {MODEL_DECODE} greedy decode steps {t_dec * 1e3:.2f} ms "
         f"({t_dec / MODEL_DECODE * 1e3:.3f} ms per step, "
         f"{B * MODEL_DECODE / t_dec:.1f} tokens/s); every logit finite; "
         f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
@@ -1098,6 +1283,27 @@ def phase_model(torch, np) -> dict:
     return {"flash_attention": launches}
 
 
+def phase_build_report(_build, build_log: str) -> None:
+    """ptxas's registers, spills and static shared memory of the bf16
+    flash kernel's instances and the probe, and any ptxas advisory about
+    them.  A spill in the flash kernel fails the phase."""
+    for name, regs, st, ld, smem in ptxas_report(
+            build_log, "flash_attention_sm90_kernel") + ptxas_report(
+            build_log, "wgmma_probe_kernel"):
+        log("build", f"ptxas {name}: {regs} registers, spill stores {st} "
+            f"B, spill loads {ld} B, static smem {smem} B")
+        if "flash_attention_sm90_kernel" in name and (st or ld):
+            raise AssertionError(f"{name} spills ({st} B stored, {ld} B "
+                                 "loaded)")
+    sec = build_log.split("== flash_attention_sm90.cu", 1)[-1]
+    for line in sec.splitlines():
+        if "C75" in line or "setmaxnreg" in line:
+            log("build", f"ptxas advisory: {line.strip()[:200]}")
+    if _build.build_seconds is not None:
+        log("build", f"nvcc wall time of this build {_build.build_seconds:.2f}"
+            " s (every source in parallel)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1130,9 +1336,11 @@ def main() -> int:
     _build.load()
     log("build", f"kernels built and loaded in {time.perf_counter() - t0:.2f}"
         f" s ({_build.build_dir()})")
-    for line in _build.build_log.splitlines():
+    build_log = (_build.build().parent / "build.log").read_text()
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("build", line.strip())
+    phase_build_report(_build, build_log)
 
     record = {}
     timings = {}

@@ -1,33 +1,34 @@
-// Online-softmax (flash) attention on Hopper: the port of
+// Online-softmax (flash) attention in float32 (SIMT): the port of
 // src/repro/kernels/flash_attention.py::_flash_kernel, which computes
-// repro.models.layers.flash_attention (q_offset an integer).
+// repro.models.layers.flash_attention (q_offset an integer), for float32
+// inputs.  It is the exactness path, held to its plain version at 2e-5;
+// bfloat16 inputs go to the tensor-core kernel of flash_attention_sm90.cu.
 //
 //   q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv), row-major and
-//   contiguous, all float32 or all bfloat16; out (B, Sq, H, Dv) in q's type.
+//   contiguous, float32; out (B, Sq, H, Dv).
 //   GQA: query head h reads KV head h / (H / KVH).
 //   Causal: key j is visible to query row i when j <= q_offset + i.
 //
 // What bounds it.  At the prefill shape the work is ~300 operations per byte
 // moved (attention reads Q, K and V once per q tile from L2/HBM and does
 // 2·(D + Dv) operations per visible (query, key) pair), so the card's
-// arithmetic rate bounds it, not its memory.  This first version does the
-// products with scalar float32 FMAs (no tensor cores), so it runs far below
-// the bf16 tensor-core bound; wgmma, TMA and warp specialisation are later
-// work.  What the design keeps out of device memory is what the TPU kernel
-// kept out of HBM: the scores, the running max m, the denominator l and the
-// output accumulator never leave the SM.
+// arithmetic rate bounds it, not its memory.  It does the products with
+// scalar float32 FMAs: TF32 tensor cores would break its 2e-5 bar, so it
+// runs on the 67 TFLOP/s float32 pipe.  What the design keeps out of device
+// memory is what the TPU kernel kept out of HBM: the scores, the running
+// max m, the denominator l and the output accumulator never leave the SM.
 //
-// Design.  One CTA of 256 threads per (q tile of 64 rows, batch·head); the
+// Design.  One CTA of 256 threads per (batch·head, q tile of 64 rows); the
 // CTA loops over key tiles of 64 in place of the TPU's sequential grid axis,
 // and stops at the causal diagonal (the tiles above it are never visited).
 // Shared memory (dynamic, ~83 KB at D = 128, so two CTAs fit an SM): the
 // q tile, one buffer that holds the K tile and then the V tile, and the
-// (64 x 64) probability tile, all float32 (bf16 inputs are widened once on
-// load).  Thread (ty, tx) of the 16 x 16 CTA owns rows ty + 16 i (i < 4) of
-// the tile: for the scores the key columns tx + 16 j (j < 4), for the output
-// the dims 4 tx + 64 e .. +3 (e < 2), so m, l and the rescale of the
-// accumulator stay in that thread's registers; the row max and sum reduce
-// over the 16 lanes of a half warp with shuffles.  Row strides of D + 4
+// (64 x 64) probability tile, all float32.  Thread (ty, tx) of the 16 x 16
+// CTA owns rows ty + 16 i (i < 4) of the tile: for the scores the key
+// columns tx + 16 j (j < 4), for the output the dims 4 tx + 64 e .. +3
+// (e < 2), so m, l and the rescale of the accumulator stay in that
+// thread's registers; the row max and sum reduce over the 16 lanes of a
+// half warp with shuffles.  Row strides of D + 4
 // floats keep the float4 reads of the K tile free of bank conflicts.
 // Masking is in the kernel: keys at or past Sk, keys above the diagonal and
 // query rows at or past Sq (never written).  A row whose every key in a tile
@@ -37,7 +38,6 @@
 // explicit FMAs keep this kernel from paying for that.
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,34 +51,15 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Rows [row0, row0 + 64) of one head of x (rows strided by `row_stride`
 // elements, `width` elements each) into smem rows of `ld` floats; rows at
 // or past `rows` are zero.
-template <typename T>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, int ld,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t row_stride, int row0,
                                           int rows, int width) {
   const int nvec = width / 4;
@@ -109,12 +90,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int KVH, int D, int Dv, int causal,
-                       int q_offset, float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int Sq, int Sk, int H, int KVH, int D, int Dv,
+                       int causal, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ldq = D + 4;
@@ -136,12 +117,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_rs = static_cast<int64_t>(H) * D;
   const int64_t k_rs = static_cast<int64_t>(KVH) * D;
   const int64_t v_rs = static_cast<int64_t>(KVH) * Dv;
-  const T* qh = q + static_cast<int64_t>(b) * Sq * q_rs +
-                static_cast<int64_t>(h) * D;
-  const T* kh = k + static_cast<int64_t>(b) * Sk * k_rs +
-                static_cast<int64_t>(kvh) * D;
-  const T* vh = v + static_cast<int64_t>(b) * Sk * v_rs +
-                static_cast<int64_t>(kvh) * Dv;
+  const float* qh = q + static_cast<int64_t>(b) * Sq * q_rs +
+                    static_cast<int64_t>(h) * D;
+  const float* kh = k + static_cast<int64_t>(b) * Sk * k_rs +
+                    static_cast<int64_t>(kvh) * D;
+  const float* vh = v + static_cast<int64_t>(b) * Sk * v_rs +
+                    static_cast<int64_t>(kvh) * Dv;
 
   load_tile(qs, ldq, qh, q_rs, q0, Sq, D);
 
@@ -252,8 +233,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int64_t o_rs = static_cast<int64_t>(H) * Dv;
-  T* oh = out + static_cast<int64_t>(b) * Sq * o_rs +
-          static_cast<int64_t>(h) * Dv;
+  float* oh = out + static_cast<int64_t>(b) * Sq * o_rs +
+              static_cast<int64_t>(h) * Dv;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -280,21 +261,20 @@ size_t smem_bytes(int D, int Dv) {
           static_cast<size_t>(kTile) * ld + kTile * kPStride);
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KVH, int D, int Dv, int causal,
            int q_offset, float scale, cudaStream_t stream) {
   // Above 48 KB a CTA gets dynamic shared memory only after this opt-in
   // (per device, so it is set on every launch; it costs no device time).
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes(D, Dv)));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  flash_attention_kernel<T><<<grid, kThreads, smem_bytes(D, Dv), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KVH, D, Dv,
-      causal, q_offset, scale);
+  flash_attention_kernel<<<grid, kThreads, smem_bytes(D, Dv), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KVH,
+      D, Dv, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -302,23 +282,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper
 // (repro_torch/kernels/flash_attention.py) has checked the shapes: D and Dv
-// multiples of 8 and at most 128, H a multiple of KVH, 16-byte aligned
-// contiguous tensors on one device.
+// multiples of 8 and at most 128, H a multiple of KVH, B*H at most 65535,
+// 16-byte aligned contiguous float32 tensors on one device.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int KVH, int D, int Dv,
-                                      int causal, int q_offset, int is_bf16,
-                                      float scale, void* stream) {
+                                      int causal, int q_offset, float scale,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD || KVH <= 0 ||
       H % KVH != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv,
-                                 causal, q_offset, scale, s);
-  }
-  return launch<float>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv, causal,
-                       q_offset, scale, s);
+  return launch(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv, causal, q_offset,
+                scale, static_cast<cudaStream_t>(stream));
 }

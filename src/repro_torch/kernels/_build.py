@@ -21,13 +21,15 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("nfa_transition.cu", "shed_select.cu", "block_step.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "librepro_torch_kernels.so"
 # -fmad=false: no multiply-add is contracted behind the kernels' backs —
 # the CEP kernels write the one fused multiply-add they need as __fmaf_rn,
-# and the flash kernel, which has no bitwise bar, writes its products as
-# fmaf.
+# and the flash kernels, which have no bitwise bar, write their products
+# and softmax as fmaf.  The bf16 flash kernel takes the driver's
+# cuTensorMapEncodeTiled through cudaGetDriverEntryPoint at run time, so
+# the link needs no -lcuda.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,12 +41,13 @@ _SIGNATURES = {
     "utility_histogram_launch": [_VP, _LL, _VP, _I, _VP, _VP],
     "block_step_launch": [_VP, _VP],
     "threefry_probe_launch": [_VP, _I, _VP, _VP, _VP],
-    "flash_attention_launch": [_VP] * 4 + [_I] * 10 + [_F, _VP],
+    "flash_attention_launch": [_VP] * 4 + [_I] * 9 + [_F, _VP],
+    "flash_attention_sm90_launch": [_VP] * 4 + [_I] * 9 + [_F, _VP],
+    "wgmma_probe_launch": [_VP] * 6,
 }
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of this process's build
-build_log: str = ""                  # nvcc / ptxas output of that build
 
 
 def build_dir() -> pathlib.Path:
@@ -69,7 +72,7 @@ def _digest() -> str:
 
 def build() -> pathlib.Path:
     """Compile the library if this source hash has none yet; return it."""
-    global build_seconds, build_log
+    global build_seconds
     final = build_dir() / _digest()
     lib = final / LIB_NAME
     if lib.exists():
@@ -107,7 +110,6 @@ def build() -> pathlib.Path:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     build_seconds = time.perf_counter() - t0
-    build_log = "".join(logs)
     return lib
 
 
@@ -124,6 +126,10 @@ def load() -> ctypes.CDLL:
 
 
 def check(code: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` from a launch."""
+    """Raise on a non-zero return from a launch: a ``cudaError_t``, or the
+    negated ``CUresult`` of a tensor-map encode that failed."""
+    if code < 0:
+        raise RuntimeError(f"{what}: tensor-map encode failed with CUresult "
+                           f"{-code}")
     if code:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")

@@ -3,16 +3,21 @@
 Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
 ``_flash_kernel``) and of the function it implements,
 ``repro.models.layers.flash_attention``.  ``flash_attention`` launches
-the hand-written CUDA kernel (``csrc/flash_attention.cu``) for CUDA
-tensors and computes ``flash_attention_plain`` for CPU tensors; nothing
-falls back from one to the other.
+a hand-written CUDA kernel for CUDA tensors and computes
+``flash_attention_plain`` for CPU tensors; nothing falls back from one to
+the other.  Each dtype has one kernel:
+
+- bfloat16: ``csrc/flash_attention_sm90.cu``, both products on Hopper's
+  tensor cores (``wgmma``), K/V tiles by TMA into a ring in shared
+  memory, a producer warp and two consumer warpgroups;
+- float32: ``csrc/flash_attention.cu``, scalar float32 FMAs, the
+  exactness path (TF32 tensor cores would not hold its 2e-5 bar).
 
 The plain version transliterates ``layers.flash_attention``: the same
 ``_divisor_chunk`` chunking, the same ``causal_skip`` pair list and the
-same cast of the probabilities to v's type before the PV product.  The
-kernel keeps them in float32 (as the TPU kernel does), so on bf16 inputs
-the two differ by that rounding: they are held to a tolerance, not to
-bits.
+same cast of the probabilities to v's type before the PV product, which
+the bf16 kernel rounds the same way; the kernels sum in another order,
+so they are held to a tolerance, not to bits.
 """
 from __future__ import annotations
 
@@ -104,7 +109,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, q_offset):
+def _check(q, k, v, q_offset, scale):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D "
                          "(B, S, heads, head_dim)")
@@ -121,9 +126,8 @@ def _check(q, k, v, q_offset):
         if not (0 < d <= 128 and d % 8 == 0):
             raise ValueError(f"flash_attention: the kernel takes a {name} "
                              f"that is a multiple of 8 up to 128, got {d}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
-                         "grid's 65535")
+    if Sk == 0:
+        raise ValueError("flash_attention: the kernel needs at least one key")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"all bfloat16, got {q.dtype}, {k.dtype}, "
@@ -137,6 +141,12 @@ def _check(q, k, v, q_offset):
                              "and 16-byte aligned")
     if int(q_offset) < 0:
         raise ValueError("flash_attention: q_offset must be >= 0")
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"flash_attention: the bf16 kernel takes a "
+                         f"positive scale, got {scale}")
+    if q.dtype == torch.float32 and B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         "float32 kernel's grid of 65535")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -145,8 +155,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """softmax(q·kᵀ·scale [causal]) · v over GQA heads.
 
     q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv); returns
-    (B, Sq, H, Dv) in q's type.  On CUDA tensors the kernel runs (D and
-    Dv multiples of 8 up to 128, float32 or bfloat16, contiguous); on CPU
+    (B, Sq, H, Dv) in q's type.  On CUDA tensors a kernel runs (D and
+    Dv multiples of 8 up to 128, contiguous): the tensor-core kernel for
+    bfloat16 (a positive scale), the SIMT kernel for float32.  On CPU
     tensors the plain version runs with its default chunks.
     """
     if scale is None:
@@ -156,19 +167,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=int(q_offset), scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, q_offset)
+    _check(q, k, v, q_offset, scale)
     B, Sq, H, D = q.shape
     _, Sk, KVH, Dv = v.shape
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    out = q.new_empty((B, Sq, H, Dv))
     lib = _build.load()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KVH, D, Dv, int(bool(causal)), int(q_offset),
-        int(q.dtype == torch.bfloat16), float(scale), stream),
-        "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KVH, D, Dv, int(bool(causal)), int(q_offset),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        _build.check(lib.flash_attention_sm90_launch(*args),
+                     "flash_attention (bf16)")
+        flash_attention.sm90_launches += 1
+    else:
+        _build.check(lib.flash_attention_launch(*args),
+                     "flash_attention (float32)")
     flash_attention.launches += 1
     return out
 
 
+# Launches of either kernel, and of the bf16 tensor-core kernel alone.
 flash_attention.launches = 0
+flash_attention.sm90_launches = 0
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor,
+                v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the bf16 kernel's building blocks on two small products
+    (``csrc/flash_attention_sm90.cu``): a, b, v are (64, 128) bf16 on the
+    card; returns C = a · bᵀ (64, 64) and E = bf16(C) · v (64, 128),
+    both float32.  The plain version is ``torch.matmul`` of the same
+    tiles."""
+    for name, t in (("a", a), ("b", b), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"wgmma_probe runs on a CUDA device ({name} on "
+                             f"{t.device})")
+        if (t.shape != (64, 128) or t.dtype != torch.bfloat16
+                or not t.is_contiguous()):
+            raise ValueError(f"wgmma_probe: {name} must be a contiguous "
+                             "(64, 128) bfloat16 tensor")
+    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    e = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    _build.check(_build.load().wgmma_probe_launch(
+        a.data_ptr(), b.data_ptr(), v.data_ptr(), c.data_ptr(), e.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream), "wgmma_probe")
+    return c, e

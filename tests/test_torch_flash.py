@@ -2,6 +2,8 @@
 version (what ``flash_attention`` runs for CPU tensors) against the Pallas
 kernel in interpret mode and against ``layers.flash_attention``, on the
 very same NumPy inputs; and the wrapper's device rules."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,3 +147,91 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="multiple of 8"):
         kfa.flash_attention(q, q, q)
     assert called == []
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records which entry point each
+    call reached and returns ``code``."""
+
+    def __init__(self):
+        self.calls, self.code = [], 0
+
+    def flash_attention_sm90_launch(self, *args):
+        self.calls.append(("sm90", args))
+        return self.code
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(("simt", args))
+        return self.code
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The wrapper as it runs on CUDA tensors, with the library replaced
+    by a recorder and the plain version made to fail if it is called."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(kfa._build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(kfa, "flash_attention_plain", plain)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    return lib
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "simt")])
+def test_each_dtype_reaches_its_own_kernel(card, dtype, entry):
+    q = torch.zeros((2, 40, 4, 64), dtype=dtype)
+    k = torch.zeros((2, 56, 2, 64), dtype=dtype)
+    v = torch.zeros((2, 56, 2, 128), dtype=dtype)
+    n, n_tc = kfa.flash_attention.launches, kfa.flash_attention.sm90_launches
+    out = kfa.flash_attention(q, k, v, causal=True, q_offset=16)
+    assert [c[0] for c in card.calls] == [entry]
+    args = card.calls[0][1]
+    assert args[4:14] == (2, 40, 56, 4, 2, 64, 128, 1, 16,
+                          pytest.approx(1 / 8))
+    assert out.shape == (2, 40, 4, 128) and out.dtype == dtype
+    assert kfa.flash_attention.launches == n + 1
+    assert kfa.flash_attention.sm90_launches == n_tc + (entry == "sm90")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("code,match", [(2, "CUDA error 2"),
+                                        (-1, "tensor-map encode")])
+def test_a_refused_launch_raises(card, dtype, code, match):
+    card.code = code
+    q = torch.zeros((1, 16, 2, 32), dtype=dtype)
+    n = kfa.flash_attention.launches
+    with pytest.raises(RuntimeError, match=match):
+        kfa.flash_attention(q, q, q)
+    assert kfa.flash_attention.launches == n
+
+
+def test_more_than_65535_heads_reach_the_bf16_kernel(card):
+    q = torch.zeros((1, 1, 70000, 8), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 1, 1, 8), dtype=torch.bfloat16)
+    kfa.flash_attention(q, kv, kv)
+    assert [c[0] for c in card.calls] == ["sm90"]
+    assert card.calls[0][1][4:9] == (1, 1, 1, 70000, 1)
+
+
+def test_the_float32_kernel_takes_at_most_65535_heads(card):
+    q = torch.zeros((1, 1, 70000, 8))
+    kv = torch.zeros((1, 1, 1, 8))
+    with pytest.raises(ValueError, match="65535"):
+        kfa.flash_attention(q, kv, kv)
+    assert card.calls == []
+
+
+def test_bf16_kernel_takes_a_positive_scale(card):
+    q = torch.zeros((1, 16, 2, 32))
+    with pytest.raises(ValueError, match="positive scale"):
+        kfa.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                            scale=-0.5)
+    kfa.flash_attention(q, q, q, scale=-0.5)
+    assert [c[0] for c in card.calls] == ["simt"]

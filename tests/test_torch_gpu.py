@@ -190,36 +190,75 @@ def _flat(tree, path=""):
 # The flash kernel and the dense serving path
 # ---------------------------------------------------------------------------
 
-FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, causal, q_offset)
-    (1, 128, 128, 2, 2, 32, True, 0), (2, 256, 256, 4, 2, 64, False, 0),
-    (1, 256, 256, 8, 1, 64, True, 0),          # MQA
-    (2, 128, 256, 4, 4, 128, False, 0),        # Sq != Sk
-    (1, 2047, 2047, 4, 2, 8, True, 0),         # ragged S
-    (2, 48, 48, 4, 2, 16, True, 0),
-    (2, 64, 192, 4, 2, 32, True, 100),         # a fully masked KV tile
+FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, Dv, causal, q_offset)
+    (1, 128, 128, 2, 2, 32, 32, True, 0),
+    (2, 256, 256, 4, 2, 64, 64, False, 0),
+    (1, 256, 256, 8, 1, 64, 64, True, 0),      # MQA
+    (2, 128, 256, 4, 4, 128, 128, False, 0),   # Sq != Sk
+    (1, 2047, 2047, 4, 2, 8, 8, True, 0),      # ragged S
+    (2, 48, 48, 4, 2, 16, 16, True, 0),
+    (2, 64, 192, 4, 2, 32, 32, True, 100),     # a fully masked KV tile
+    (4, 2048, 2048, 16, 8, 128, 128, True, 0),  # the prefill shape
+    (2, 300, 300, 4, 2, 128, 128, True, 0),    # S not a multiple of 128
+    (1, 130, 383, 2, 2, 128, 128, False, 0),
+    (2, 200, 328, 4, 2, 128, 128, True, 128),  # Sq < Sk, q_offset Sk - Sq
+    (1, 1000, 1000, 4, 2, 8, 8, True, 0),      # D in {8, 16, 64, 128}
+    (1, 1000, 1000, 4, 2, 16, 16, True, 0),
+    (1, 1000, 1000, 4, 2, 64, 64, True, 0),
+    (2, 256, 256, 4, 2, 64, 128, True, 0),     # Dv != D
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# bf16 is also held row by row, scaled to the output: the largest
+# ‖kernel − plain‖ / ‖plain‖ over the Dv columns of one (b, i, h) row.
+# A causal row that sees i keys has outputs of about sqrt(e / i), so the
+# absolute bar alone is about a late row's size (chip_smoke.py,
+# FLASH_ROW_TOL, gives the readings and the planted faults it rejects).
+FLASH_ROW_TOL = 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,causal,q_off", FLASH_SHAPES)
-def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, KVH, D, causal,
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,Dv,causal,q_off", FLASH_SHAPES)
+def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, KVH, D, Dv, causal,
                                    q_off, dtype):
     from repro_torch.kernels import flash_attention as kfa
     rng = np.random.default_rng(Sq + D)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
-                                          (B, Sk, KVH, D)))
+                                          (B, Sk, KVH, Dv)))
     before = kfa.flash_attention.launches
+    before_tc = kfa.flash_attention.sm90_launches
     got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_off)
     assert kfa.flash_attention.launches == before + 1
+    # bf16 takes the tensor-core kernel, float32 the SIMT kernel.
+    assert kfa.flash_attention.sm90_launches == \
+        before_tc + (dtype == torch.bfloat16)
     want = kfa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_off)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
     assert torch.isfinite(got).all()
-    assert float((got.float() - want.float()).abs().max()) <= \
-        FLASH_TOL[dtype]
+    diff = got.float() - want.float()
+    assert float(diff.abs().max()) <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        rows = diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+        assert float(rows.max()) <= FLASH_ROW_TOL
+
+
+def test_wgmma_probe_equals_matmul(cuda):
+    """The bf16 kernel's building blocks (TMA with the 128-byte swizzle,
+    wgmma from shared memory and from registers, V read transposed)
+    against torch.matmul of the same tiles; the two sum in another order,
+    and a layout fault moves entries by their own size (~10)."""
+    from repro_torch.kernels import flash_attention as kfa
+    rng = np.random.default_rng(14)
+    a, b, v = (torch.from_numpy(rng.standard_normal((64, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    c, e = kfa.wgmma_probe(a, b, v)
+    torch.cuda.synchronize()
+    want_c = a.float() @ b.float().t()
+    want_e = c.to(torch.bfloat16).float() @ v.float()
+    assert float((c - want_c).abs().max()) <= 1e-2
+    assert float((e - want_e).abs().max()) <= 1e-2
 
 
 def test_flash_kernel_rejects_bad_input(cuda):

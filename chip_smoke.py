@@ -12,8 +12,12 @@ Phases (one line each; any failure raises and exits non-zero):
            ragged N=1000, plus an all-inactive and a NaN-laden case; the
            block kernel against its plain version, bitwise, on W=32
            blocks that fire Algorithm 2 (stock SEQ/at-open at N=256 and
-           N=2048, bus ANY/in-windows, soccer ANY/at-open with E-BL);
-           times against the memory bound
+           N=2048, bus ANY/in-windows, soccer ANY/at-open with E-BL, all
+           with the store in shared memory; soccer at N=2048 under PM-BL
+           with the store in device memory; two of them again with the
+           event rows, model tables and stats counts in device memory);
+           times against the memory bound, and the launch path's host
+           time per launch
   parity   the engine on stock specs, N=2048, 3000 events, all four
            shedders with fires: backends "cuda" and "cuda_block" on the
            card == backend "torch" on the card == backend "torch" on the
@@ -26,7 +30,8 @@ Phases (one line each; any failure raises and exits non-zero):
            within a tolerance, and FN, fires and compliance equal across
            the two paths
   profile  torch.profiler over one stock pspice run per path: device
-           busy time by kernel and the device's idle share
+           busy time by kernel and the device's idle share; on the block
+           path also the host's time per launch (the enqueue alone)
   model    the model zoo's serving path at internlm2-1.8b's full width
            and depth (bf16, random weights from a seeded generator):
            prefill of 4 prompts of 2048 tokens (the flash kernel in each
@@ -35,8 +40,9 @@ Phases (one line each; any failure raises and exits non-zero):
            that the float32 bound must catch; then the port's serve()
            with the reference CLI's defaults under each policy, all at
            the step cost the first run measures
-The build phase reports ptxas's registers and spills of the bf16 flash
-kernel (a spill fails it).  The kernels phase also runs the wgmma probe
+The build phase reports ptxas's registers and spills of the block
+kernel's two instantiations and of the bf16 flash kernel (a spill in the
+flash kernel fails it).  The kernels phase also runs the wgmma probe
 against torch.matmul, holds the flash kernels against their plain version
 (float32 on the SIMT kernel, bf16 on the wgmma/TMA kernel; GQA/MQA,
 ragged, Dv != D, decode-style, a fully masked KV tile; bf16 also row by
@@ -424,39 +430,91 @@ def block_bytes(torch, cfg, model, carry, blk, i0: int) -> int:
     return reads + writes
 
 
+def launch_ms(torch, setup, launch, iters: int = 50) -> float:
+    """Median device time of one ``launch()``: CUDA events recorded just
+    before and after it, with ``setup()`` (not timed) before each."""
+    times = []
+    for k in range(iters + 5):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        torch.cuda.synchronize()
+        if k >= 5:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us_per_launch(torch, launch, n: int) -> float:
+    """Host microseconds per call of ``launch(k)`` for k < n: the enqueue
+    alone, host-clocked without a sync (the queue holds far more than n
+    launches, so no call waits for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
+        launch(k)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def block_vs_plain(torch, cfg, model, saved, blk, i0, what: str):
+    """The block kernel and its plain version from the same carry (numpy
+    ``saved``) on the W-event block ``blk``: the (kernel, plain) pairs of
+    every carry leaf, row and status, the plain carry and status.  Raises
+    unless every pair is equal bit for bit."""
+    from repro_torch.cep import convert
+    from repro_torch.kernels import block_step as kb
+
+    dev = torch.device("cuda")
+    work = {}
+    for label, fn in (("kernel", kb.block_step),
+                      ("plain", kb.block_step_plain)):
+        c = convert.carry_from_numpy(saved, dev)
+        rows = kb.new_rows(cfg, W_BLOCK, dev)
+        c, rows, status = fn(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
+        torch.cuda.synchronize()
+        work[label] = (c, rows, status)
+    (ck, rk, sk), (cp_, rp, sp) = work["kernel"], work["plain"]
+    names = [f"carry[{n}]" for n in range(len(carry_leaves(ck)))] + \
+        list(rk) + ["status"]
+    pairs = list(zip(carry_leaves(ck), carry_leaves(cp_))) + \
+        [(rk[k], rp[k]) for k in rk] + [(sk, sp)]
+    bad = [n for n, (a, b) in zip(names, pairs) if not same(torch, a, b)]
+    if bad:
+        raise AssertionError(f"block_step != plain on {what}: {bad}")
+    return pairs, cp_, sp
+
+
 def phase_block_kernel(torch, np) -> dict:
     from repro_torch.cep import block_cases, convert
     from repro_torch.kernels import block_step as kb
 
     dev = torch.device("cuda")
-    record, err = {}, 0.0
+    record, err, seen = {}, 0.0, set()
     for name, N, shedder in block_cases.CASES:
         cfg, model, carry, blk, i0 = block_cases.firing_block(
             name, N, shedder, dev, W=W_BLOCK, **COST)
+        lay = kb.plan_layout(cfg, model.trans.shape[2],
+                             model.ut_tables.shape[1])
+        seen.add(lay.store)
         saved = convert.tree_to_numpy(carry)
-        work = {}
-        for label, fn in (("kernel", kb.block_step),
-                          ("plain", kb.block_step_plain)):
-            c = convert.carry_from_numpy(saved, dev)
-            rows = kb.new_rows(cfg, W_BLOCK, dev)
-            c, rows, status = fn(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
-            torch.cuda.synchronize()
-            work[label] = (c, rows, status)
-        (ck, rk, sk), (cp_, rp, sp) = work["kernel"], work["plain"]
-        pairs = list(zip(carry_leaves(ck), carry_leaves(cp_))) + \
-            [(rk[k], rp[k]) for k in rk] + [(sk, sp)]
-        if not all(same(torch, a, b) for a, b in pairs):
-            raise AssertionError(f"block_step != plain on {name} N={N} "
-                                 f"{shedder}")
+        pairs, cp_, sp = block_vs_plain(torch, cfg, model, saved, blk, i0,
+                                        f"{name} N={N} {shedder} "
+                                        f"({lay.store} store)")
         err = max([err] + [max_abs_err(torch, a, b) for a, b in pairs])
         fires = int(sp[0])
         if shedder in ("pspice", "pmbl") and fires < 1:
             raise AssertionError(f"block {name} N={N} {shedder}: no fire")
         # Times: each launch starts from the same carry, restored by
-        # copies that are timed alone and subtracted.
+        # copies that are timed alone and subtracted.  The launches go
+        # through the main path's launcher (one argument block per scan).
         base = convert.carry_from_numpy(saved, dev)
         c = convert.carry_from_numpy(saved, dev)
         rows = kb.new_rows(cfg, W_BLOCK, dev)
+        scan = kb.BlockScan(cfg, model, c, blk, rows)
 
         def restore():
             for dst, src in zip(carry_leaves(c), carry_leaves(base)):
@@ -464,19 +522,23 @@ def phase_block_kernel(torch, np) -> dict:
 
         def launch():
             restore()
-            kb.block_step(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
+            scan.launch(0, i0, 0, W_BLOCK)
 
         def plain():
             restore()
             kb.block_step_plain(cfg, model, c, blk, i0, 0, W_BLOCK, rows)
 
-        # The kernel's own time is its device time in the profiler (the
-        # host-clocked restore + launch pairs are host-bound); the plain
-        # version's is host-clocked, less the restore.
+        # Device time in the profiler; per call = the median of CUDA events
+        # recorded around each launch alone (the restore outside them); the
+        # host's enqueue alone; the plain version host-clocked, less the
+        # restore.
         t_restore = cuda_ms(torch, restore, iters=100)
         d_us = device_us(torch, launch, "block_step_kernel", iters=20)
-        k_ms = d_us / 1e3 if d_us is not None else \
-            cuda_ms(torch, launch, iters=100) - t_restore
+        call_ms = launch_ms(torch, restore,
+                            lambda: scan.launch(0, i0, 0, W_BLOCK))
+        host_us = host_us_per_launch(
+            torch, lambda k: scan.launch(0, i0, 0, W_BLOCK), 200)
+        k_ms = d_us / 1e3 if d_us is not None else call_ms
         p_ms = cuda_ms(torch, plain, iters=3) - t_restore
         stepped = convert.carry_from_numpy(saved, dev)
         nbytes = block_bytes(torch, cfg, model, stepped, blk, i0)
@@ -489,16 +551,50 @@ def phase_block_kernel(torch, np) -> dict:
             "host clock, device time not measured"
         log("kernels", f"block_step {name} P={cfg.num_patterns} N={N} "
             f"W={W_BLOCK} {shedder} ({cfg.kinds}/{cfg.spawn_modes}, "
-            f"{fires} fires in the block): bitwise ok; kernel "
-            f"{k_ms:.6f} ms per launch ({k_ms / W_BLOCK * 1e3:.3f} us per "
-            f"event; {src}), plain {p_ms:.6f} ms, library none, bound "
+            f"{fires} fires in the block): bitwise ok; {lay.store} store "
+            f"({lay.store_bytes} B store + scratch), {lay.smem_bytes} B "
+            f"dynamic shared memory; kernel {k_ms:.6f} ms per launch "
+            f"({k_ms / W_BLOCK * 1e3:.3f} us per event; {src}), per call "
+            f"{call_ms:.6f} ms (CUDA events), host {host_us:.3f} us per "
+            f"launch (enqueue); plain {p_ms:.6f} ms, library none, bound "
             f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
         if (name, N, shedder) == block_cases.CASES[0]:
             record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                          us_per_event=k_ms / W_BLOCK * 1e3)
+                          us_per_event=k_ms / W_BLOCK * 1e3,
+                          call_ms=call_ms, host_us_per_launch=host_us,
+                          store=lay.store, smem_bytes=lay.smem_bytes)
+    if seen != {"shared", "global"}:
+        raise AssertionError(f"block cases took only the {seen} store")
+    # The event rows, the model tables and the stats counts left in device
+    # memory (their shares set to 0 B): the same bits, both instantiations.
+    shares = {k: getattr(kb, k) for k in ("ROWS_SMEM_MAX", "MODEL_SMEM_MAX",
+                                          "STATS_SMEM_MAX")}
+    try:
+        for k in shares:
+            setattr(kb, k, 0)
+        for name, N, shedder in (block_cases.CASES[0],
+                                 block_cases.CASES[-1]):
+            cfg, model, carry, blk, i0 = block_cases.firing_block(
+                name, N, shedder, dev, W=W_BLOCK, **COST)
+            lay = kb.plan_layout(cfg, model.trans.shape[2],
+                                 model.ut_tables.shape[1])
+            if lay.rows_smem or lay.model_smem or lay.stats_smem:
+                raise AssertionError(f"planner kept a piece on chip: {lay}")
+            pairs, _, _ = block_vs_plain(
+                torch, cfg, model, convert.tree_to_numpy(carry), blk, i0,
+                f"{name} N={N} {shedder} ({lay.store} store, rows, model "
+                "and stats counts in device memory)")
+            err = max([err] + [max_abs_err(torch, a, b) for a, b in pairs])
+            log("kernels", f"block_step {name} N={N} {shedder}: bitwise ok "
+                f"with the rows, model tables and stats counts in device "
+                f"memory ({lay.store} store, {lay.smem_bytes} B dynamic "
+                "shared memory)")
+    finally:
+        for k, v in shares.items():
+            setattr(kb, k, v)
     record["max_abs_err"] = err
     log("kernels", f"block_step: max |kernel - plain| {err!r} over every "
-        "case")
+        "case (both instantiations)")
     return record
 
 
@@ -746,6 +842,16 @@ def phase_profile(torch, backend: str, n: int = 6000,
     for dev_us, count, key in rows[:8]:
         log("profile", f"  {dev_us / 1e3:.3f} ms device, {count} calls, "
             f"{dev_us / max(count, 1):.3f} us/call: {key[:90]}")
+    if backend == "cuda_block":
+        from repro_torch.kernels import block_step as kb
+        blocks, nb = eng._pad_event_blocks(ev, n, W_BLOCK)
+        scan = kb.BlockScan(rcfg, model, eng.init_carry(
+            rcfg, seed=sc.seed, device=device), blocks,
+            kb.new_rows(rcfg, nb * W_BLOCK, device))
+        host_us = host_us_per_launch(torch, lambda b: scan.launch(
+            b, b * W_BLOCK, 0, min(n - b * W_BLOCK, W_BLOCK)), nb)
+        log("profile", f"block launch path: host {host_us:.3f} us per "
+            f"launch (enqueue alone, {nb} launches of one scan)")
     for dev_us, count, key in rows:
         if "block_step_kernel" in key:
             log("profile", f"block kernel: {dev_us / count:.3f} us per "
@@ -1284,9 +1390,18 @@ def phase_model(torch, np) -> dict:
 
 
 def phase_build_report(_build, build_log: str) -> None:
-    """ptxas's registers, spills and static shared memory of the bf16
-    flash kernel's instances and the probe, and any ptxas advisory about
-    them.  A spill in the flash kernel fails the phase."""
+    """ptxas's registers, spills and static shared memory of the block
+    kernel's two instantiations (the store in shared or in device
+    memory), of the bf16 flash kernel's instances and of the probe, and
+    any ptxas advisory about the flash kernel.  A spill in the flash
+    kernel fails the phase."""
+    for name, regs, st, ld, smem in ptxas_report(build_log,
+                                                 "block_step_kernel"):
+        store = "shared" if "ILb1E" in name else "global"
+        log("build", f"ptxas block_step_kernel<{store} store> ({name}): "
+            f"{regs} registers, spill stores {st} B, spill loads {ld} B, "
+            f"static smem {smem} B (dynamic smem per launch: the kernels "
+            "phase)")
     for name, regs, st, ld, smem in ptxas_report(
             build_log, "flash_attention_sm90_kernel") + ptxas_report(
             build_log, "wgmma_probe_kernel"):
@@ -1372,8 +1487,10 @@ def main() -> int:
             ms=r.get("ms"), plain_ms=r.get("plain_ms"),
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by", "bytes"),
             library_ms=r.get("library_ms")))
-        if "us_per_event" in r:
-            kernels[-1]["us_per_event"] = r["us_per_event"]
+        for extra in ("us_per_event", "call_ms", "host_us_per_launch",
+                      "store", "smem_bytes"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

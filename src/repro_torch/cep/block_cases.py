@@ -14,10 +14,24 @@ from repro_torch.cep import engine, patterns as pat, runner
 from repro_torch.data import streams
 
 # (scenario, N, shedder): SEQ/at-open at the stock main path's shape and
-# at N=2048, ANY/in-windows (bus) and ANY/at-open with E-BL (soccer).
+# at N=2048, ANY/in-windows (bus) and ANY/at-open with E-BL (soccer) —
+# all with the store in shared memory — and soccer's 8 ANY patterns at
+# N=2048 under PM-BL, whose store (about 1 MB) takes the kernel's
+# device-memory instantiation.
 CASES = (("stock", 256, "pspice"), ("stock", 256, "pmbl"),
          ("stock", 2048, "pspice"), ("bus", 128, "pmbl"),
-         ("soccer", 256, "ebl"))
+         ("soccer", 256, "ebl"), ("soccer", 2048, "pmbl"))
+
+
+def case_config(name: str, N: int, shedder: str, *, W: int = 32, **costs):
+    """``(compiled patterns, cfg)`` of a case: scenario ``name`` with an
+    N-slot store, matches and stats on, the block backend at W events per
+    launch and a latency bound of 2 ms."""
+    cp = pat.compile_patterns(streams.get_scenario(name).specs())
+    return cp, runner.default_config(
+        cp, max_pms=N, latency_bound=0.002, shedder=shedder,
+        emit_matches=True, gather_stats=True, backend="cuda_block",
+        block_events=W, **costs)
 
 
 def firing_block(name: str, N: int, shedder: str, device, *, W: int = 32,
@@ -30,11 +44,7 @@ def firing_block(name: str, N: int, shedder: str, device, *, W: int = 32,
     ``default_config`` cost keywords."""
     sc = streams.get_scenario(name)
     specs = sc.specs()
-    cp = pat.compile_patterns(specs)
-    cfg = runner.default_config(cp, max_pms=N, latency_bound=0.002,
-                                shedder=shedder, emit_matches=True,
-                                gather_stats=True, backend="cuda_block",
-                                block_events=W, **costs)
+    cp, cfg = case_config(name, N, shedder, W=W, **costs)
     rate = 10.0 / (cfg.c_base + cfg.c_match * 30)
     ev = streams.classify(specs, sc.raw(n=n), rate=rate, seed=1,
                           device=device)

@@ -845,10 +845,10 @@ def _own(carry: Carry) -> Carry:
                     if k != "pms"})
 
 
-def _run_block(cfg: EngineConfig, model: EngineModel, carry: Carry,
-               blk: EventBatch, i0: int, n_valid: int,
-               rows: dict) -> Carry:
-    """One event block through the block kernel.
+def _run_block(cfg: EngineConfig, model: EngineModel,
+               scan: kblock.BlockScan, b: int, i0: int,
+               n_valid: int) -> None:
+    """Block ``b`` of ``scan`` through the block kernel.
 
     Fused (the default): ONE launch per block for every shedder, with
     Algorithm-2 fires handled in the kernel and no host sync.  Replay
@@ -858,25 +858,22 @@ def _run_block(cfg: EngineConfig, model: EngineModel, carry: Carry,
     and sheds), and the kernel re-enters at ``fire_idx + 1``.  Each
     re-entry reads the kernel's status: one host sync per launch."""
     if cfg.shedder not in (SHED_PSPICE, SHED_PMBL) or kblock.fused_shed(cfg):
-        carry, _, _ = kblock.block_step(cfg, model, carry, blk, i0, 0,
-                                        n_valid, rows)
-        return carry
+        scan.launch(b, i0, 0, n_valid)
+        return
     replay_cfg = dataclasses.replace(cfg, backend=BACKEND_CUDA)
+    off = b * cfg.block_events
     s = 0
     while s < n_valid:
-        carry, _, status = kblock.block_step(cfg, model, carry, blk, i0, s,
-                                             n_valid, rows)
-        fired, j = (int(v) for v in _read(status))
+        fired, j = (int(v) for v in _read(scan.launch(b, i0, s, n_valid)))
         if not fired:
             break
-        one = EventBatch(*(x[j:j + 1] for x in blk))
-        carry, row = _scan_events(replay_cfg, model, one, carry,
+        one = EventBatch(*(x[off + j:off + j + 1] for x in scan.events))
+        carry, row = _scan_events(replay_cfg, model, one, scan.carry,
                                   _wrap32(i0 + j))
-        carry = _own(carry)
+        kblock.write_back(scan.carry, carry)
         for name, v in zip(StepOut._fields, row):
-            rows[name][j] = v[0]
+            scan.rows[name][off + j] = v[0]
         s = j + 1
-    return carry
 
 
 def _scan_event_blocks(cfg: EngineConfig, model: EngineModel,
@@ -884,18 +881,19 @@ def _scan_event_blocks(cfg: EngineConfig, model: EngineModel,
                        start: int) -> tuple[Carry, StepOut]:
     """``_scan_events`` with one kernel launch per ``cfg.block_events``
     events.  Event indices stay global, so monolithic, chunked and
-    blocked runs replay the same operator sequence."""
+    blocked runs replay the same operator sequence.  The launches share
+    one argument block (``kblock.BlockScan``): the kernel updates the
+    scan's own copy of the carry in place."""
     n = events.ev_class.shape[0]
     W = cfg.block_events
     blocks, nb = _pad_event_blocks(events, n, W)
     carry = _own(carry)
     rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device)
+    scan = kblock.BlockScan(cfg, model, carry, blocks, rows)
     for b in range(nb):
         off = b * W
-        blk = EventBatch(*(x[off:off + W] for x in blocks))
-        carry = _run_block(cfg, model, carry, blk, _wrap32(start + off),
-                           min(max(n - off, 0), W),
-                           {k: v[off:off + W] for k, v in rows.items()})
+        _run_block(cfg, model, scan, b, _wrap32(start + off),
+                   min(max(n - off, 0), W))
     return carry, StepOut(**{k: v[:n] for k, v in rows.items()})
 
 

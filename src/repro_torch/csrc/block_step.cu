@@ -1,6 +1,6 @@
 // The event-block megakernel: W events of the whole CEP operator in one
 // launch, with the PM store, the window ring, the overload scalars, the
-// latency ring and the PRNG key kept on the device for the whole block.
+// latency ring and the PRNG key kept on the chip for the whole block.
 //
 // Replaces: src/repro/kernels/block_step.py::_block_kernel (one Pallas
 // call with every operand a VMEM-resident block and an in-kernel
@@ -9,35 +9,84 @@
 // Per event, in the order of the reference step: expire → Algorithm 1
 // (lazy f-inverse) → Algorithm 2 when it fires (fused: the pSPICE lookup
 // or the PM-BL uniforms, then the histogram-threshold select) → E-BL →
-// SEQ / ANY advance → completions and match tiles → stats scatter →
-// spawn by rank → simulated time and latency ring → the StepOut row.  In
-// the replay protocol the kernel stops before the first fire and reports
-// it; the host replays that event and re-enters after it.
+// SEQ / ANY advance → completions and match tiles → stats → spawn by
+// rank → simulated time and latency ring → the StepOut row.  In the
+// replay protocol the kernel stops before the first fire and reports it;
+// the host replays that event and re-enters after it.
 //
-// Design: one CTA (kThreads threads) per lane, the W-event loop inside
-// the kernel, __syncthreads() between the phases of an event, threads
-// striding over the P·N slots.  The store stays in device memory: at the
-// stock size it is about 10 KB and lives in L2.  The operator's scalar
-// control state (clock, EMA, E-BL fraction, counters, latency-ring
-// pointer, key) lives in thread 0's registers and is written back once at
-// the end; thread 0 also runs the per-pattern bookkeeping (P and K are
-// small).  Algorithm 2's PRNG is threefry inside the kernel: each fire
-// splits the key itself and PM-BL draws the fire's uniforms from the
-// subkey, so no per-block key chain or uniform block is precomputed.
+// What bounds it: neither bytes nor operations.  One CTA walks W events
+// in order, and each event depends on the last through the store and the
+// simulated clock, so the time per event is a chain of latencies:
+// barriers, warp 0's scalar arithmetic, and every load, shuffle and
+// atomic on that chain (about 3 900 cycles per event at the stock shape,
+// read with clock64 marks per phase in a timing build: ~1 400 in the
+// advance pass, ~1 800 in warp 0's control and tail).  Its byte bound (the store read and
+// written once per launch, ~64 ns at the stock shape) is hundreds of
+// times below that chain and is not the target.
+//
+// Design, against that chain:
+// - On chip for the whole launch.  At entry the store (active, state,
+//   open_idx, bind and, unless every pattern is SEQ, the idset), the
+//   fire's scratch (scores, selection flags), the W event rows, the
+//   model's per-pattern columns, `trans` and the utility tables, the ring,
+//   ring_ptr and the per-pattern counters are staged in shared memory:
+//   each piece that is 16-byte aligned and a multiple of 16 bytes long by
+//   one bulk copy (cp.async.bulk completing on an mbarrier), the rest by
+//   plain loads.  Everything is written back once at exit, the replay
+//   protocol's early stop included.  A store too large for the 227 KB of
+//   one SM (e.g. P = 8 ANY slots at N = 2048) takes the second
+//   instantiation of the same kernel, kSharedStore = false, whose store
+//   and scratch stay in device memory; the wrapper picks it from the byte
+//   count before the launch (kernels/block_step.py::plan_layout, mirrored
+//   by plan() below and checked at every launch).  The event rows, the
+//   model tables and the stats counts each stay in device memory instead
+//   when they alone exceed their share (32, 48 and 64 KB).
+// - Stats without float atomics into device memory: each (p, s, s') cell
+//   counts its hits of the launch in shared memory (integer atomics, one
+//   per cell and warp), and at exit the cell's float gets c sequential
+//   adds of its one addend (repeat_add, below).
+// - Warp 0 runs the control phase and the tail: lane p owns pattern p (a
+//   loop above 32 patterns), each lane issues all its loads before it
+//   uses any, and the operator's scalars (clock, EMA, E-BL fraction,
+//   counters, latency-ring pointer, key) live in the registers of all 32
+//   lanes, which compute them redundantly and identically, so no value is
+//   broadcast.  The tail of event j leaves n_act holding the PMs that
+//   survive event j + 1's expiries (the advance pass counts the expiries
+//   of the PMs it keeps, the tail those it spawns), so the next control
+//   phase starts from one register; it also loads event j + 1's row
+//   (per pattern into shared arrays, arrival and id into registers), and
+//   stages each event's StepOut row and latency sample in shared memory
+//   for the exit.  The f-inverse runs only when
+//   Algorithm 1 sheds (ρ is 0 otherwise: the same bits).  The select's
+//   128-bucket search is a warp scan.  Every float operation of
+//   detect_overload, cost_sum, E-BL and the EMA keeps its order and its
+//   _rn/__fmaf_rn intrinsic under -fmad=false.
+// - Barriers per event: 2 (PR 12's kernel: 7, plus the fire's).  Control
+//   (warp 0) | barrier | advance pass (all threads) | barrier | warp 0:
+//   shed accounting, cost sum, spawn census, spawn writes, time step and
+//   the next event's control.  The advance pass also counts the next
+//   event's expiries and the completions and leaves a bitmask of the
+//   free slots (warp 0 takes a pattern's lowest free slot from its first
+//   set bit, the r-th by popcount and warp scan), so no pass of its own
+//   is left for them; a warp whose slots are all free skips to its match
+//   tiles and free slots.  A fire adds 12 barriers (scores, three
+//   histogram levels of three, the leftover budget's scan, the drop).
+//   The CTA has one thread per slot up to 512, spread evenly over the
+//   P·N slots (stock N = 256, P = 3: 384 threads, two slots each); one
+//   slot per thread (768 or 1 024 threads) measured no faster.
 //
 // Rounding follows the port's host path: the sites where the reference's
 // compiler fuses a multiply into an add (the shed cost, the EMA, E-BL's
 // raw priority and mean, the latency models, the per-pattern cost sum)
 // are __fmaf_rn, every other float op a _rn intrinsic, and the build
 // passes -fmad=false.  The per-pattern cost sum keeps the reference's
-// order for each P (one FMA, a lane tree, or an FMA chain).
+// order for each P (one FMA, a lane tree, or an FMA chain).  Algorithm
+// 2's PRNG is threefry inside the kernel: each fire splits the key and
+// PM-BL draws the fire's uniforms from the subkey.
 //
-// Bound: neither bytes nor operations — one SM walks W events in order
-// with about seven block-wide barriers each; per event it touches the
-// P·N store once or twice (a few tens of KB at N = 2048, from L2).  The
-// time per event is latency: barriers plus thread 0's serial scalar
-// phase.  This is the simple, right version; the store in shared memory,
-// fewer barriers and lanes on other SMs are later work.
+// Lanes (one CTA per lane) and clusters for stores beyond one SM are not
+// built; all per-lane state is addressed from the argument block.
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -45,8 +94,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;
 constexpr int kNbins = 128;          // the engine's shed histogram width
 constexpr float kBig = 3.4e38f;      // finite inactive-slot sentinel
 constexpr unsigned kFull = 0xffffffffu;
@@ -54,7 +102,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // Pattern kinds and spawn modes (cep/patterns.py), census codes and
 // shedders as the Python wrapper encodes them.
 constexpr int KIND_SEQ = 0;
-constexpr int SPAWN_AT_OPEN = 0, SPAWN_IN_WINDOWS = 1;
+constexpr int SPAWN_IN_WINDOWS = 1, SPAWN_AT_OPEN = 0;
 constexpr int CENSUS_SEQ = 0, CENSUS_ANY = 1;
 constexpr int CENSUS_AT_OPEN = 0, CENSUS_IN_WINDOWS = 1;
 constexpr int SHED_PSPICE = 1, SHED_PMBL = 2, SHED_EBL = 3;
@@ -65,14 +113,15 @@ constexpr int LINEAR = 0;
 // Everything one launch needs; the wrapper fills it field by field
 // (kernels/block_step.py::_Args mirrors this layout).
 struct BlockStepArgs {
-  // The event block: W rows, already offset to the block.
-  const int32_t* ev_class;     // (W, P)
-  const int32_t* ev_bind;      // (W, P)
-  const uint8_t* ev_open;      // (W, P)
-  const int32_t* ev_id;        // (W,)
-  const float* ev_rand;        // (W,)
-  const float* ebl_raw;        // (W,)
-  const float* arrival;        // (W,)
+  // The event rows of the scan, (n_rows, ...); the kernel reads rows
+  // [blk·W, blk·W + W).
+  const int32_t* ev_class;     // (n_rows, P)
+  const int32_t* ev_bind;      // (n_rows, P)
+  const uint8_t* ev_open;      // (n_rows, P)
+  const int32_t* ev_id;        // (n_rows,)
+  const float* ev_rand;        // (n_rows,)
+  const float* ebl_raw;        // (n_rows,)
+  const float* arrival;        // (n_rows,)
   // The model.
   const int32_t* trans;        // (P, M, C1)
   const int32_t* kind;         // (P,)
@@ -115,23 +164,30 @@ struct BlockStepArgs {
   float* lat_n;                // (S,)
   float* lat_l;                // (S,)
   int32_t* lat_ptr;
-  // The block's StepOut rows and match tiles (W, P, N).
+  // The scan's StepOut rows (n_rows,) and match tiles (n_rows, P, N);
+  // the kernel writes rows [blk·W + s, blk·W + stop).
   float* l_e;
   float* n_pm;
   uint8_t* shed;
   uint8_t* dropped;
   int32_t* m_open;
   int32_t* m_bind;
-  // Scratch of one fire (P·N scores, P·N selection flags) and the status
-  // [fires, index of the last fire, or W].
+  // Scratch of one fire in device memory (P·N scores, P·N selection
+  // flags; used by the device-memory store only) and the status [fires,
+  // index of the last fire, or W].
   float* scratch_u;
   uint8_t* scratch_sel;
   int32_t* status;
-  // Shapes, the span [s, n_valid) of the block to run, its first index.
+  // Shapes, the span [s, n_valid) of the block to run, its first global
+  // event index and the block's index in the scan.
   int P, N, M, C1, A, K, S, B, W;
-  int s, n_valid, i0;
+  int s, n_valid, i0, blk;
   // Static configuration.
   int kinds, spawn_modes, shedder, fused, emit, stats;
+  // The layout the wrapper planned: the store in shared memory (else
+  // device memory); event rows, model tables and stats counts in shared
+  // memory; the dynamic shared-memory bytes this implies.
+  int store_shared, rows_smem, model_smem, stats_smem, smem_bytes;
   // Configuration constants, rounded to float32 by the wrapper.
   float c_base, c_match, c_ebl, c_shed_base, c_shed_pm;
   float latency_bound, safety_buffer, ebl_backlog_gain, ebl_decay;
@@ -141,62 +197,273 @@ struct BlockStepArgs {
 namespace {
 
 // ---------------------------------------------------------------------------
-// Block-wide helpers (every thread calls them; each ends in a barrier so
-// the buffer may be reused at once).
+// The shared-memory layout (kernels/block_step.py::plan_layout mirrors it
+// byte for byte; the launch refuses a block whose smem_bytes differ)
 // ---------------------------------------------------------------------------
 
-__device__ int block_sum(int v, int* wbuf) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  if ((threadIdx.x & 31) == 0) wbuf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int t = 0;
-  for (int k = 0; k < kWarps; ++k) t += wbuf[k];
-  __syncthreads();
-  return t;
+// Per-pattern arrays, each of round_up(P, 4) 32-bit words.
+enum PatArray {
+  PA_NACT, PA_EXPN, PA_DROP, PA_CMP, PA_TAKE, PA_RPTR,
+  PA_NPROC, PA_CC, PA_PC, PA_CP, PA_WS, PA_FIN, PA_KIND, PA_SMODE, PA_USES,
+  PA_SCNT, PA_BINS, PA_EB, PA_EC, PA_EO, kPatArrays
+};
+// Per-(pattern, ring entry) arrays, each of round_up(P·K, 4) words.
+enum PkArray { PK_RING, PK_EXISTS, PK_TKOPEN, kPkArrays };
+constexpr int kRedSlots = 8;   // reduction slots of 32 words (one per warp)
+
+__host__ __device__ inline size_t pad16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
 }
 
-__device__ float block_min(float v, float* fbuf) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  if ((threadIdx.x & 31) == 0) fbuf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = fbuf[0];
-  for (int k = 1; k < kWarps; ++k) t = fminf(t, fbuf[k]);
-  __syncthreads();
-  return t;
+struct Layout {
+  int npat, npk;
+  size_t pat, pk, hist, edges, red, freemask;
+  size_t o_le, o_npm, o_shed, o_drop, o_latn, o_latl;           // outputs
+  size_t r_class, r_bind, r_open, r_id, r_rand, r_raw, r_arr;  // rows
+  size_t trans, ut, hits;
+  size_t act, state, open, bind, ids, u, sel;                   // store
+  size_t total;
+};
+
+__host__ __device__ inline Layout plan(const BlockStepArgs& a) {
+  Layout L{};
+  const size_t P = a.P, F = static_cast<size_t>(a.P) * a.N, W = a.W;
+  size_t o = 0;
+  auto take = [&o](size_t bytes) {
+    const size_t at = o;
+    o += pad16(bytes);
+    return at;
+  };
+  L.npat = (a.P + 3) & ~3;
+  L.npk = (a.P * a.K + 3) & ~3;
+  L.pat = take(4u * kPatArrays * L.npat);
+  L.pk = take(4u * kPkArrays * L.npk);
+  L.hist = take(4u * kNbins);
+  L.edges = take(4u * (kNbins + 4));
+  L.red = take(4u * kRedSlots * 32);
+  L.freemask = take(4 * ((F + 31) / 32));
+  L.o_le = take(4 * W);
+  L.o_npm = take(4 * W);
+  L.o_shed = take(W);
+  L.o_drop = take(W);
+  L.o_latn = take(4 * W);
+  L.o_latl = take(4 * W);
+  if (a.rows_smem) {
+    L.r_class = take(4 * W * P);
+    L.r_bind = take(4 * W * P);
+    L.r_open = take(W * P);
+    L.r_id = take(4 * W);
+    L.r_rand = take(4 * W);
+    L.r_raw = take(4 * W);
+    L.r_arr = take(4 * W);
+  }
+  if (a.model_smem) {
+    L.trans = take(4 * P * a.M * a.C1);
+    L.ut = take(4 * P * a.B * a.M);
+  }
+  if (a.stats && a.stats_smem) L.hits = take(4 * P * a.M * a.M);
+  if (a.store_shared) {
+    L.act = take(F);
+    L.state = take(4 * F);
+    L.open = take(4 * F);
+    L.bind = take(4 * F);
+    if (a.kinds != CENSUS_SEQ) L.ids = take(4 * F * a.A);
+    L.u = take(4 * F);
+    L.sel = take(F);
+  }
+  L.total = o;
+  return L;
 }
 
-__device__ float block_max(float v, float* fbuf) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  if ((threadIdx.x & 31) == 0) fbuf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = fbuf[0];
-  for (int k = 1; k < kWarps; ++k) t = fmaxf(t, fbuf[k]);
-  __syncthreads();
-  return t;
+// Threads per CTA: the P·N slots spread evenly over at most kMaxThreads,
+// whole warps.
+__host__ __device__ inline int block_threads(int F) {
+  const int iters = (F + kMaxThreads - 1) / kMaxThreads;
+  const int per = (F + iters - 1) / iters;
+  return per < 32 ? 32 : ((per + 31) / 32) * 32;
 }
 
-// Exclusive prefix sum of v over the threads in thread order.
-__device__ int block_exclusive_scan(int v, int* wbuf) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+// ---------------------------------------------------------------------------
+// Stats: c sequential float adds of one addend
+// ---------------------------------------------------------------------------
+
+// REPEAT_ADD_BEGIN
+// x ← x + a, c times, each add rounded to nearest even: the bits of c
+// sequential __fadd_rn, in far fewer steps.  Why the stats may use it:
+// PR 12's kernel added each hit with a float atomic; within one event
+// every addend of a (p, s, s') cell is the same value (1, or
+// c_match·proc_cost[p]) and the events are ordered by barriers, so the
+// cell's float took exactly c sequential adds of its one addend — the
+// same sequence as the plain version's index_add_.  Counting the hits and
+// applying them here at exit gives those bits.
+//
+// Fast-forward: while x is a positive normal with ulp u and mantissa m
+// (2^23 ≤ m < 2^24) and q = a/u = fl + fr (fl integer, 0 ≤ fr < 1), every
+// add whose exact sum stays below the binade's top (m + fl ≤ 2^24 - 1)
+// rounds on the grid of multiples of u, so it adds the same d ulps: fl +
+// (fr > 1/2), or at a tie (fr = 1/2) the even choice, fl + (fl odd),
+// once m is even (an odd m takes one plain step first; d is then even,
+// so m stays even).  d = 0 means x absorbs a for good.  Anything else
+// (zero, subnormal, inf, NaN, a ≤ 0, a ≥ the binade) takes plain steps.
+__device__ inline float repeat_add(float x, float a, int c) {
+  while (c > 0) {
+    const float y = __fadd_rn(x, a);
+    --c;
+    if (y == x || y != y) return y;   // absorbed for good, or NaN
+    x = y;
+    if (c == 0 || !(a > 0.0f)) continue;
+    const uint32_t bits = __float_as_uint(x);
+    const int eb = static_cast<int>((bits >> 23) & 0xffu);
+    if ((bits >> 31) != 0u || eb == 0 || eb == 0xff) continue;
+    const int ex = eb - 127;
+    const int32_t m = static_cast<int32_t>((bits & 0x7fffffu) | 0x800000u);
+    const float q = ldexpf(a, 23 - ex);
+    if (!(q < 16777216.0f)) continue;
+    const float fl = floorf(q);
+    const float fr = __fsub_rn(q, fl);
+    const int32_t fli = static_cast<int32_t>(fl);
+    int32_t d;
+    if (fr == 0.5f) {
+      if (m & 1) continue;
+      d = fli + (fli & 1);
+    } else {
+      d = fli + (fr > 0.5f ? 1 : 0);
+    }
+    if (d == 0) return x;
+    if (m + fli > 16777215) continue;
+    const int32_t kmax = (16777215 - fli - m) / d + 1;
+    const int32_t k = c < kmax ? c : kmax;
+    c -= k;
+    x = ldexpf(static_cast<float>(m + k * d), ex - 23);
+  }
+  return x;
+}
+// REPEAT_ADD_END
+
+// ---------------------------------------------------------------------------
+// PTX helpers: the entry's bulk copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// A wait that has not completed after ~4e9 cycles (seconds; the copies
+// take microseconds) traps, so a fault ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One piece to stage: `bytes` from `src` (device memory) to `dst`.
+struct Piece {
+  void* dst;
+  const void* src;
+  size_t bytes;
+};
+
+__device__ __forceinline__ bool bulk_ok(const Piece& c) {
+  return c.bytes > 0 && c.bytes % 16 == 0 &&
+         (reinterpret_cast<uintptr_t>(c.src) % 16) == 0 &&
+         (smem_u32(c.dst) % 16) == 0;
+}
+
+// Copy by plain loads and stores, 16 bytes a thread where both ends are
+// aligned for it, else 4, else 1.
+__device__ void copy_plain(void* dst, const void* src, size_t n, int tid,
+                           int T) {
+  const uintptr_t al = reinterpret_cast<uintptr_t>(dst) |
+                       reinterpret_cast<uintptr_t>(src);
+  size_t done = 0;
+  if (al % 16 == 0) {
+    const size_t n16 = n / 16;
+    for (size_t k = tid; k < n16; k += T) {
+      static_cast<int4*>(dst)[k] = static_cast<const int4*>(src)[k];
+    }
+    done = n16 * 16;
+  } else if (al % 4 == 0) {
+    const size_t n4 = n / 4;
+    for (size_t k = tid; k < n4; k += T) {
+      static_cast<int32_t*>(dst)[k] = static_cast<const int32_t*>(src)[k];
+    }
+    done = n4 * 4;
+  }
+  for (size_t k = done + tid; k < n; k += T) {
+    static_cast<uint8_t*>(dst)[k] = static_cast<const uint8_t*>(src)[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Warp helpers (all 32 lanes, converged)
+// ---------------------------------------------------------------------------
+
+// ctr[key] += the number of lanes with `hit` and this key: one shared
+// atomic per distinct key of the warp, one key at a time (ballots and a
+// shuffle; lanes hold neighbouring slots, so a warp meets one or two
+// patterns, and __match_any_sync costs more here).
+__device__ __forceinline__ void warp_count(int* ctr, int key, bool hit) {
+  const int lane = threadIdx.x & 31;
+  unsigned pending = __ballot_sync(kFull, hit);
+  while (pending) {
+    const int leader = __ffs(pending) - 1;
+    const int k = __shfl_sync(kFull, key, leader);
+    const unsigned grp = __ballot_sync(kFull, hit && key == k);
+    if (lane == leader) atomicAdd(&ctr[k], __popc(grp));
+    pending &= ~grp;
+  }
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  return __reduce_add_sync(kFull, v);
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
+    const int y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += y;
   }
-  if (lane == 31) wbuf[warp] = x;
-  __syncthreads();
-  int before = 0;
-  for (int k = 0; k < warp; ++k) before += wbuf[k];
-  __syncthreads();
-  return before + x - v;
+  return v;
 }
 
 // ---------------------------------------------------------------------------
-// Thread 0's scalar arithmetic (the port's host path, op by op).
+// The control phase's scalar arithmetic (the port's host path, op by op)
 // ---------------------------------------------------------------------------
 
 __device__ float predict_latency(float a, float b, int kind, float n) {
@@ -223,172 +490,357 @@ __device__ float invert_latency(float a, float b, int kind, float l) {
   return n;
 }
 
+struct LatencyFits {
+  float fa, fb, ga, gb;
+  int fk, gk;
+};
+
 // Algorithm 1: shed when l_q + f(n) + g(n) + b_s > LB; ρ = n - floor(
-// f^{-1}(LB - l_q - g(n) - b_s) + 1e-4), saturated like XLA's cast.
-__device__ void detect_overload(const BlockStepArgs& a, float fa, float fb,
-                                int fk, float ga, float gb, int gk,
-                                float l_q, int n_pm, bool* shed, int* rho) {
+// f^{-1}(LB - l_q - g(n) - b_s) + 1e-4), saturated like XLA's cast.  The
+// inverse runs only when the event sheds (ρ is 0 otherwise), and only
+// when the caller asks for ρ.
+__device__ void detect_overload(const BlockStepArgs& a, const LatencyFits& m,
+                                float l_q, int n_pm, bool want_rho,
+                                bool* shed, int* rho) {
   const float n_f = __int2float_rn(n_pm);
-  const float l_p = predict_latency(fa, fb, fk, n_f);
-  const float l_s = predict_latency(ga, gb, gk, n_f);
+  const float l_p = predict_latency(m.fa, m.fb, m.fk, n_f);
+  const float l_s = predict_latency(m.ga, m.gb, m.gk, n_f);
   const float l_e = __fadd_rn(l_q, l_p);
   *shed = __fadd_rn(__fadd_rn(l_e, l_s), a.safety_buffer) > a.latency_bound;
+  *rho = 0;
+  if (!*shed || !want_rho) return;
   const float l_p_new = fmaxf(
       __fsub_rn(__fsub_rn(__fsub_rn(a.latency_bound, l_q), l_s),
                 a.safety_buffer), 0.0f);
   const int n_keep = __float2int_rz(
-      floorf(__fadd_rn(invert_latency(fa, fb, fk, l_p_new), 1e-4f)));
-  *rho = *shed ? max(n_pm - n_keep, 0) : 0;
+      floorf(__fadd_rn(invert_latency(m.fa, m.fb, m.fk, l_p_new), 1e-4f)));
+  *rho = max(n_pm - n_keep, 0);
 }
 
 // t_proc = c_base + Σ_p cp_p·n_p in the reference's order for this P
 // (engine._cost_sum): one FMA for P = 1; for P ∈ {4, 8, 8k} vector lanes
-// of FMA chains and a halving tree; otherwise an FMA chain.
-__device__ float cost_sum(const float* cp, const int* n, int P,
-                          float c_base) {
-  if (P == 1) return __fmaf_rn(cp[0], __int2float_rn(n[0]), c_base);
+// of FMA chains (lane k over p = k, k + vf, ...) and a halving tree;
+// otherwise an FMA chain.  nf holds the counts as floats.  kP > 0 fixes P
+// at compile time, so the loads are issued before the chain starts.
+template <int kP>
+__device__ __forceinline__ float cost_sum_p(const float* cp, const float* nf,
+                                            int P, float c_base) {
+  if (kP > 0) P = kP;
+  if (P == 1) return __fmaf_rn(cp[0], nf[0], c_base);
   if (P == 4 || P % 8 == 0) {
     const int vf = P < 8 ? P : 8;
     float lanes[8];
-    for (int k = 0; k < vf; ++k) lanes[k] = __fmul_rn(cp[k], __int2float_rn(n[k]));
-    for (int p = vf; p < P; ++p) {
-      lanes[p % vf] = __fmaf_rn(cp[p], __int2float_rn(n[p]), lanes[p % vf]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k < vf) {
+        float acc = __fmul_rn(cp[k], nf[k]);
+        for (int p = k + vf; p < P; p += vf) acc = __fmaf_rn(cp[p], nf[p], acc);
+        lanes[k] = acc;
+      }
     }
-    for (int h = vf / 2; h >= 1; h /= 2) {
-      for (int k = 0; k < h; ++k) lanes[k] = __fadd_rn(lanes[k], lanes[k + h]);
+#pragma unroll
+    for (int h = 4; h >= 1; h /= 2) {
+      if (h < vf) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (k < h) lanes[k] = __fadd_rn(lanes[k], lanes[k + h]);
+        }
+      }
     }
     return __fadd_rn(lanes[0], c_base);
   }
-  float acc = __fmul_rn(cp[0], __int2float_rn(n[0]));
-  for (int p = 1; p < P; ++p) acc = __fmaf_rn(cp[p], __int2float_rn(n[p]), acc);
+  float acc = __fmul_rn(cp[0], nf[0]);
+  for (int p = 1; p < P; ++p) acc = __fmaf_rn(cp[p], nf[p], acc);
   return __fadd_rn(acc, c_base);
 }
 
-// What thread 0 tells the block about the current event.
-struct EventFlags {
-  int stop;      // replay protocol: the event fires and is not committed
-  int fire;      // fused protocol: Algorithm 2 runs on this event
-  int dropped;   // E-BL dropped the event
-  int need;      // PMs still to drop (threshold select)
-  int kb;        // the select's bucket at this level
-  int spawn_any; // some in-window candidate got a slot
-  int32_t eid;
-  uint32_t sub[2];
-  float lo, hi;
-};
+__device__ float cost_sum(const float* cp, const float* nf, int P,
+                          float c_base) {
+  switch (P) {
+    case 1: return cost_sum_p<1>(cp, nf, P, c_base);
+    case 2: return cost_sum_p<2>(cp, nf, P, c_base);
+    case 3: return cost_sum_p<3>(cp, nf, P, c_base);
+    case 4: return cost_sum_p<4>(cp, nf, P, c_base);
+    case 5: return cost_sum_p<5>(cp, nf, P, c_base);
+    case 6: return cost_sum_p<6>(cp, nf, P, c_base);
+    case 7: return cost_sum_p<7>(cp, nf, P, c_base);
+    case 8: return cost_sum_p<8>(cp, nf, P, c_base);
+    default: return cost_sum_p<0>(cp, nf, P, c_base);
+  }
+}
 
-// One CTA per SM at most: the register budget may go to thread 0's
-// scalar state instead of occupancy no launch can use.
-__global__ void __launch_bounds__(kThreads, 1)
+// What warp 0 tells the block about the current event.
+struct EventFlags {
+  int flags;     // kStop | kFire | kDropped
+  int need;      // PMs to drop (threshold select)
+  int32_t eid;   // the event's distinctness id
+  uint32_t sub[2];
+};
+// kStop: replay protocol, the event fires and is not committed; kFire:
+// fused protocol, Algorithm 2 runs on this event; kDropped: E-BL dropped
+// the event.
+constexpr int kStop = 1, kFire = 2, kDropped = 4;
+
+// One CTA per SM at most: the registers may go to warp 0's scalar state
+// instead of occupancy no launch can use.
+template <bool kSharedStore>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 block_step_kernel(const BlockStepArgs a) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ EventFlags ev;
-  const int P = a.P, N = a.N, M = a.M, A = a.A, K = a.K;
+  __shared__ uint64_t mbar;
+  const Layout L = plan(a);
+  const int P = a.P, N = a.N, M = a.M, A = a.A, K = a.K, W = a.W;
   const int F = P * N;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
+  // Slot f = base + tid lies in pattern f / N: the first, and the step
+  // from one stride of T slots to the next.
+  const int p_first = tid / N, r_first = tid % N;
+  const int p_step = T / N, r_step = T % N;
   const bool pm_shedder = a.shedder == SHED_PSPICE || a.shedder == SHED_PMBL;
   const bool at_open_census = a.spawn_modes == CENSUS_AT_OPEN;
+  const bool any_ids = a.kinds != CENSUS_SEQ;
 
-  int* n_act = smem;              // (P) active PMs per pattern
-  int* n_exp = n_act + P;         // (P) expiries this event
-  int* n_drop = n_exp + P;        // (P) PMs dropped by this event's shed
-  int* n_cmp = n_drop + P;        // (P) completions this event
-  int* ec = n_cmp + P;            // (P) event class
-  int* eb = ec + P;               // (P) event binding
-  int* eo = eb + P;               // (P) window-open flag
-  int* lc = eo + P;               // (P) live class (0 when E-BL dropped)
-  int* first_free = lc + P;       // (P) lowest inactive slot (at-open)
-  int* n_take = first_free + P;   // (P) candidates that get a slot
-  int* base = n_take + P;         // (P) free slots of earlier patterns
-  int* exists = base + P;         // (P, K) a PM of this window is live
-  int* take_rank = exists + P * K;  // (P, K) rank among free slots, or -1
-  int* cand_open = take_rank + P * K;  // (P, K) open index of the spawn
-  int* free_at = cand_open + P * K;    // (P, K) the r-th free slot
-  int* hist = free_at + P * K;         // (kNbins)
-  int* wbuf = hist + kNbins;           // (kWarps)
-  float* edges = reinterpret_cast<float*>(wbuf + kWarps);  // (kNbins + 1)
-  float* fbuf = edges + kNbins + 1;    // (kWarps)
-  float* cp = fbuf + kWarps;           // (P) c_match · proc_cost
+  // -- pointers --------------------------------------------------------------
+  int* pat = reinterpret_cast<int*>(smem + L.pat);
+  int* n_act = pat + PA_NACT * L.npat;
+  int* n_expn = pat + PA_EXPN * L.npat;     // expiries at the next event
+  int* n_drop = pat + PA_DROP * L.npat;
+  int* n_cmp = pat + PA_CMP * L.npat;
+  int* n_take = pat + PA_TAKE * L.npat;
+  int* ring_ptr = pat + PA_RPTR * L.npat;
+  // The counts each event was matched against, as floats (cost_sum).
+  float* n_proc = reinterpret_cast<float*>(pat + PA_NPROC * L.npat);
+  float* cc = reinterpret_cast<float*>(pat + PA_CC * L.npat);
+  float* pc = reinterpret_cast<float*>(pat + PA_PC * L.npat);
+  float* cp = reinterpret_cast<float*>(pat + PA_CP * L.npat);
+  int* ws = pat + PA_WS * L.npat;
+  int* fin_s = pat + PA_FIN * L.npat;
+  int* kind = pat + PA_KIND * L.npat;
+  int* smode = pat + PA_SMODE * L.npat;
+  int* uses = pat + PA_USES * L.npat;
+  int* scnt = pat + PA_SCNT * L.npat;
+  int* bins = pat + PA_BINS * L.npat;
+  // The current event's row per pattern (binding, class, open flag),
+  // written by warp 0's tail of the event before.
+  int* eb_s = pat + PA_EB * L.npat;
+  int* ec_s = pat + PA_EC * L.npat;
+  int* eo_s = pat + PA_EO * L.npat;
+  int* pk = reinterpret_cast<int*>(smem + L.pk);
+  int* ring = pk + PK_RING * L.npk;
+  int* exists = pk + PK_EXISTS * L.npk;
+  int* tk_open = pk + PK_TKOPEN * L.npk;
+  int* hist = reinterpret_cast<int*>(smem + L.hist);
+  float* edges = reinterpret_cast<float*>(smem + L.edges);
+  int* red = reinterpret_cast<int*>(smem + L.red);
+  float* fred = reinterpret_cast<float*>(red);
+  uint32_t* freemask = reinterpret_cast<uint32_t*>(smem + L.freemask);
+  float* o_le = reinterpret_cast<float*>(smem + L.o_le);
+  float* o_npm = reinterpret_cast<float*>(smem + L.o_npm);
+  uint8_t* o_shed = smem + L.o_shed;
+  uint8_t* o_drop = smem + L.o_drop;
+  float* o_latn = reinterpret_cast<float*>(smem + L.o_latn);
+  float* o_latl = reinterpret_cast<float*>(smem + L.o_latl);
+  const int32_t lat_ptr0 = *a.lat_ptr;
 
-  // Thread 0's control state.
-  float sim = 0.f, ema = 0.f, prev = 0.f, eblf = 0.f, ovf = 0.f, ebld = 0.f;
-  float pshed = 0.f, scalls = 0.f, fa = 0.f, fb = 0.f, ga = 0.f, gb = 0.f;
-  float mean_eff = 0.f;
-  int fk = 0, gk = 0, nfire = 0, fire_idx = a.W;
-  int32_t lat_ptr = 0;
-  uint32_t key[2] = {0u, 0u};
+  const int64_t row0 = static_cast<int64_t>(a.blk) * W;
+  const int32_t* g_class = a.ev_class + row0 * P;
+  const int32_t* g_bind = a.ev_bind + row0 * P;
+  const uint8_t* g_open = a.ev_open + row0 * P;
+  const int32_t* ev_class = a.rows_smem
+      ? reinterpret_cast<const int32_t*>(smem + L.r_class) : g_class;
+  const int32_t* ev_bind = a.rows_smem
+      ? reinterpret_cast<const int32_t*>(smem + L.r_bind) : g_bind;
+  const uint8_t* ev_open = a.rows_smem ? smem + L.r_open : g_open;
+  const int32_t* ev_id = a.rows_smem
+      ? reinterpret_cast<const int32_t*>(smem + L.r_id) : a.ev_id + row0;
+  const float* ev_rand = a.rows_smem
+      ? reinterpret_cast<const float*>(smem + L.r_rand) : a.ev_rand + row0;
+  const float* ebl_raw = a.rows_smem
+      ? reinterpret_cast<const float*>(smem + L.r_raw) : a.ebl_raw + row0;
+  const float* arrival = a.rows_smem
+      ? reinterpret_cast<const float*>(smem + L.r_arr) : a.arrival + row0;
+  const int32_t* trans = a.model_smem
+      ? reinterpret_cast<const int32_t*>(smem + L.trans) : a.trans;
+  const float* ut = a.model_smem
+      ? reinterpret_cast<const float*>(smem + L.ut) : a.ut_tables;
+  int* hits = reinterpret_cast<int*>(smem + L.hits);
+  const bool hits_smem = a.stats && a.stats_smem;
+
+  uint8_t* act;
+  int32_t *st, *oi, *bd, *ids;
+  float* su;
+  uint8_t* ssel;
+  if constexpr (kSharedStore) {
+    act = smem + L.act;
+    st = reinterpret_cast<int32_t*>(smem + L.state);
+    oi = reinterpret_cast<int32_t*>(smem + L.open);
+    bd = reinterpret_cast<int32_t*>(smem + L.bind);
+    ids = reinterpret_cast<int32_t*>(smem + L.ids);
+    su = reinterpret_cast<float*>(smem + L.u);
+    ssel = smem + L.sel;
+  } else {
+    act = a.active;
+    st = a.state;
+    oi = a.open_idx;
+    bd = a.bind;
+    ids = a.idset;
+    su = a.scratch_u;
+    ssel = a.scratch_sel;
+  }
+
+  // -- entry: stage the launch's state ----------------------------------------
+  const size_t fz = static_cast<size_t>(F);
+  const Piece pieces[] = {
+      {smem + L.r_class, g_class, a.rows_smem ? 4ull * W * P : 0},
+      {smem + L.r_bind, g_bind, a.rows_smem ? 4ull * W * P : 0},
+      {smem + L.r_open, g_open, a.rows_smem ? 1ull * W * P : 0},
+      {smem + L.r_id, a.ev_id + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_rand, a.ev_rand + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_raw, a.ebl_raw + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_arr, a.arrival + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.trans, a.trans, a.model_smem ? 4ull * P * M * a.C1 : 0},
+      {smem + L.ut, a.ut_tables, a.model_smem ? 4ull * P * a.B * M : 0},
+      {smem + L.act, a.active, kSharedStore ? fz : 0},
+      {smem + L.state, a.state, kSharedStore ? 4 * fz : 0},
+      {smem + L.open, a.open_idx, kSharedStore ? 4 * fz : 0},
+      {smem + L.bind, a.bind, kSharedStore ? 4 * fz : 0},
+      {smem + L.ids, a.idset, kSharedStore && any_ids ? 4 * fz * A : 0},
+  };
+  constexpr int kPieces = sizeof(pieces) / sizeof(pieces[0]);
+  const uint32_t bar = smem_u32(&mbar);
+  if (tid == 0) mbar_init(bar, 1);
+  __syncthreads();
   if (tid == 0) {
-    sim = *a.sim_time; ema = *a.ema_gap; prev = *a.prev_arrival;
-    eblf = *a.ebl_frac; ovf = *a.overflow; ebld = *a.ebl_dropped;
-    pshed = *a.pms_shed; scalls = *a.shed_calls; lat_ptr = *a.lat_ptr;
-    key[0] = static_cast<uint32_t>(a.key[0]);
-    key[1] = static_cast<uint32_t>(a.key[1]);
-    fa = *a.f_a; fb = *a.f_b; fk = *a.f_kind;
-    ga = *a.g_a; gb = *a.g_b; gk = *a.g_kind;
-    mean_eff = __fmaf_rn(a.one_minus_floor, *a.ebl_raw_mean, a.ebl_floor);
+    uint32_t tx = 0;
+    for (int k = 0; k < kPieces; ++k) {
+      if (bulk_ok(pieces[k])) tx += static_cast<uint32_t>(pieces[k].bytes);
+    }
+    mbar_expect_tx(bar, tx);
+    for (int k = 0; k < kPieces; ++k) {
+      if (bulk_ok(pieces[k])) {
+        bulk_load(pieces[k].dst, pieces[k].src,
+                  static_cast<uint32_t>(pieces[k].bytes), bar);
+      }
+    }
+  }
+  for (int k = 0; k < kPieces; ++k) {
+    if (pieces[k].bytes > 0 && !bulk_ok(pieces[k])) {
+      copy_plain(pieces[k].dst, pieces[k].src, pieces[k].bytes, tid, T);
+    }
   }
   for (int p = tid; p < P; p += T) {
     n_act[p] = 0;
+    n_expn[p] = 0;
+    n_drop[p] = 0;
+    n_cmp[p] = 0;
+    ring_ptr[p] = a.ring_ptr[p];
+    cc[p] = a.complex_count[p];
+    pc[p] = a.pms_created[p];
     cp[p] = __fmul_rn(a.c_match, a.proc_cost[p]);
+    ws[p] = a.window_size[p];
+    fin_s[p] = a.final_state[p];
+    kind[p] = a.kind[p];
+    smode[p] = a.spawn_mode[p];
+    uses[p] = a.uses_binding[p];
+    scnt[p] = a.spawn_counts[p];
+    bins[p] = a.ut_bins[p];
   }
+  for (int q = tid; q < P * K; q += T) {
+    ring[q] = a.ring[q];
+    exists[q] = 0;
+  }
+  if (hits_smem) {
+    for (int q = tid; q < P * M * M; q += T) hits[q] = 0;
+  }
+  mbar_wait(bar, 0);
   __syncthreads();
-  for (int f = tid; f < F; f += T) {
-    if (a.active[f]) atomicAdd(&n_act[f / N], 1);
+
+  if (a.s < a.n_valid) {
+    for (int p = tid; p < P; p += T) {
+      eb_s[p] = ev_bind[a.s * P + p];
+      ec_s[p] = ev_class[a.s * P + p];
+      eo_s[p] = ev_open[a.s * P + p];
+    }
+  }
+  // Live PMs per pattern and the first event's expiries.  From here on
+  // n_act holds, before each event, the PMs that survive its expiries.
+  {
+    const int32_t i = repro::wrap_add(a.i0, a.s);
+    for (int base = 0; base < F; base += T) {
+      const int f = base + tid;
+      const bool valid = f < F;
+      const int p = valid ? f / N : 0;
+      const bool on = valid && act[f] != 0;
+      warp_count(n_act, p, on && repro::wrap_sub(i, oi[f]) < ws[p]);
+    }
   }
   __syncthreads();
 
+  // Warp 0's control state, the same in all 32 lanes.
+  float sim = 0.f, ema = 0.f, prev = 0.f, eblf = 0.f, ovf = 0.f, ebld = 0.f;
+  float pshed = 0.f, scalls = 0.f, mean_eff = 0.f;
+  LatencyFits fits{};
+  int nfire = 0, fire_idx = W;
+  int32_t lat_ptr = 0;
+  uint32_t key[2] = {0u, 0u};
+  if (warp == 0) {
+    sim = *a.sim_time; ema = *a.ema_gap; prev = *a.prev_arrival;
+    eblf = *a.ebl_frac; ovf = *a.overflow; ebld = *a.ebl_dropped;
+    pshed = *a.pms_shed; scalls = *a.shed_calls; lat_ptr = lat_ptr0;
+    key[0] = static_cast<uint32_t>(a.key[0]);
+    key[1] = static_cast<uint32_t>(a.key[1]);
+    fits = LatencyFits{*a.f_a, *a.f_b, *a.g_a, *a.g_b, *a.f_kind, *a.g_kind};
+    mean_eff = __fmaf_rn(a.one_minus_floor, *a.ebl_raw_mean, a.ebl_floor);
+  }
+  // Per-event values warp 0 keeps from the control phase to the tail; the
+  // next event's PM count comes from the tail.
+  int n_pm_i = 0, n_pm_next = 0;
+  float arr_next = 0.f;
+  int32_t eid_next = 0;
+  if (warp == 0) {
+    int part = 0;
+    for (int p = lane; p < P; p += 32) part += n_act[p];
+    n_pm_next = warp_sum(part);
+    if (a.s < a.n_valid) {
+      arr_next = arrival[a.s];
+      eid_next = ev_id[a.s];
+    }
+  }
+  float arr = 0.f;
+  bool did_shed = false, ev_fire = false, ev_drop = false;
+
+  int j_end = a.n_valid;      // the first event not committed
   for (int j = a.s; j < a.n_valid; ++j) {
     const int32_t i = repro::wrap_add(a.i0, j);
-    // -- the event's row; per-event counters --------------------------------
-    for (int p = tid; p < P; p += T) {
-      ec[p] = a.ev_class[j * P + p];
-      eb[p] = a.ev_bind[j * P + p];
-      eo[p] = a.ev_open[j * P + p];
-      n_exp[p] = 0;
-      n_drop[p] = 0;
-      n_cmp[p] = 0;
-      first_free[p] = N;
-    }
-    for (int q = tid; q < P * K; q += T) exists[q] = 0;
-    __syncthreads();
-    // -- 1. count the windows that closed ----------------------------------
-    for (int f = tid; f < F; f += T) {
-      const int p = f / N;
-      if (a.active[f] &&
-          repro::wrap_sub(i, a.open_idx[f]) >= a.window_size[p]) {
-        atomicAdd(&n_exp[p], 1);
-      }
-    }
-    __syncthreads();
-    // -- 2-3. thread 0: Algorithm 1, ring, E-BL, EMA ---------------------------
-    int n_pm_i = 0;
-    float arr = 0.f, l_q = 0.f;
-    bool did_shed = false;
-    if (tid == 0) {
-      arr = a.arrival[j];
-      for (int p = 0; p < P; ++p) n_pm_i += n_act[p] - n_exp[p];
+    const int32_t* eb = ev_bind + j * P;
+    // -- warp 0: Algorithm 1, ring, Algorithm 2's key, E-BL, EMA -------------
+    if (warp == 0) {
+      arr = arr_next;
+      n_pm_i = n_pm_next;
       const float sim1 = fmaxf(sim, arr);
-      l_q = __fsub_rn(sim1, arr);
+      const float l_q = __fsub_rn(sim1, arr);
       bool shed = false;
       int rho = 0;
-      if (pm_shedder) {
-        detect_overload(a, fa, fb, fk, ga, gb, gk, l_q, n_pm_i, &shed, &rho);
-      }
+      if (pm_shedder) detect_overload(a, fits, l_q, n_pm_i, true, &shed, &rho);
       const bool fire = shed && rho > 0;
-      ev.stop = fire && !a.fused;
-      ev.fire = fire && a.fused;
-      ev.eid = a.ev_id[j];
-      if (ev.stop) {
+      const bool stop = fire && !a.fused;
+      ev_fire = fire && a.fused;
+      ev_drop = false;
+      did_shed = false;
+      if (stop) {
         nfire = 1;
         fire_idx = j;
       } else {
-        for (int p = 0; p < P; ++p) n_act[p] -= n_exp[p];
         if (!at_open_census) {
-          for (int p = 0; p < P; ++p) {
-            if (eo[p] && a.spawn_mode[p] == SPAWN_IN_WINDOWS) {
-              const int rp = a.ring_ptr[p];
-              if (rp >= 0 && rp < K) a.ring[p * K + rp] = i;
-              a.ring_ptr[p] = repro::floor_mod(rp + 1, K);
+          for (int p = lane; p < P; p += 32) {
+            const bool op = eo_s[p] != 0;
+            const int smp = smode[p], rp = ring_ptr[p];
+            if (op && smp == SPAWN_IN_WINDOWS) {
+              if (rp >= 0 && rp < K) ring[p * K + rp] = i;
+              ring_ptr[p] = rp >= -1 && rp + 1 < K ? rp + 1
+                                                : repro::floor_mod(rp + 1, K);
             }
           }
         }
@@ -397,8 +849,11 @@ block_step_kernel(const BlockStepArgs a) {
           uint32_t next[2], sub[2];
           repro::threefry_split(key, next, sub);
           key[0] = next[0]; key[1] = next[1];
-          ev.sub[0] = sub[0]; ev.sub[1] = sub[1];
-          ev.need = min(rho, n_pm_i);
+          if (lane == 0) {
+            ev.sub[0] = sub[0];
+            ev.sub[1] = sub[1];
+            ev.need = min(rho, n_pm_i);
+          }
           ++nfire;
           fire_idx = j;
           did_shed = true;
@@ -407,14 +862,13 @@ block_step_kernel(const BlockStepArgs a) {
         const float gap = fmaxf(__fsub_rn(arr, prev), 1e-9f);
         ema = __fmaf_rn(0.99f, ema, __fmul_rn(0.01f, gap));
         prev = arr;
-        bool dropped = false;
         if (a.shedder == SHED_EBL) {
           bool shed_e = false;
           int rho_e = 0;
-          detect_overload(a, fa, fb, fk, ga, gb, gk, l_q, n_pm_i, &shed_e,
-                          &rho_e);
+          detect_overload(a, fits, l_q, n_pm_i, false, &shed_e, &rho_e);
           const float l_p_est =
-              predict_latency(fa, fb, fk, __int2float_rn(n_pm_i));
+              predict_latency(fits.fa, fits.fb, fits.fk,
+                              __int2float_rn(n_pm_i));
           const float d_ff =
               __fdiv_rn(__fsub_rn(l_p_est, ema),
                         fmaxf(__fsub_rn(l_p_est, a.c_ebl), 1e-9f));
@@ -424,66 +878,75 @@ block_step_kernel(const BlockStepArgs a) {
           const float decayed = __fmul_rn(eblf, a.ebl_decay);
           eblf = shed_e ? fmaxf(decayed, d_need) : decayed;
           const float raw_eff =
-              __fmaf_rn(a.one_minus_floor, a.ebl_raw[j], a.ebl_floor);
+              __fmaf_rn(a.one_minus_floor, ebl_raw[j], a.ebl_floor);
           const float p_drop = fminf(
               fmaxf(__fdiv_rn(__fmul_rn(raw_eff, eblf), fmaxf(mean_eff, 1e-9f)),
                     0.0f), 1.0f);
-          dropped = a.ev_rand[j] < p_drop;
-          ebld = __fadd_rn(ebld, dropped ? 1.0f : 0.0f);
+          ev_drop = ev_rand[j] < p_drop;
+          ebld = __fadd_rn(ebld, ev_drop ? 1.0f : 0.0f);
           did_shed = shed_e;
         }
-        ev.dropped = dropped;
-        for (int p = 0; p < P; ++p) lc[p] = dropped ? 0 : ec[p];
+      }
+      if (lane == 0) {
+        ev.eid = eid_next;
+        ev.flags = (stop ? kStop : 0) | (ev_fire ? kFire : 0) |
+                   (ev_drop ? kDropped : 0);
       }
     }
-    __syncthreads();
-    if (ev.stop) break;
-    const bool fire = ev.fire;
-    // -- commit the expiries; a fire's scores ------------------------------
-    for (int f = tid; f < F; f += T) {
-      const int p = f / N;
-      bool act = a.active[f] != 0;
-      if (act && repro::wrap_sub(i, a.open_idx[f]) >= a.window_size[p]) {
-        a.active[f] = 0;
-        act = false;
-      }
-      if (fire) {
-        float u;
-        if (a.shedder == SHED_PSPICE) {
-          const int32_t r_w = repro::wrap_sub(
-              a.window_size[p], repro::wrap_sub(i, a.open_idx[f]));
-          u = act ? repro::utility_at(a.ut_tables, p, a.B, M, a.state[f],
-                                      r_w, a.ut_bins[p])
-                  : kBig;
-        } else {
-          u = repro::threefry_uniform(ev.sub, static_cast<uint32_t>(f));
-        }
-        a.scratch_u[f] = u;
-        a.scratch_sel[f] = act ? 1 : 0;
-      }
+    __syncthreads();                                           // barrier 1
+    const int flags = ev.flags;
+    const int32_t eid = ev.eid;
+    if (flags & kStop) {
+      j_end = j;
+      break;
     }
-    __syncthreads();
-    // -- 2b. fused Algorithm 2: the histogram-threshold select --------------
+    const bool fire = (flags & kFire) != 0;
+    const bool dropped = (flags & kDropped) != 0;
+
+    // -- fused Algorithm 2: scores, histogram-threshold select, drop ---------
     // core/shedder.py::threshold_drop_mask: three levels of 128 buckets
     // over the shared edges lo + ((hi - lo)·k)/128, then the leftover
     // budget by slot index.  sel: 1 = candidate, 2 = dropped, 0 = out.
     if (fire) {
       float mn = kBig, mx = -kBig;
       for (int f = tid; f < F; f += T) {
-        if (a.scratch_sel[f]) {
-          mn = fminf(mn, a.scratch_u[f]);
-          mx = fmaxf(mx, a.scratch_u[f]);
+        const int p = f / N;
+        const int32_t o = oi[f];
+        const bool on = act[f] != 0 && repro::wrap_sub(i, o) < ws[p];
+        act[f] = on ? 1 : 0;
+        float u;
+        if (a.shedder == SHED_PSPICE) {
+          const int32_t r_w = repro::wrap_sub(ws[p], repro::wrap_sub(i, o));
+          u = on ? repro::utility_at(ut, p, a.B, M, st[f], r_w, bins[p])
+                 : kBig;
+        } else {
+          u = repro::threefry_uniform(ev.sub, static_cast<uint32_t>(f));
+        }
+        su[f] = u;
+        ssel[f] = on ? 1 : 0;
+        if (on) {
+          mn = fminf(mn, u);
+          mx = fmaxf(mx, u);
         }
       }
-      const float lo0 = block_min(mn, fbuf);
-      const float hi0 = block_max(mx, fbuf);
-      if (tid == 0) {
-        ev.lo = lo0;
-        ev.hi = hi0 > lo0 ? hi0 : __fadd_rn(lo0, 1.0f);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mn = fminf(mn, __shfl_xor_sync(kFull, mn, o));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      }
+      if (lane == 0) {
+        fred[warp] = mn;
+        fred[32 + warp] = mx;
       }
       __syncthreads();
+      float lo = fred[0], hi0 = fred[32];
+      for (int k = 1; k < nwarps; ++k) {
+        lo = fminf(lo, fred[k]);
+        hi0 = fmaxf(hi0, fred[32 + k]);
+      }
+      float hi = hi0 > lo ? hi0 : __fadd_rn(lo, 1.0f);
+      int need = ev.need;
       for (int level = 0; level < 3; ++level) {
-        const float lo = ev.lo, hi = ev.hi;
         for (int k = tid; k <= kNbins; k += T) {
           edges[k] = k == kNbins
               ? __int_as_float(0x7f800000)
@@ -494,241 +957,383 @@ block_step_kernel(const BlockStepArgs a) {
         }
         __syncthreads();
         for (int f = tid; f < F; f += T) {
-          if (a.scratch_sel[f] == 1) {
-            const int b = repro::bucket_of(a.scratch_u[f], edges, kNbins);
+          if (ssel[f] == 1) {
+            const int b = repro::bucket_of(su[f], edges, kNbins);
             if (b >= 0) atomicAdd(&hist[b], 1);
           }
         }
         __syncthreads();
-        if (tid == 0) {
-          int cum = 0, kb = kNbins - 1;
-          for (int b = 0; b < kNbins; ++b) {
-            cum += hist[b];
-            if (cum >= ev.need) { kb = b; break; }
-          }
-          ev.kb = kb;
+        // The first bucket whose cumulative count reaches `need`, else the
+        // last: every warp scans the 128 counts, 4 to a lane.
+        int h[4], run = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          run += hist[lane * 4 + q];
+          h[q] = run;
         }
-        __syncthreads();
-        const int kb = ev.kb;
+        const int before = warp_inclusive_scan(run) - run;
+        int mine = kNbins;
+#pragma unroll
+        for (int q = 3; q >= 0; --q) {
+          if (before + h[q] >= need) mine = lane * 4 + q;
+        }
+        const unsigned hit = __ballot_sync(kFull, mine < kNbins);
+        const int kb = hit ? __shfl_sync(kFull, mine, __ffs(hit) - 1)
+                           : kNbins - 1;
         const float edge = edges[kb], upper = edges[kb + 1];
         int below = 0;
         for (int f = tid; f < F; f += T) {
-          if (a.scratch_sel[f] == 1) {
-            const float u = a.scratch_u[f];
+          if (ssel[f] == 1) {
+            const float u = su[f];
             if (u < edge) {
-              a.scratch_sel[f] = 2;
+              ssel[f] = 2;
               ++below;
             } else if (!(u < upper)) {
-              a.scratch_sel[f] = 0;
+              ssel[f] = 0;
             }
           }
         }
-        below = block_sum(below, wbuf);
-        if (tid == 0) {
-          ev.need = max(ev.need - below, 0);
-          const float hi_next = kb == kNbins - 1 ? hi : upper;
-          ev.lo = edge;
-          ev.hi = hi_next > edge ? hi_next : __fadd_rn(edge, 1.0f);
-        }
+        below = warp_sum(below);
+        if (lane == 0) red[(2 + level) * 32 + warp] = below;
         __syncthreads();
+        below = 0;
+        for (int k = 0; k < nwarps; ++k) below += red[(2 + level) * 32 + k];
+        need = max(need - below, 0);
+        const float hi_next = kb == kNbins - 1 ? hi : upper;
+        lo = edge;
+        hi = hi_next > edge ? hi_next : __fadd_rn(edge, 1.0f);
       }
-      // The remaining budget: the lowest-index candidates.
+      // The remaining budget: the lowest-index candidates; then the drop.
       const int chunk = (F + T - 1) / T;
       const int f0 = min(tid * chunk, F), f1 = min(f0 + chunk, F);
       int c = 0;
-      for (int f = f0; f < f1; ++f) c += a.scratch_sel[f] == 1;
-      int r = block_exclusive_scan(c, wbuf);
-      const int need = ev.need;
+      for (int f = f0; f < f1; ++f) c += ssel[f] == 1;
+      const int incl = warp_inclusive_scan(c);
+      if (lane == 31) red[5 * 32 + warp] = incl;
+      __syncthreads();
+      int r = incl - c;
+      for (int k = 0; k < warp; ++k) r += red[5 * 32 + k];
       for (int f = f0; f < f1; ++f) {
-        if (a.scratch_sel[f] == 1) {
-          if (r < need) a.scratch_sel[f] = 2;
+        const int sel = ssel[f];
+        bool drop = sel == 2;
+        if (sel == 1) {
+          drop = r < need;
           ++r;
         }
-      }
-      __syncthreads();
-      for (int f = tid; f < F; f += T) {
-        if (a.scratch_sel[f] == 2) {
-          a.active[f] = 0;
+        if (drop) {
+          act[f] = 0;
           atomicAdd(&n_drop[f / N], 1);
         }
       }
       __syncthreads();
-      if (tid == 0) {
-        int dropped_pms = 0;
-        for (int p = 0; p < P; ++p) {
-          n_act[p] -= n_drop[p];
-          dropped_pms += n_drop[p];
-        }
-        pshed = __fadd_rn(pshed, __int2float_rn(dropped_pms));
-        scalls = __fadd_rn(scalls, 1.0f);
-        sim = __fadd_rn(sim, __fmaf_rn(a.c_shed_pm, __int2float_rn(n_pm_i),
-                                       a.c_shed_base));
-      }
     }
-    // -- 4. advance, completions, match tiles, stats; spawn probes ----------
-    const bool dropped = ev.dropped;
-    const int32_t eid = ev.eid;
-    for (int f = tid; f < F; f += T) {
-      const int p = f / N;
-      const bool act = a.active[f] != 0;
-      bool completed = false;
-      if (act) {
-        const int32_t s = a.state[f], fin = a.final_state[p];
-        const bool bind_ok = !a.uses_binding[p] || a.bind[f] == eb[p];
-        const bool seq = a.kinds == CENSUS_SEQ ||
-                         (a.kinds != CENSUS_ANY && a.kind[p] == KIND_SEQ);
-        int32_t nxt;
-        if (seq) {
-          nxt = repro::nfa_next(a.trans, p, s, ec[p], M, a.C1,
-                                bind_ok && !dropped);
-        } else {
-          int32_t* ids = a.idset + static_cast<int64_t>(f) * A;
-          bool in_set = false;
-          for (int q = 0; q < A; ++q) in_set |= ids[q] == eid;
-          const bool match = bind_ok && lc[p] == 1 && !in_set && s < fin;
-          nxt = s + (match ? 1 : 0);
-          if (match) {
-            const int slot = min(max(s - 1 + (a.spawn_counts[p] ? 1 : 0), 0),
-                                 A - 1);
-            ids[slot] = eid;
+
+    // -- advance, completions, match tiles, stats; counts for warp 0 --------
+    {
+      const int32_t inext = repro::wrap_add(i, 1);
+      int32_t* m_open = a.m_open + (row0 + j) * static_cast<int64_t>(F);
+      int32_t* m_bind = a.m_bind + (row0 + j) * static_cast<int64_t>(F);
+      const bool seq_only = a.kinds == CENSUS_SEQ;
+      const bool any_only = a.kinds == CENSUS_ANY;
+      int pn = p_first, rn = r_first;
+      for (int base = 0; base < F; base += T) {
+        const int f = base + tid;
+        const bool valid = f < F;
+        // This thread's pattern, stepped without a division.
+        const int p = valid ? pn : P - 1;
+        rn += r_step;
+        pn += p_step + (rn >= N ? 1 : 0);
+        rn -= rn >= N ? N : 0;
+        // A warp whose slots are all free only writes its match tiles and
+        // reports its free slots.
+        const int fc = valid ? f : F - 1;
+        const bool act0 = act[fc] != 0;
+        const int32_t o = oi[fc], b = bd[fc], s = st[fc];
+        if (__ballot_sync(kFull, valid && act0) == 0u) {
+          if (valid && a.emit) {
+            m_open[f] = -1;
+            m_bind[f] = -1;
+          }
+          const unsigned word = __ballot_sync(kFull, valid);
+          if (lane == 0 && base + warp * 32 < F) {
+            freemask[(base + warp * 32) >> 5] = word;
+          }
+          continue;
+        }
+        // The pattern's loads go out together (an out-of-range lane read
+        // the last slot and drops it).
+        const int wsp = ws[p], fin = fin_s[p], usp = uses[p];
+        const int32_t ebp = eb_s[p], ecp = ec_s[p];
+        const int kp = seq_only || any_only ? 0 : kind[p];
+        const bool on = valid && act0 && repro::wrap_sub(i, o) < wsp;
+        bool completed = false;
+        int cell = 0;
+        if (on) {
+          const bool bind_ok = !usp || b == ebp;
+          const bool seq = seq_only || (!any_only && kp == KIND_SEQ);
+          int32_t nxt;
+          if (seq) {
+            // repro::nfa_next with a 32-bit index (the table is small).
+            const bool go = bind_ok && !dropped && s >= 0 && s < M &&
+                            ecp >= 0 && ecp < a.C1;
+            nxt = go ? trans[(p * M + s) * a.C1 + ecp] : s;
+          } else {
+            int32_t* id = ids + static_cast<int64_t>(f) * A;
+            bool in_set = false;
+            for (int q = 0; q < A; ++q) in_set |= id[q] == eid;
+            const int lc = dropped ? 0 : ecp;
+            const bool match = bind_ok && lc == 1 && !in_set && s < fin;
+            nxt = s + (match ? 1 : 0);
+            if (match) {
+              const int slot = min(max(s - 1 + (scnt[p] ? 1 : 0), 0), A - 1);
+              id[slot] = eid;
+            }
+          }
+          completed = nxt == fin && s != fin;
+          st[f] = nxt;
+          cell = (p * M + s) * M + nxt;
+          if (a.stats && !hits_smem) {
+            // PR 12's path, for stats counts too large for shared memory:
+            // within one event every addend of a cell is the same value,
+            // so the atomics give the sequential bits.
+            atomicAdd(&a.obs_counts[cell], 1.0f);
+            atomicAdd(&a.obs_rewards[cell], cp[p]);
           }
         }
-        completed = nxt == fin && s != fin;
-        a.state[f] = nxt;
-        if (a.stats) {
-          // Within one event every addend to one (p, s, s') cell is the
-          // same value (1, or c_match·proc[p]), so the float atomics give
-          // the sequential scatter-add's bits in any order.
-          const int64_t cell = (static_cast<int64_t>(p) * M + s) * M + nxt;
-          atomicAdd(&a.obs_counts[cell], 1.0f);
-          atomicAdd(&a.obs_rewards[cell], cp[p]);
-        }
-        if (completed) {
-          a.active[f] = 0;
-          atomicAdd(&n_cmp[p], 1);
-        }
-      }
-      if (a.emit) {
-        const int64_t at = static_cast<int64_t>(j) * F + f;
-        a.m_open[at] = completed ? a.open_idx[f] : -1;
-        a.m_bind[at] = completed ? a.bind[f] : -1;
-      }
-      if (!(act && !completed)) {
-        if (at_open_census) atomicMin(&first_free[p], f - p * N);
-      } else if (!at_open_census) {
-        const int32_t o = a.open_idx[f];
-        if (a.bind[f] == eb[p]) {
-          for (int k = 0; k < K; ++k) {
-            if (o == a.ring[p * K + k]) exists[p * K + k] = 1;
+        const bool live = on && !completed;
+        if (valid) {
+          if (live != act0) act[f] = live ? 1 : 0;
+          if (a.emit) {
+            m_open[f] = completed ? o : -1;
+            m_bind[f] = completed ? b : -1;
           }
+          if (live && !at_open_census && b == ebp) {
+            for (int k = 0; k < K; ++k) {
+              if (o == ring[p * K + k]) exists[p * K + k] = 1;
+            }
+          }
+        }
+        if (hits_smem) warp_count(hits, cell, on);
+        warp_count(n_cmp, p, completed);
+        warp_count(n_expn, p, live && repro::wrap_sub(inext, o) >= wsp);
+        const unsigned word = __ballot_sync(kFull, valid && !live);
+        if (lane == 0 && base + warp * 32 < F) {
+          freemask[(base + warp * 32) >> 5] = word;
         }
       }
     }
-    __syncthreads();
-    // -- 5. spawn candidates, ranks and overflow; 7. time (thread 0) ---------
-    float t_proc = 0.f;
-    if (tid == 0) {
-      // t_proc counts the PMs the event was matched against: the counts
-      // after the shed and before the completions.
-      t_proc = dropped ? a.c_ebl : cost_sum(cp, n_act, P, a.c_base);
-      int novf = 0, spawn_any = 0, free_before = 0;
-      for (int p = 0; p < P; ++p) {
-        n_act[p] -= n_cmp[p];
-        a.complex_count[p] =
-            __fadd_rn(a.complex_count[p], __int2float_rn(n_cmp[p]));
-        const int n_free = N - n_act[p];
-        base[p] = free_before;
-        free_before += n_free;
-        const bool lo_p = eo[p] && !dropped;
+    __syncthreads();                                           // barrier 2
+
+    // -- warp 0: shed accounting, time cost, spawn, time step ----------------
+    if (warp == 0) {
+      const int32_t inext = repro::wrap_add(i, 1);
+      // The next event's arrival and id, loaded during this tail.
+      const bool has_next = j + 1 < a.n_valid;
+      if (has_next) {
+        arr_next = arrival[j + 1];
+        eid_next = ev_id[j + 1];
+      }
+      auto spawn = [&](int f, int32_t open, int32_t bind_v, int counts) {
+        act[f] = 1;
+        st[f] = 1;
+        oi[f] = open;
+        bd[f] = bind_v;
+        if (any_ids) {
+          int32_t* id = ids + static_cast<int64_t>(f) * A;
+          id[0] = counts ? eid : -1;
+          for (int k = 1; k < A; ++k) id[k] = -1;
+        }
+      };
+      // Per pattern, one batch of loads: the counts the block left, the
+      // pattern's columns and the event's row; then completions, the spawn
+      // census (at open: the spawn itself), the new counts, the next
+      // event's survivors, and the per-event counters reset for it.
+      int drops = 0, novf = 0, n_after = 0, next = 0;
+      for (int p = lane; p < P; p += 32) {
+        const int na = n_act[p], nd = n_drop[p], nc = n_cmp[p];
+        const int nen = n_expn[p];
+        const int wsp = ws[p], smp = smode[p], scp = scnt[p];
+        const float ccv = cc[p], pcv = pc[p];
+        const bool op = eo_s[p] != 0;
+        const int32_t ebp = eb_s[p], ecp = ec_s[p];
+        const int q_next = has_next ? (j + 1) * P + p : j * P + p;
+        const int32_t eb_n = ev_bind[q_next], ec_n = ev_class[q_next];
+        const uint8_t eo_n = ev_open[q_next];
+        // t_proc counts the PMs the event was matched against: the counts
+        // after the shed and before the completions.
+        const int nproc = na - nd;
+        drops += nd;
+        n_proc[p] = __int2float_rn(nproc);
+        int nact = nproc - nc;
+        cc[p] = __fadd_rn(ccv, __int2float_rn(nc));
+        const int n_free = N - nact;
+        const bool lo_p = op && !dropped;
+        int take = 0, exp_spawned = 0;
         if (at_open_census) {
           // Every pattern spawns at open: one candidate, the lowest free slot.
           const bool can = lo_p && n_free > 0;
           novf += lo_p && !can;
-          n_take[p] = can ? 1 : 0;
-          take_rank[p * K] = can ? 0 : -1;
-          free_at[p * K] = first_free[p];
-          cand_open[p * K] = i;
-          for (int k = 1; k < K; ++k) take_rank[p * K + k] = -1;
-          continue;
-        }
-        const bool p_at_open = a.spawn_mode[p] == SPAWN_AT_OPEN;
-        int r = 0;
-        for (int k = 0; k < K; ++k) {
-          const int q = p * K + k;
-          const int32_t w = a.ring[q];
-          const bool win = w >= 0 && repro::wrap_sub(i, w) < a.window_size[p] &&
-                           !exists[q] && lc[p] == 1 && !p_at_open;
-          const bool open_sp = p_at_open && lo_p && k == 0;
-          const bool cand = a.spawn_modes == CENSUS_IN_WINDOWS ? win
-                                                               : (win || open_sp);
-          cand_open[q] = (a.spawn_modes != CENSUS_IN_WINDOWS && p_at_open) ? i : w;
-          take_rank[q] = -1;
-          if (cand) {
-            if (r < n_free) take_rank[q] = r; else ++novf;
-            ++r;
+          if (can) {
+            // The lowest free slot: the first set bit of the pattern's
+            // words of the advance pass's free-slot bitmask.
+            const int lo_f = p * N, hi_f = lo_f + N;
+            int ffree = lo_f;
+            for (int w = lo_f >> 5; w * 32 < hi_f; ++w) {
+              uint32_t bits = freemask[w];
+              if (w * 32 < lo_f) bits &= ~0u << (lo_f - w * 32);
+              if (w * 32 + 32 > hi_f) bits &= ~0u >> (w * 32 + 32 - hi_f);
+              if (bits) {
+                ffree = w * 32 + __ffs(bits) - 1;
+                break;
+              }
+            }
+            take = 1;
+            spawn(ffree, i, ebp, scp);
+            exp_spawned = repro::wrap_sub(inext, i) >= wsp;
+          }
+        } else {
+          const bool p_at_open = smp == SPAWN_AT_OPEN;
+          const int lc = dropped ? 0 : ecp;
+          for (int k = 0; k < K; ++k) {
+            const int q = p * K + k;
+            const int32_t w = ring[q];
+            const bool win = w >= 0 && repro::wrap_sub(i, w) < wsp &&
+                             !exists[q] && lc == 1 && !p_at_open;
+            const bool open_sp = p_at_open && lo_p && k == 0;
+            const bool cand = a.spawn_modes == CENSUS_IN_WINDOWS
+                                  ? win : (win || open_sp);
+            exists[q] = 0;
+            if (cand) {
+              if (take < n_free) {
+                const int32_t open =
+                    (a.spawn_modes != CENSUS_IN_WINDOWS && p_at_open) ? i : w;
+                tk_open[p * K + take] = open;
+                exp_spawned += repro::wrap_sub(inext, open) >= wsp;
+                ++take;
+              } else {
+                ++novf;
+              }
+            }
           }
         }
-        n_take[p] = min(r, n_free);
-        spawn_any |= n_take[p] > 0;
+        n_take[p] = take;
+        pc[p] = __fadd_rn(pcv, __int2float_rn(take));
+        nact += take;
+        n_after += nact;
+        const int survive = nact - nen - exp_spawned;
+        next += survive;
+        n_act[p] = survive;
+        n_expn[p] = 0;
+        n_drop[p] = 0;
+        n_cmp[p] = 0;
+        eb_s[p] = eb_n;
+        ec_s[p] = ec_n;
+        eo_s[p] = eo_n;
+      }
+      n_pm_next = warp_sum(next);
+      drops = warp_sum(drops);
+      novf = warp_sum(novf);
+      n_after = warp_sum(n_after);
+      if (fire) {
+        pshed = __fadd_rn(pshed, __int2float_rn(drops));
+        scalls = __fadd_rn(scalls, 1.0f);
+        sim = __fadd_rn(sim, __fmaf_rn(a.c_shed_pm, __int2float_rn(n_pm_i),
+                                       a.c_shed_base));
+      }
+      float t_proc = a.c_ebl;
+      __syncwarp();
+      if (!dropped) {
+        t_proc = cost_sum(cp, n_proc, P, a.c_base);
       }
       ovf = __fadd_rn(ovf, __int2float_rn(novf));
-      ev.spawn_any = spawn_any;
-    }
-    __syncthreads();
-    // -- 5b. in-window spawns: the r-th lowest free slot of each pattern ----
-    if (!at_open_census && ev.spawn_any) {
-      const int chunk = (F + T - 1) / T;
-      const int f0 = min(tid * chunk, F), f1 = min(f0 + chunk, F);
-      int c = 0;
-      for (int f = f0; f < f1; ++f) c += !a.active[f];
-      int g = block_exclusive_scan(c, wbuf);
-      for (int f = f0; f < f1; ++f) {
-        if (!a.active[f]) {
-          const int p = f / N, r = g - base[p];
-          if (r < n_take[p]) free_at[p * K + r] = f - p * N;
-          ++g;
+      if (!at_open_census) {
+        // The r-th lowest free slot of each pattern that spawns, from the
+        // advance pass's free-slot bitmask: popcounts and a warp scan over
+        // 32 words at a time.
+        __syncwarp();
+        for (int c0 = 0; c0 < P; c0 += 32) {
+          unsigned todo =
+              __ballot_sync(kFull, c0 + lane < P && n_take[c0 + lane] > 0);
+          while (todo) {
+            const int p = c0 + __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int want = n_take[p], scp = scnt[p];
+            const int32_t ebp = eb[p];
+            const int lo_f = p * N, hi_f = lo_f + N;
+            int found = 0;
+            for (int w0 = lo_f >> 5; found < want && w0 * 32 < hi_f;
+                 w0 += 32) {
+              const int w = w0 + lane;
+              uint32_t bits = 0u;
+              if (w * 32 < hi_f) {
+                bits = freemask[w];
+                if (w * 32 < lo_f) bits &= ~0u << (lo_f - w * 32);
+                if (w * 32 + 32 > hi_f) bits &= ~0u >> (w * 32 + 32 - hi_f);
+              }
+              const int cnt = __popc(bits);
+              const int incl = warp_inclusive_scan(cnt);
+              for (int rk = found + incl - cnt; rk < found + incl && rk < want;
+                   ++rk) {
+                uint32_t bb = bits;
+                for (int t = rk - (found + incl - cnt); t > 0; --t) bb &= bb - 1;
+                spawn(w * 32 + __ffs(bb) - 1, tk_open[p * K + rk], ebp, scp);
+              }
+              found += __shfl_sync(kFull, incl, 31);
+            }
+          }
         }
       }
-      __syncthreads();
-    }
-    // -- 5c. write the spawned PMs ------------------------------------------
-    for (int q = tid; q < P * K; q += T) {
-      const int r = take_rank[q];
-      if (r < 0) continue;
-      const int p = q / K;
-      const int f = p * N + free_at[p * K + r];
-      a.active[f] = 1;
-      a.state[f] = 1;
-      a.open_idx[f] = cand_open[q];
-      a.bind[f] = eb[p];
-      if (a.kinds != CENSUS_SEQ) {
-        int32_t* ids = a.idset + static_cast<int64_t>(f) * A;
-        ids[0] = a.spawn_counts[p] ? eid : -1;
-        for (int k = 1; k < A; ++k) ids[k] = -1;
-      }
-    }
-    // -- 7. simulated time, latency ring, the StepOut row (thread 0) ---------
-    if (tid == 0) {
-      int n_after = 0;
-      for (int p = 0; p < P; ++p) {
-        a.pms_created[p] =
-            __fadd_rn(a.pms_created[p], __int2float_rn(n_take[p]));
-        n_act[p] += n_take[p];
-        n_after += n_act[p];
-      }
       sim = __fadd_rn(sim, t_proc);
-      const int ptr = repro::floor_mod(lat_ptr, a.S);
-      a.lat_n[ptr] = __int2float_rn(n_pm_i);
-      a.lat_l[ptr] = t_proc;
+      if (lane == 0) {           // written to device memory at exit
+        o_latn[j] = __int2float_rn(n_pm_i);
+        o_latl[j] = t_proc;
+        o_le[j] = __fsub_rn(sim, arr);
+        o_npm[j] = __int2float_rn(n_after);
+        o_shed[j] = did_shed ? 1 : 0;
+        o_drop[j] = dropped ? 1 : 0;
+      }
       lat_ptr = repro::wrap_add(lat_ptr, 1);
-      a.l_e[j] = __fsub_rn(sim, arr);
-      a.n_pm[j] = __int2float_rn(n_after);
-      a.shed[j] = did_shed ? 1 : 0;
-      a.dropped[j] = dropped ? 1 : 0;
+      __syncwarp();
     }
-    __syncthreads();
   }
+  __syncthreads();
 
+  // -- exit: write the launch's state back -----------------------------------
+  if constexpr (kSharedStore) {
+    copy_plain(a.active, act, fz, tid, T);
+    copy_plain(a.state, st, 4 * fz, tid, T);
+    copy_plain(a.open_idx, oi, 4 * fz, tid, T);
+    copy_plain(a.bind, bd, 4 * fz, tid, T);
+    if (any_ids) copy_plain(a.idset, ids, 4 * fz * A, tid, T);
+  }
+  for (int p = tid; p < P; p += T) {
+    a.ring_ptr[p] = ring_ptr[p];
+    a.complex_count[p] = cc[p];
+    a.pms_created[p] = pc[p];
+  }
+  for (int q = tid; q < P * K; q += T) a.ring[q] = ring[q];
+  for (int k = a.s + tid; k < j_end; k += T) {
+    a.l_e[row0 + k] = o_le[k];
+    a.n_pm[row0 + k] = o_npm[k];
+    a.shed[row0 + k] = o_shed[k];
+    a.dropped[row0 + k] = o_drop[k];
+  }
+  // Event j took the latency ring's slot floor_mod(lat_ptr + (j - s), S);
+  // when the block outruns the ring, the last S events' slots survive.
+  for (int k = max(a.s, j_end - a.S) + tid; k < j_end; k += T) {
+    const int pos = repro::floor_mod(repro::wrap_add(lat_ptr0, k - a.s), a.S);
+    a.lat_n[pos] = o_latn[k];
+    a.lat_l[pos] = o_latl[k];
+  }
+  if (hits_smem) {
+    for (int q = tid; q < P * M * M; q += T) {
+      const int c = hits[q];
+      if (c > 0) {
+        a.obs_counts[q] = repeat_add(a.obs_counts[q], 1.0f, c);
+        a.obs_rewards[q] = repeat_add(a.obs_rewards[q], cp[q / (M * M)], c);
+      }
+    }
+  }
   if (tid == 0) {
     *a.sim_time = sim; *a.ema_gap = ema; *a.prev_arrival = prev;
     *a.ebl_frac = eblf; *a.overflow = ovf; *a.ebl_dropped = ebld;
@@ -761,24 +1366,32 @@ __global__ void threefry_probe_kernel(const int32_t* __restrict__ key, int n,
   }
 }
 
+// The largest dynamic shared memory each instantiation was opened to.
+int g_smem_opened[2] = {48 * 1024, 48 * 1024};
+
 }  // namespace
 
 extern "C" int block_step_launch(const BlockStepArgs* args, void* stream) {
   const BlockStepArgs& a = *args;
   if (a.P < 1 || a.N < 1 || a.M < 1 || a.A < 1 || a.K < 1 || a.S < 1 ||
-      a.W < 1 || a.s < 0 || a.n_valid > a.W) {
+      a.W < 1 || a.s < 0 || a.n_valid > a.W || a.blk < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(int) * (12 * a.P + 4 * a.P * a.K + kNbins +
-                                     kWarps) +
-                      sizeof(float) * (kNbins + 1 + kWarps + a.P);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        block_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const Layout L = plan(a);
+  if (L.total != static_cast<size_t>(a.smem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  block_step_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const int inst = a.store_shared ? 1 : 0;
+  const auto kernel = a.store_shared ? block_step_kernel<true>
+                                     : block_step_kernel<false>;
+  if (a.smem_bytes > g_smem_opened[inst]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    g_smem_opened[inst] = a.smem_bytes;
+  }
+  kernel<<<1, block_threads(a.P * a.N), a.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

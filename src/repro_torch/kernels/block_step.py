@@ -25,7 +25,10 @@ Shedding protocols, as in the reference:
 ``block_step`` launches the kernel for CUDA tensors and runs
 ``block_step_plain`` — a straight PyTorch transcription of the kernel
 body, written independently of the per-event engine — for CPU tensors;
-nothing falls back from one to the other.  Both update the carry's
+nothing falls back from one to the other.  The engine launches through
+``BlockScan``, which checks the operands and builds the argument block
+once per scan; ``plan_layout`` picks the kernel's instantiation (the PM
+store in shared or in device memory) from the byte count.  Both update the carry's
 tensors in place (its store, ring, counters and 0-d scalars) and write
 the rows ``[s, stop)`` of the caller's row buffers: the engine hands
 them a carry it owns.
@@ -33,6 +36,7 @@ them a carry it owns.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -336,12 +340,12 @@ def block_step_plain(cfg, model, carry, blk, i0: int, s: int,
         pms_created=crtd, pms_shed=pshed, shed_calls=scalls, overflow=ovf,
         ebl_dropped=ebld, obs_counts=obs_c, obs_rewards=obs_r,
         lat_samples_n=lat_n, lat_samples_l=lat_l, lat_ptr=lat_ptr)
-    _write_back(carry, out)
+    write_back(carry, out)
     return carry, rows, torch.tensor([nfire, fire_idx], dtype=i32,
                                      device=dev)
 
 
-def _write_back(carry, out) -> None:
+def write_back(carry, out) -> None:
     """Copy ``out``'s values into ``carry``'s tensors (the in-place
     contract both versions share)."""
     for name in ("active", "state", "open_idx", "bind", "idset"):
@@ -352,6 +356,72 @@ def _write_back(carry, out) -> None:
                  "obs_counts", "obs_rewards", "lat_samples_n",
                  "lat_samples_l", "lat_ptr"):
         getattr(carry, name).copy_(getattr(out, name))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's shared-memory layout (mirror of ``plan()`` in the source)
+# ---------------------------------------------------------------------------
+
+# Dynamic shared memory one CTA may take: the H100's 227 KB per block less
+# 1 KB for the kernel's static part.
+SMEM_CAP = 232448 - 1024
+# The event rows, the model tables and the stats counts stay in device
+# memory when they alone exceed these shares.
+ROWS_SMEM_MAX, MODEL_SMEM_MAX, STATS_SMEM_MAX = 32768, 49152, 65536
+_PAT_ARRAYS, _PK_ARRAYS, _RED_SLOTS = 20, 3, 8
+
+
+class Layout(NamedTuple):
+    """Where one launch keeps its state.  ``store`` names the kernel's
+    instantiation: "shared" keeps the PM store and the fire's scratch in
+    shared memory for the whole launch, "global" in device memory."""
+    store: str
+    rows_smem: bool
+    model_smem: bool
+    stats_smem: bool
+    store_bytes: int     # the store and the fire's scratch
+    smem_bytes: int      # the launch's dynamic shared memory
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def plan_layout(cfg, C1: int, B: int) -> Layout:
+    """The layout of a launch at this config, with ``C1`` classes + 1 and
+    ``B`` utility bins, byte for byte as the kernel's ``plan()`` computes
+    it (the launch refuses a block whose byte count differs).  The store
+    goes to shared memory when everything fits in ``SMEM_CAP``; raises
+    when even the device-memory store leaves too much for one CTA."""
+    P, N, M = cfg.num_patterns, cfg.max_pms, cfg.max_states
+    A, K, W = cfg.max_any_ids, cfg.ring_size, cfg.block_events
+    F = P * N
+    base = (_pad16(4 * _PAT_ARRAYS * _round4(P)) +
+            _pad16(4 * _PK_ARRAYS * _round4(P * K)) + _pad16(4 * SHED_NBINS)
+            + _pad16(4 * (SHED_NBINS + 4)) + _pad16(4 * _RED_SLOTS * 32) +
+            _pad16(4 * ((F + 31) // 32)) +
+            4 * _pad16(4 * W) + 2 * _pad16(W))     # the staged StepOut rows
+    rows = 2 * _pad16(4 * W * P) + _pad16(W * P) + 4 * _pad16(4 * W)
+    model = _pad16(4 * P * M * C1) + _pad16(4 * P * B * M)
+    hits = _pad16(4 * P * M * M) if cfg.gather_stats else 0
+    store = (_pad16(F) + 3 * _pad16(4 * F) + _pad16(4 * F) + _pad16(F) +
+             (_pad16(4 * F * A) if cfg.kinds != "seq" else 0))
+    rows_smem = rows <= ROWS_SMEM_MAX
+    model_smem = model <= MODEL_SMEM_MAX
+    stats_smem = 0 < hits <= STATS_SMEM_MAX
+    fixed = base + rows * rows_smem + model * model_smem + hits * stats_smem
+    if fixed + store <= SMEM_CAP:
+        return Layout("shared", rows_smem, model_smem, stats_smem, store,
+                      fixed + store)
+    if fixed > SMEM_CAP:
+        raise ValueError(
+            f"block_step: {fixed} B of per-launch state (P={P}, K={K}, "
+            f"N={N}) exceed the {SMEM_CAP} B of shared memory one CTA has")
+    return Layout("global", rows_smem, model_smem, stats_smem, store, fixed)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +441,9 @@ _PTRS = (
     "l_e", "n_pm", "shed", "dropped", "m_open", "m_bind",
     "scratch_u", "scratch_sel", "status")
 _INTS = ("P", "N", "M", "C1", "A", "K", "S", "B", "W", "s", "n_valid",
-         "i0", "kinds", "spawn_modes", "shedder", "fused", "emit", "stats")
+         "i0", "blk", "kinds", "spawn_modes", "shedder", "fused", "emit",
+         "stats", "store_shared", "rows_smem", "model_smem", "stats_smem",
+         "smem_bytes")
 _FLOATS = ("c_base", "c_match", "c_ebl", "c_shed_base", "c_shed_pm",
            "latency_bound", "safety_buffer", "ebl_backlog_gain",
            "ebl_decay", "ebl_floor", "one_minus_floor")
@@ -391,25 +463,27 @@ def _check(name, t, dtype, shape, dev):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _operands(cfg, model, carry, blk, rows, scratch_u, scratch_sel,
+def _operands(cfg, model, carry, events, rows, scratch_u, scratch_sel,
               status):
     """Every tensor the kernel reads or writes, by its argument name,
-    with the dtype and shape it must have."""
+    with the dtype and shape it must have.  ``events`` and ``rows`` hold
+    whole W-event blocks (the scan's, or one block's)."""
     P, N, M = cfg.num_patterns, cfg.max_pms, cfg.max_states
-    A, K, W = cfg.max_any_ids, cfg.ring_size, cfg.block_events
+    A, K = cfg.max_any_ids, cfg.ring_size
     C1, B = model.trans.shape[2], model.ut_tables.shape[1]
     S = carry.lat_samples_n.shape[0]
+    n = events.ev_id.shape[0]
     width = N if cfg.emit_matches else 0
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     pms = carry.pms
     return (
-        ("ev_class", blk.ev_class, i32, (W, P)),
-        ("ev_bind", blk.ev_bind, i32, (W, P)),
-        ("ev_open", blk.ev_open, b8, (W, P)),
-        ("ev_id", blk.ev_id, i32, (W,)),
-        ("ev_rand", blk.ev_rand, f32, (W,)),
-        ("ebl_raw", blk.ebl_raw, f32, (W,)),
-        ("arrival", blk.arrival, f32, (W,)),
+        ("ev_class", events.ev_class, i32, (n, P)),
+        ("ev_bind", events.ev_bind, i32, (n, P)),
+        ("ev_open", events.ev_open, b8, (n, P)),
+        ("ev_id", events.ev_id, i32, (n,)),
+        ("ev_rand", events.ev_rand, f32, (n,)),
+        ("ebl_raw", events.ebl_raw, f32, (n,)),
+        ("arrival", events.arrival, f32, (n,)),
         ("trans", model.trans, i32, (P, M, C1)),
         ("kind", model.kind, i32, (P,)),
         ("spawn_mode", model.spawn_mode, i32, (P,)),
@@ -450,42 +524,115 @@ def _operands(cfg, model, carry, blk, rows, scratch_u, scratch_sel,
         ("lat_n", carry.lat_samples_n, f32, (S,)),
         ("lat_l", carry.lat_samples_l, f32, (S,)),
         ("lat_ptr", carry.lat_ptr, i32, ()),
-        ("l_e", rows["l_e"], f32, (W,)),
-        ("n_pm", rows["n_pm"], f32, (W,)),
-        ("shed", rows["shed"], b8, (W,)),
-        ("dropped", rows["dropped"], b8, (W,)),
-        ("m_open", rows["match_open"], i32, (W, P, width)),
-        ("m_bind", rows["match_bind"], i32, (W, P, width)),
+        ("l_e", rows["l_e"], f32, (n,)),
+        ("n_pm", rows["n_pm"], f32, (n,)),
+        ("shed", rows["shed"], b8, (n,)),
+        ("dropped", rows["dropped"], b8, (n,)),
+        ("m_open", rows["match_open"], i32, (n, P, width)),
+        ("m_bind", rows["match_bind"], i32, (n, P, width)),
         ("scratch_u", scratch_u, f32, (P * N,)),
         ("scratch_sel", scratch_sel, torch.uint8, (P * N,)),
         ("status", status, i32, (2,)),
     )
 
 
-def fill_args(cfg, model, carry, blk, i0: int, s: int, n_valid: int,
-              rows: dict, scratch_u, scratch_sel, status) -> _Args:
-    """The kernel's argument block, after checking every operand's dtype,
+def fill_args(cfg, model, carry, events, i0: int, s: int, n_valid: int,
+              rows: dict, scratch_u, scratch_sel, status,
+              b: int = 0) -> _Args:
+    """The kernel's argument block for block ``b`` of ``events`` /
+    ``rows`` (whole W-event blocks), after checking every operand's dtype,
     shape, contiguity and device."""
     dev = carry.sim_time.device
+    W = cfg.block_events
+    n = events.ev_id.shape[0]
+    if n % W or not 0 <= b < n // W:
+        raise ValueError(f"block_step: block {b} of {n} event rows at "
+                         f"W={W}")
     args = _Args()
-    for name, t, dtype, shape in _operands(cfg, model, carry, blk, rows,
+    for name, t, dtype, shape in _operands(cfg, model, carry, events, rows,
                                            scratch_u, scratch_sel, status):
         _check(name, t, dtype, shape, dev)
         setattr(args, name, t.data_ptr())
+    lay = plan_layout(cfg, model.trans.shape[2], model.ut_tables.shape[1])
     for name, v in dict(
             P=cfg.num_patterns, N=cfg.max_pms, M=cfg.max_states,
             C1=model.trans.shape[2], A=cfg.max_any_ids, K=cfg.ring_size,
             S=carry.lat_samples_n.shape[0], B=model.ut_tables.shape[1],
-            W=cfg.block_events, s=s, n_valid=n_valid, i0=_wrap32(i0),
+            W=W, s=s, n_valid=n_valid, i0=_wrap32(i0), blk=b,
             kinds=_KINDS[cfg.kinds],
             spawn_modes=_SPAWN_MODES[cfg.spawn_modes],
             shedder=_SHEDDERS[cfg.shedder], fused=int(fused_shed(cfg)),
-            emit=int(cfg.emit_matches), stats=int(cfg.gather_stats)).items():
+            emit=int(cfg.emit_matches), stats=int(cfg.gather_stats),
+            store_shared=int(lay.store == "shared"),
+            rows_smem=int(lay.rows_smem), model_smem=int(lay.model_smem),
+            stats_smem=int(lay.stats_smem),
+            smem_bytes=lay.smem_bytes).items():
         setattr(args, name, v)
     for name in _FLOATS[:-1]:
         setattr(args, name, getattr(cfg, name))
     args.one_minus_floor = 1.0 - cfg.ebl_floor
     return args
+
+
+class BlockScan:
+    """The launches of one scan over whole W-event blocks.
+
+    ``events`` and ``rows`` hold ``nb·W`` rows; the carry's tensors are
+    updated in place by every launch.  The operands are checked, the
+    layout planned and the argument block built once, with the fire's
+    scratch and the status; each block then sets only its index, ``i0``,
+    ``s`` and ``n_valid`` (``set_block``).  On a CUDA carry ``launch``
+    enqueues the kernel; on a CPU carry it runs ``block_step_plain`` on
+    the block's rows."""
+
+    def __init__(self, cfg, model, carry, events, rows):
+        self.cfg, self.model, self.carry = cfg, model, carry
+        self.events, self.rows = events, rows
+        dev = carry.sim_time.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"block_step: unsupported device {dev}")
+        self.cuda = dev.type == "cuda"
+        if self.cuda and not prng.PARTITIONABLE:
+            raise NotImplementedError(
+                "block_step: the kernel's threefry draws in jax's "
+                "partitionable layout only (repro_torch.prng.PARTITIONABLE)")
+        F = cfg.num_patterns * cfg.max_pms
+        self.layout = plan_layout(cfg, model.trans.shape[2],
+                                  model.ut_tables.shape[1])
+        # The fire's scratch in device memory (the "global" store's).
+        self.scratch_u = torch.empty((F,), dtype=torch.float32, device=dev)
+        self.scratch_sel = torch.empty((F,), dtype=torch.uint8, device=dev)
+        self.status = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.args = fill_args(cfg, model, carry, events, 0, 0, 0, rows,
+                              self.scratch_u, self.scratch_sel, self.status)
+        if self.cuda:
+            self._ref = ctypes.byref(self.args)
+            self._stream = torch.cuda.current_stream(dev).cuda_stream
+            self._fn = _build.load().block_step_launch
+
+    def set_block(self, b: int, i0: int, s: int, n_valid: int) -> _Args:
+        """The argument block for events ``[s, n_valid)`` of block ``b``
+        with global indices ``i0 + j``: the kernel offsets the event rows
+        and the row buffers by ``b·W`` itself."""
+        a = self.args
+        a.blk, a.i0, a.s, a.n_valid = b, _wrap32(i0), s, n_valid
+        return a
+
+    def launch(self, b: int, i0: int, s: int, n_valid: int):
+        """Run events ``[s, n_valid)`` of block ``b``.  Returns the (2,)
+        int32 status ``[fires, index]``."""
+        if not self.cuda:
+            W = self.cfg.block_events
+            cut = slice(b * W, b * W + W)
+            blk = type(self.events)(*(x[cut] for x in self.events))
+            _, _, status = block_step_plain(
+                self.cfg, self.model, self.carry, blk, i0, s, n_valid,
+                {k: v[cut] for k, v in self.rows.items()})
+            return status
+        self.set_block(b, i0, s, n_valid)
+        _build.check(self._fn(self._ref, self._stream), "block_step")
+        block_step.launches += 1
+        return self.status
 
 
 def block_step(cfg, model, carry, blk, i0: int, s: int, n_valid: int,
@@ -515,21 +662,8 @@ def block_step(cfg, model, carry, blk, i0: int, s: int, n_valid: int,
                                 rows)
     if dev.type != "cuda":
         raise ValueError(f"block_step: unsupported device {dev}")
-    if not prng.PARTITIONABLE:
-        raise NotImplementedError(
-            "block_step: the kernel's threefry draws in jax's partitionable "
-            "layout only (repro_torch.prng.PARTITIONABLE)")
-    F = cfg.num_patterns * cfg.max_pms
-    scratch_u = torch.empty((F,), dtype=torch.float32, device=dev)
-    scratch_sel = torch.empty((F,), dtype=torch.uint8, device=dev)
-    status = torch.empty((2,), dtype=torch.int32, device=dev)
-    args = fill_args(cfg, model, carry, blk, i0, s, n_valid, rows,
-                     scratch_u, scratch_sel, status)
-    lib = _build.load()
-    _build.check(lib.block_step_launch(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
-        "block_step")
-    block_step.launches += 1
+    status = BlockScan(cfg, model, carry, blk, rows).launch(0, i0, s,
+                                                            n_valid)
     return carry, rows, status
 
 

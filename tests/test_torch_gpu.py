@@ -137,6 +137,21 @@ def _block_case(name, N, shedder, dev):
 
 @pytest.mark.parametrize("name,N,shedder", BLOCK_CASES)
 def test_block_kernel_equals_plain(cuda, name, N, shedder):
+    _kernel_equals_plain(cuda, name, N, shedder)
+
+
+@pytest.mark.parametrize("name,N,shedder", [block_cases.CASES[0],
+                                            block_cases.CASES[-1]])
+def test_block_kernel_device_memory_pieces_equal_plain(cuda, monkeypatch,
+                                                       name, N, shedder):
+    """The event rows, the model tables and the stats counts left in
+    device memory (their shares set to 0 B), in both instantiations."""
+    for share in ("ROWS_SMEM_MAX", "MODEL_SMEM_MAX", "STATS_SMEM_MAX"):
+        monkeypatch.setattr(kblock, share, 0)
+    _kernel_equals_plain(cuda, name, N, shedder)
+
+
+def _kernel_equals_plain(cuda, name, N, shedder):
     cfg, model, carry, blk, i0 = _block_case(name, N, shedder, cuda)
     W = cfg.block_events
     got = {}

@@ -112,7 +112,7 @@ def build_model(specs: Sequence[pat.PatternSpec], cfg: eng.EngineConfig,
     # Max throughput at the warm steady state: 1 / E[t_proc].
     n_tail = max(1, warm_events.ev_class.shape[0] // 2)
     steady_n_pm = float(outs.n_pm.cpu().numpy()[-n_tail:].mean())
-    t_proc = float(ovl.predict_latency(
+    t_proc = float(ovl.predict_latency_unfused(
         f_model, torch.tensor(steady_n_pm, dtype=torch.float32,
                               device=dev)))
     max_rate = 1.0 / max(t_proc, 1e-9)

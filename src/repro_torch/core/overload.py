@@ -46,29 +46,64 @@ def _basis(n: torch.Tensor, kind) -> torch.Tensor:
     return torch.where(kind == LINEAR, n, nlogn)
 
 
-def _lstsq_1d(x, y, w):
-    """Weighted least squares for y = a·x + b (closed form)."""
-    sw = torch.clamp_min(w.sum(), 1e-30)
-    mx = (w * x).sum() / sw
-    my = (w * y).sum() / sw
-    cov = (w * (x - mx) * (y - my)).sum()
-    var = torch.clamp_min((w * (x - mx) ** 2).sum(), 1e-30)
+def xla_sum(v: torch.Tensor) -> torch.Tensor:
+    """Σ v of a 1-D float32 tensor, rounded as the reference's jitted
+    reductions round it on the CPU: XLA splits the sum into windows of
+    32 consecutive elements (the padding centred, pad // 2 zeros first),
+    sums each window left to right from 0, repeats on the partial sums
+    until at most 32 remain, and sums those left to right.  Every add is
+    one exactly rounded float32 add, so the result is the same on any
+    device."""
+    v = v.float().reshape(-1)
+    while v.shape[0] > 32:
+        n = v.shape[0]
+        m = -(-n // 32)
+        pad = m * 32 - n
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = v.reshape(m, 32)
+        acc = v[:, 0] + 0.0
+        for j in range(1, 32):
+            acc = acc + v[:, j]
+        v = acc
+    acc = torch.zeros((), dtype=torch.float32, device=v.device)
+    for j in range(v.shape[0]):
+        acc = acc + v[j]
+    return acc
+
+
+def _lstsq_1d(x, y, valid):
+    """Weighted least squares for y = a·x + b (closed form), with the
+    reference's rounding: the 0/1 weights select, every sum is
+    ``xla_sum`` and b = my − a·mx is one fused multiply-add."""
+    zero = torch.zeros_like(x)
+    sw = torch.clamp_min(xla_sum(valid.float()), 1e-30)
+    mx = xla_sum(torch.where(valid, x, zero)) / sw
+    my = xla_sum(torch.where(valid, y, zero)) / sw
+    dx = x - mx
+    cov = xla_sum(torch.where(valid, dx, zero) * (y - my))
+    var = torch.clamp_min(xla_sum(torch.where(valid, dx * dx, zero)),
+                          1e-30)
     a = cov / var
-    b = my - a * mx
+    b = fp.fma(-a, mx, my)
     return a, b
 
 
 def fit_latency_model(n_pm: torch.Tensor, latency: torch.Tensor,
                       valid: torch.Tensor | None = None) -> LatencyModel:
     """Fit both candidate regressions, keep the lower-SSE one (§III-E).
-    Its sums run in another order than XLA's: hold it to a tolerance."""
-    w = torch.ones_like(latency) if valid is None else valid.float()
+    The sums and the contracted sites round as the reference's jitted
+    fit does on the CPU; on LINEAR data the fit is bitwise the
+    reference's (an n·log2(n+1) basis goes through log2, whose libms
+    differ)."""
+    valid = torch.ones_like(latency, dtype=torch.bool) if valid is None \
+        else valid.bool()
 
     def fit(kind):
         x = _basis(n_pm, kind)
-        a, b = _lstsq_1d(x, latency, w)
+        a, b = _lstsq_1d(x, latency, valid)
         a = torch.clamp_min(a, 1e-12)
-        sse = (w * (fp.fma(a, x, b) - latency) ** 2).sum()
+        r = fp.fma(a, x, b) - latency
+        sse = xla_sum(torch.where(valid, r * r, torch.zeros_like(r)))
         return a, b, sse
 
     a0, b0, e0 = fit(LINEAR)
@@ -82,6 +117,13 @@ def fit_latency_model(n_pm: torch.Tensor, latency: torch.Tensor,
 def predict_latency(model: LatencyModel, n_pm) -> torch.Tensor:
     n = torch.as_tensor(n_pm, device=model.a.device)
     return fp.fma(model.a, _basis(n, model.kind), model.b)
+
+
+def predict_latency_unfused(model: LatencyModel, n_pm) -> torch.Tensor:
+    """``predict_latency`` with a·basis and + b rounded apart, as the
+    reference's model builder evaluates it outside jit."""
+    n = torch.as_tensor(n_pm, device=model.a.device)
+    return model.a * _basis(n, model.kind) + model.b
 
 
 def _newton(t: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ dense PM store: dropping a PM clears its mask bit, nothing moves.
 
   - pSPICE: utility-table lookup (O(1)/PM) + drop the ρ lowest;
   - PM-BL (``random_drop``): a uniformly random ρ-subset, drawn from the
-    engine's threefry key (``repro_torch.prng``, bitwise ``jax.random``).
+    engine's threefry key (``repro_torch.prng``, bitwise ``jax.random``);
+  - E-BL's event-type utility model (``ebl_type_utilities``,
+    ``ebl_drop_mask``); the engine's own E-BL sheds in its input path.
 
 Plans: ``"threshold"`` (default) is ``threshold_drop_mask``, an O(N)
 histogram-refinement select; ``"sort"`` is the stable-argsort oracle.
@@ -136,3 +138,49 @@ def shed(kind: str, *, key: torch.Tensor, active: torch.Tensor,
             return drop_lowest_utility(active, scores, rho)
         return random_drop(key, active, rho)
     raise ValueError(f"unknown shedder kind: {kind}")
+
+
+# ---------------------------------------------------------------------------
+# E-BL event-utility model (paper §IV-A baseline 2, after He et al. [15] +
+# weighted sampling [13]).  Event *types* get utility proportional to their
+# repetition in patterns and in windows; low-utility types are dropped from
+# incoming windows by uniform sampling within type.
+# ---------------------------------------------------------------------------
+
+def ebl_type_utilities(pattern_class_of_type: torch.Tensor,
+                       class_repetition_in_patterns: torch.Tensor,
+                       type_frequency_in_windows: torch.Tensor
+                       ) -> torch.Tensor:
+    """Utility per event type.
+
+    pattern_class_of_type: (n_types,) int32 — pattern class each raw event
+        type maps to (0 == irrelevant to every pattern).
+    class_repetition_in_patterns: (n_classes,) float — how often the class
+        appears across pattern definitions (importance ∝ repetition).
+    type_frequency_in_windows: (n_types,) float — empirical frequency (types
+        that are rare in windows are harder to replace → more valuable).
+    """
+    rep = class_repetition_in_patterns[pattern_class_of_type.long()]
+    freq = torch.clamp_min(type_frequency_in_windows, 1e-9)
+    u = rep / freq
+    return torch.where(pattern_class_of_type > 0, u, torch.zeros_like(u))
+
+
+def ebl_drop_mask(key: torch.Tensor, type_of_event: torch.Tensor,
+                  type_utils: torch.Tensor, drop_fraction) -> torch.Tensor:
+    """Per-event drop decision: drop probability inversely related to the
+    event type's utility, scaled so the expected drop rate == drop_fraction.
+
+    Returns bool (n_events,) — True means the event is dropped before window
+    processing (black-box shedding).  The uniforms come from ``key``
+    through ``repro_torch.prng``, so they follow ``prng.PARTITIONABLE``."""
+    u = type_utils[type_of_event.long()]
+    u_max = torch.clamp_min(u.max(), 1e-9)
+    # Normalized "keep priority" in [0, 1]; uniform sampling within a type.
+    keep_priority = u / u_max
+    # Drop probability per event, renormalized to hit the global budget.
+    raw = 1.0 - keep_priority
+    mean_raw = torch.clamp_min(raw.mean(), 1e-9)
+    frac = torch.as_tensor(drop_fraction, dtype=raw.dtype, device=raw.device)
+    p_drop = torch.clamp(raw * (frac / mean_raw), 0.0, 1.0)
+    return prng.uniform(key, tuple(type_of_event.shape)) < p_drop

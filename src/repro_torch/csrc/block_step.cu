@@ -82,7 +82,8 @@
 // passes -fmad=false.  The per-pattern cost sum keeps the reference's
 // order for each P (one FMA, a lane tree, or an FMA chain).  Algorithm
 // 2's PRNG is threefry inside the kernel: each fire splits the key and
-// PM-BL draws the fire's uniforms from the subkey.
+// PM-BL draws the fire's uniforms from the subkey, in the layout the
+// argument block names (jax's partitionable one or its original one).
 //
 // Lanes (one CTA per lane) and clusters for stores beyond one SM are not
 // built; all per-lane state is addressed from the argument block.
@@ -182,8 +183,9 @@ struct BlockStepArgs {
   // event index and the block's index in the scan.
   int P, N, M, C1, A, K, S, B, W;
   int s, n_valid, i0, blk;
-  // Static configuration.
-  int kinds, spawn_modes, shedder, fused, emit, stats;
+  // Static configuration; partitionable picks the threefry layout of the
+  // fires' draws (repro_torch.prng.PARTITIONABLE).
+  int kinds, spawn_modes, shedder, fused, emit, stats, partitionable;
   // The layout the wrapper planned: the store in shared memory (else
   // device memory); event rows, model tables and stats counts in shared
   // memory; the dynamic shared-memory bytes this implies.
@@ -847,7 +849,7 @@ block_step_kernel(const BlockStepArgs a) {
         sim = sim1;
         if (fire) {                  // fused Algorithm 2: key, sub = split
           uint32_t next[2], sub[2];
-          repro::threefry_split(key, next, sub);
+          repro::threefry_split(key, next, sub, a.partitionable != 0);
           key[0] = next[0]; key[1] = next[1];
           if (lane == 0) {
             ev.sub[0] = sub[0];
@@ -920,7 +922,9 @@ block_step_kernel(const BlockStepArgs a) {
           u = on ? repro::utility_at(ut, p, a.B, M, st[f], r_w, bins[p])
                  : kBig;
         } else {
-          u = repro::threefry_uniform(ev.sub, static_cast<uint32_t>(f));
+          u = repro::threefry_uniform(ev.sub, static_cast<uint32_t>(f),
+                                      static_cast<uint32_t>(F),
+                                      a.partitionable != 0);
         }
         su[f] = u;
         ssel[f] = on ? 1 : 0;
@@ -1346,14 +1350,15 @@ block_step_kernel(const BlockStepArgs a) {
 }
 
 // The generator alone, for the tests: key, sub = split(key) and the n
-// uniforms jax.random.uniform(sub, (n,)) draws.
+// uniforms jax.random.uniform(sub, (n,)) draws, in the given layout.
 __global__ void threefry_probe_kernel(const int32_t* __restrict__ key, int n,
+                                      int partitionable,
                                       int32_t* __restrict__ keys_out,
                                       float* __restrict__ u_out) {
   const uint32_t k[2] = {static_cast<uint32_t>(key[0]),
                          static_cast<uint32_t>(key[1])};
   uint32_t next[2], sub[2];
-  repro::threefry_split(k, next, sub);
+  repro::threefry_split(k, next, sub, partitionable != 0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t == 0) {
     keys_out[0] = static_cast<int32_t>(next[0]);
@@ -1362,7 +1367,9 @@ __global__ void threefry_probe_kernel(const int32_t* __restrict__ key, int n,
     keys_out[3] = static_cast<int32_t>(sub[1]);
   }
   for (int e = t; e < n; e += gridDim.x * blockDim.x) {
-    u_out[e] = repro::threefry_uniform(sub, static_cast<uint32_t>(e));
+    u_out[e] = repro::threefry_uniform(sub, static_cast<uint32_t>(e),
+                                       static_cast<uint32_t>(n),
+                                       partitionable != 0);
   }
 }
 
@@ -1395,11 +1402,12 @@ extern "C" int block_step_launch(const BlockStepArgs* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int threefry_probe_launch(const void* key, int n, void* keys_out,
-                                     void* u_out, void* stream) {
+extern "C" int threefry_probe_launch(const void* key, int n, int partitionable,
+                                     void* keys_out, void* u_out,
+                                     void* stream) {
   const int blocks = n > 0 ? (n + 255) / 256 < 132 ? (n + 255) / 256 : 132 : 1;
   threefry_probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(key), n, static_cast<int32_t*>(keys_out),
-      static_cast<float*>(u_out));
+      static_cast<const int32_t*>(key), n, partitionable,
+      static_cast<int32_t*>(keys_out), static_cast<float*>(u_out));
   return static_cast<int>(cudaGetLastError());
 }

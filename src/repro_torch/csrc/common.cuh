@@ -70,8 +70,10 @@ __device__ __forceinline__ int bucket_of(float v, const float* edges,
 }
 
 // ---------------------------------------------------------------------------
-// Threefry-2x32 (20 rounds), jax.random's default generator in its
-// partitionable layout: integer arithmetic only, so exact.
+// Threefry-2x32 (20 rounds), jax.random's default generator, in both of
+// its layouts (repro_torch/prng.py::_hash_flat): integer arithmetic only,
+// so exact.  `partitionable` picks the layout (jax_threefry_partitionable;
+// repro_torch.prng.PARTITIONABLE on the host).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -96,26 +98,57 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-// key, sub = jax.random.split(key): the hashes of counters 0 and 1.
+// key, sub = jax.random.split(key).  Partitionable: the hashes of the
+// counter pairs (0, 0) and (0, 1), one key each.  Original: the four
+// words of counters 0..3 hash as the pairs (0, 2) -> (a0, a1) and
+// (1, 3) -> (b0, b1), and concatenate to a0 b0 a1 b1, so that
+// key = (a0, b0) and sub = (a1, b1).
 __device__ __forceinline__ void threefry_split(const uint32_t key[2],
                                                uint32_t next[2],
-                                               uint32_t sub[2]) {
+                                               uint32_t sub[2],
+                                               bool partitionable) {
   uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;
+  if (!partitionable) {
+    a1 = 2u;
+    b0 = 1u;
+    b1 = 3u;
+  }
   threefry2x32(key[0], key[1], a0, a1);
   threefry2x32(key[0], key[1], b0, b1);
-  next[0] = a0; next[1] = a1;
-  sub[0] = b0; sub[1] = b1;
+  if (partitionable) {
+    next[0] = a0; next[1] = a1;
+    sub[0] = b0; sub[1] = b1;
+  } else {
+    next[0] = a0; next[1] = b0;
+    sub[0] = a1; sub[1] = b1;
+  }
 }
 
-// Element i of jax.random.uniform(key, (n,)) for i < 2**32: the mantissa
-// bits of the counter's hash under 1.0f's exponent, minus 1.
+// Element f of jax.random.uniform(key, (n,)) for n < 2**32: 23 mantissa
+// bits of the element's word under 1.0f's exponent, minus 1.
+// Partitionable: the word is x0 ^ x1 of the hash of (0, f).  Original:
+// counters 0..n-1 (odd n padded with one 0) split into halves of
+// h = ceil(n / 2) that hash pairwise, the x0 words first: f < h takes x0
+// of the hash of (f, f + h), or of (f, 0) when f + h is the pad; f >= h
+// takes x1 of the hash of (f - h, f).  No XOR there.
 __device__ __forceinline__ float threefry_uniform(const uint32_t key[2],
-                                                  uint32_t i) {
-  uint32_t x0 = 0u, x1 = i;
-  threefry2x32(key[0], key[1], x0, x1);
-  const uint32_t bits = x0 ^ x1;
-  const float f = __uint_as_float((bits >> 9) | 0x3F800000u);
-  return fmaxf(__fsub_rn(f, 1.0f), 0.0f);
+                                                  uint32_t f, uint32_t n,
+                                                  bool partitionable) {
+  uint32_t bits;
+  if (partitionable) {
+    uint32_t x0 = 0u, x1 = f;
+    threefry2x32(key[0], key[1], x0, x1);
+    bits = x0 ^ x1;
+  } else {
+    const uint32_t h = n / 2u + (n & 1u);
+    const bool upper = f >= h;
+    uint32_t x0 = upper ? f - h : f;
+    uint32_t x1 = upper ? f : (f + h < n ? f + h : 0u);
+    threefry2x32(key[0], key[1], x0, x1);
+    bits = upper ? x1 : x0;
+  }
+  const float u = __uint_as_float((bits >> 9) | 0x3F800000u);
+  return fmaxf(__fsub_rn(u, 1.0f), 0.0f);
 }
 
 // Two's-complement difference a - b of int32 event indices (the window

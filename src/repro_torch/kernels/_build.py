@@ -40,7 +40,7 @@ _SIGNATURES = {
     "utility_lookup_launch": [_VP] * 5 + [_I] * 4 + [_VP] * 2,
     "utility_histogram_launch": [_VP, _LL, _VP, _I, _VP, _VP],
     "block_step_launch": [_VP, _VP],
-    "threefry_probe_launch": [_VP, _I, _VP, _VP, _VP],
+    "threefry_probe_launch": [_VP, _I, _I, _VP, _VP, _VP],
     "flash_attention_launch": [_VP] * 4 + [_I] * 9 + [_F, _VP],
     "flash_attention_sm90_launch": [_VP] * 4 + [_I] * 9 + [_F, _VP],
     "wgmma_probe_launch": [_VP] * 6,

@@ -16,7 +16,10 @@ Shedding protocols, as in the reference:
   the PM-BL uniforms, then ``core.shedder.threshold_drop_mask``.  The
   kernel splits the carry's threefry key itself on every fire
   (``key, sub = split(key)``) and PM-BL draws the fire's uniforms from
-  ``sub``, exactly the draws the per-event engine makes.
+  ``sub``, exactly the draws the per-event engine makes, in the layout
+  ``repro_torch.prng.PARTITIONABLE`` names when the scan starts (jax's
+  partitionable layout or its original one; the argument block carries
+  it).
 * REPLAY (``block_shed="replay"`` or ``shed_plan="sort"``): the kernel
   stops before the first fire, commits nothing of that event and reports
   it; the engine replays the event through its per-event step and
@@ -442,8 +445,8 @@ _PTRS = (
     "scratch_u", "scratch_sel", "status")
 _INTS = ("P", "N", "M", "C1", "A", "K", "S", "B", "W", "s", "n_valid",
          "i0", "blk", "kinds", "spawn_modes", "shedder", "fused", "emit",
-         "stats", "store_shared", "rows_smem", "model_smem", "stats_smem",
-         "smem_bytes")
+         "stats", "partitionable", "store_shared", "rows_smem",
+         "model_smem", "stats_smem", "smem_bytes")
 _FLOATS = ("c_base", "c_match", "c_ebl", "c_shed_base", "c_shed_pm",
            "latency_bound", "safety_buffer", "ebl_backlog_gain",
            "ebl_decay", "ebl_floor", "one_minus_floor")
@@ -563,6 +566,7 @@ def fill_args(cfg, model, carry, events, i0: int, s: int, n_valid: int,
             spawn_modes=_SPAWN_MODES[cfg.spawn_modes],
             shedder=_SHEDDERS[cfg.shedder], fused=int(fused_shed(cfg)),
             emit=int(cfg.emit_matches), stats=int(cfg.gather_stats),
+            partitionable=int(prng.PARTITIONABLE),
             store_shared=int(lay.store == "shared"),
             rows_smem=int(lay.rows_smem), model_smem=int(lay.model_smem),
             stats_smem=int(lay.stats_smem),
@@ -592,10 +596,6 @@ class BlockScan:
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"block_step: unsupported device {dev}")
         self.cuda = dev.type == "cuda"
-        if self.cuda and not prng.PARTITIONABLE:
-            raise NotImplementedError(
-                "block_step: the kernel's threefry draws in jax's "
-                "partitionable layout only (repro_torch.prng.PARTITIONABLE)")
         F = cfg.num_patterns * cfg.max_pms
         self.layout = plan_layout(cfg, model.trans.shape[2],
                                   model.ut_tables.shape[1])
@@ -667,17 +667,20 @@ def block_step(cfg, model, carry, blk, i0: int, s: int, n_valid: int,
     return carry, rows, status
 
 
-def threefry_probe(key: torch.Tensor, n: int):
+def threefry_probe(key: torch.Tensor, n: int,
+                   partitionable: bool | None = None):
     """The kernel's threefry on the card, for the tests: ``(split(key)
-    (2, 2) int32, uniform(split(key)[1], (n,)))`` — hold it against
+    (2, 2) int32, uniform(split(key)[1], (n,)))`` in the given layout
+    (default ``prng.PARTITIONABLE``) — hold it against
     ``repro_torch.prng``."""
     if key.device.type != "cuda":
         raise ValueError("threefry_probe runs on a CUDA device")
     _check("key", key, torch.int32, (2,), key.device)
+    part = prng.PARTITIONABLE if partitionable is None else partitionable
     keys = torch.empty((2, 2), dtype=torch.int32, device=key.device)
     u = torch.empty((n,), dtype=torch.float32, device=key.device)
     _build.check(_build.load().threefry_probe_launch(
-        key.data_ptr(), n, keys.data_ptr(), u.data_ptr(),
+        key.data_ptr(), n, int(part), keys.data_ptr(), u.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream), "threefry_probe")
     return keys, u
 

@@ -12,12 +12,27 @@ int64, masked to 32 bits after every add.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 PARTITIONABLE = True
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+@contextlib.contextmanager
+def layout(partitionable: bool):
+    """Draw in the given layout inside the ``with`` block (sets
+    ``PARTITIONABLE`` and restores it on exit)."""
+    global PARTITIONABLE
+    old = PARTITIONABLE
+    PARTITIONABLE = partitionable
+    try:
+        yield
+    finally:
+        PARTITIONABLE = old
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:

@@ -148,6 +148,41 @@ def test_overload_sweep_bitwise(shedder, mult):
         assert_trees_equal(outs, t_outs, f"{shedder}/x{mult}/W={w} outs")
 
 
+def test_original_threefry_layout_bitwise():
+    """jax's original (non-partitionable) threefry layout, in which the
+    committed quality results were made: with both packages set to it,
+    the block path's fused PM-BL fires (in-kernel key splits and
+    uniforms) equal the reference's xla run bit for bit.  On this stock
+    stream the fires drop a strict subset of the live PMs, so the draws
+    decide: the port's partitionable run completes other matches."""
+    from repro_torch import prng
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=97, latency_bound=0.005,
+                                shedder="pmbl", emit_matches=True,
+                                gather_stats=True, **COST)
+    ev = streams.classify(specs, sc.raw(n=600), seed=1,
+                          rate=3.0 / (cfg.c_base + cfg.c_match * 30))
+    model = eng.make_model(cp, cfg)
+    carry0 = eng.init_carry(cfg)
+    old = (jax.config.jax_threefry_partitionable, prng.PARTITIONABLE)
+    try:
+        jax.config.update("jax_threefry_partitionable", False)
+        prng.PARTITIONABLE = False
+        carry, outs = eng.run_engine(cfg, model, ev, carry0)
+        t_carry, t_outs = _run_block(cfg, model, ev, carry0, 32)
+        prng.PARTITIONABLE = True
+        _, p_outs = _run_block(cfg, model, ev, carry0, 32)
+    finally:
+        jax.config.update("jax_threefry_partitionable", old[0])
+        prng.PARTITIONABLE = old[1]
+    assert float(carry.shed_calls) >= 2
+    assert_trees_equal(carry, t_carry, "original layout carry")
+    assert_trees_equal(outs, t_outs, "original layout outs")
+    assert teng.match_sets(p_outs) != teng.match_sets(t_outs)
+
+
 @pytest.mark.parametrize("shed_plan,block_shed,w", [
     ("threshold", "replay", 1), ("threshold", "replay", 8),
     ("threshold", "replay", 32), ("sort", "fused", 32)])

@@ -262,6 +262,37 @@ def test_markov_and_utility_builders(seed, m, window, bin_size):
     np.testing.assert_allclose(tst.numpy(), np.asarray(st), RTOL, ATOL)
 
 
+@pytest.mark.parametrize("n", [1, 5, 32, 33, 100, 1000, 3000, 4096, 4097,
+                               40000])
+def test_xla_sum_bitwise(n):
+    """The reduction order of the reference's jitted sums on the CPU."""
+    rng = np.random.default_rng(n)
+    sum_ = jax.jit(lambda v: v.sum())
+    for _ in range(3):
+        v = (rng.standard_normal(n) * rng.choice([1e-3, 1.0, 1e3])).astype(
+            np.float32)
+        np.testing.assert_array_equal(tovl.xla_sum(T(v)).numpy(),
+                                      np.asarray(sum_(v)))
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("S,n_valid", [(4096, 4096), (4096, 3000),
+                                       (200, 150), (37, 37)])
+def test_fit_latency_model_linear_bitwise(seed, S, n_valid):
+    """On samples of a linear cost (the engine's simulated time), the fit
+    is the reference's bit for bit: a, b and kind."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 300, S).astype(np.float32)
+    lat = (np.float32(3e-4) + np.float32(6e-5) * n).astype(np.float32)
+    lat = lat * rng.uniform(0.999, 1.001, S).astype(np.float32)
+    valid = np.arange(S) < n_valid
+    ref = ovl.fit_latency_model(n, lat, valid)
+    got = tovl.fit_latency_model(T(n), T(lat), T(valid))
+    assert int(got.kind) == int(ref.kind) == tovl.LINEAR
+    assert got.a.numpy().tobytes() == np.asarray(ref.a).tobytes()
+    assert got.b.numpy().tobytes() == np.asarray(ref.b).tobytes()
+
+
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("shape", ["linear", "nlogn"])
 def test_fit_latency_model(seed, shape):

@@ -2,8 +2,10 @@
 
 With the port's own ``build_model`` (whose reductions run in another
 order), ``run_experiment``'s per-shedder FN is within FN_TOL of the
-reference's and the headline ordering is the same; the built matrices,
-tables and latency fit are within rtol=1e-5, atol=1e-7.
+reference's and the headline ordering is the same; the built matrices
+and tables are within rtol=1e-5, atol=1e-7.  The latency fit, and with it
+the max rate that sets every overload run's arrivals, is the reference's
+bit for bit: its sums follow the reference's reduction order.
 """
 import numpy as np
 import pytest
@@ -63,3 +65,34 @@ def test_build_model_close_to_reference():
                                rtol=1e-5)
     assert tb.steady_n_pm == built.steady_n_pm
     np.testing.assert_allclose(tb.max_rate, built.max_rate, rtol=1e-5)
+
+
+def test_max_rate_exact_at_the_paper_grid_warm_up():
+    """Stock's warm-up as run_experiment makes it at the grid's 30 000
+    events (the first 9 000): the port's f fit and max rate equal the
+    reference's exactly, so an overload level puts every event at the
+    reference's arrival time."""
+    sc = streams.get_scenario("stock")
+    raw = sc.raw()
+    n_warm = int(raw.n * 0.3)
+    cp = runner.pat.compile_patterns(sc.specs())
+    cfg = runner.default_config(cp, latency_bound=sc.latency_bound,
+                                max_pms=sc.max_pms, **pp.COST)
+    warm = streams.classify(sc.specs(), cut(raw, 0, n_warm), rate=1.0,
+                            seed=sc.seed)
+    built = runner.build_model(sc.specs(), cfg, warm, bin_size=sc.bin_size,
+                               seed=sc.seed)
+    tsc = tstreams.get_scenario("stock")
+    tcfg = trunner.default_config(
+        tpat.compile_patterns(tsc.specs()),
+        latency_bound=sc.latency_bound, max_pms=sc.max_pms, **pp.COST)
+    twarm = tstreams.classify(tsc.specs(), cut(tsc.raw(), 0, n_warm),
+                              rate=1.0, seed=sc.seed, device="cpu")
+    tb = trunner.build_model(tsc.specs(), tcfg, twarm, bin_size=sc.bin_size,
+                             seed=sc.seed, device="cpu")
+    assert int(tb.f_model.kind) == int(built.f_model.kind)
+    for f in ("a", "b"):
+        assert getattr(tb.f_model, f).numpy().tobytes() == \
+            np.asarray(getattr(built.f_model, f)).tobytes(), f
+    assert tb.steady_n_pm == built.steady_n_pm
+    assert tb.max_rate == built.max_rate

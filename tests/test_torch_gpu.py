@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the block kernel's threefry against ``repro_torch.prng``, and
-the engine's ``cuda`` and ``cuda_block`` backends on the card against
-its ``torch`` backend on the CPU — BITWISE.
+version, the block kernel's threefry against ``repro_torch.prng`` (in
+both of jax's layouts), the engine's ``cuda`` and ``cuda_block`` backends
+on the card against its ``torch`` backend on the CPU, and both on the
+card against the NumPy oracle — BITWISE.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is
 present.  The module imports only the port (no jax, no reference), so it
@@ -19,6 +20,7 @@ from repro_torch.cep import block_cases, convert, engine, patterns as pat
 from repro_torch.cep import runner
 from repro_torch.core import shedder as shd
 from repro_torch import prng
+from repro_torch.configs import pspice_paper as pp
 from repro_torch.data import streams
 from repro_torch.kernels import block_step as kblock
 from repro_torch.kernels import nfa_transition as kn
@@ -29,8 +31,15 @@ pytestmark = pytest.mark.gpu
 
 SHAPES = [(3, 256, 11, 11, 38), (2, 1000, 5, 7, 9), (1, 37, 4, 3, 3),
           (8, 53, 11, 2, 3)]
-COST = dict(c_base=3e-4, c_match=6e-5, c_shed_base=1.5e-4, c_shed_pm=5e-7,
-            c_ebl=6e-5)
+COST = pp.COST
+
+
+@pytest.fixture
+def original_layout():
+    """jax's original (non-partitionable) threefry layout, in which the
+    committed quality results were made, for the test's duration."""
+    with prng.layout(False):
+        yield
 
 
 @pytest.fixture
@@ -140,6 +149,17 @@ def test_block_kernel_equals_plain(cuda, name, N, shedder):
     _kernel_equals_plain(cuda, name, N, shedder)
 
 
+PMBL_CASES = [c for c in block_cases.CASES if c[2] == "pmbl"]
+
+
+@pytest.mark.parametrize("name,N,shedder", PMBL_CASES)
+def test_block_kernel_equals_plain_original_layout(cuda, original_layout,
+                                                   name, N, shedder):
+    """PM-BL fires in jax's original threefry layout, with the store in
+    shared memory (stock, bus) and in device memory (soccer N=2048)."""
+    _kernel_equals_plain(cuda, name, N, shedder)
+
+
 @pytest.mark.parametrize("name,N,shedder", [block_cases.CASES[0],
                                             block_cases.CASES[-1]])
 def test_block_kernel_device_memory_pieces_equal_plain(cuda, monkeypatch,
@@ -181,13 +201,46 @@ def test_block_kernel_rejects_bad_input(cuda):
         kblock.block_step(cfg, model, carry, bad, i0, 0, cfg.block_events)
 
 
+@pytest.mark.parametrize("n", [5000, 4097])
+@pytest.mark.parametrize("partitionable", [True, False])
 @pytest.mark.parametrize("seed", [0, 7, 123456789])
-def test_threefry_on_card_equals_prng(cuda, seed):
+def test_threefry_on_card_equals_prng(cuda, seed, partitionable, n):
+    """Both layouts; an odd n takes the original layout's padded pair."""
     key = prng.PRNGKey(seed, device=cuda)
-    keys, u = kblock.threefry_probe(key, 5000)
-    want = prng.split(key)
+    keys, u = kblock.threefry_probe(key, n, partitionable=partitionable)
+    want = prng.split(key, partitionable=partitionable)
     assert torch.equal(keys, want)
-    assert torch.equal(u, prng.uniform(want[1], (5000,)))
+    assert torch.equal(u, prng.uniform(want[1], (n,),
+                                       partitionable=partitionable))
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_block"])
+@pytest.mark.parametrize("shedder", ["none", "pspice", "pmbl", "ebl"])
+def test_engines_on_card_equal_oracle(cuda, monkeypatch, shedder, backend,
+                                      partitionable):
+    """The oracle's overload fixture (x1.2/1.4/1.6) and a stream whose
+    PM-BL fires depend on the layout, through each engine path on the
+    card, under the literal sort-based Algorithm 2."""
+    from repro_torch.eval import oracle, oracle_cases
+    monkeypatch.setattr(prng, "PARTITIONABLE", partitionable)
+    cases = [oracle_cases.overload_case(shedder, m, cuda)
+             for m in oracle_cases.OVERLOAD_LEVELS]
+    cases.append(oracle_cases.layout_case(shedder, cuda))
+    for cfg, model, ev in cases:
+        cfg = dataclasses.replace(cfg, backend=backend)
+        o = oracle.run_oracle(cfg, model, ev, seed=0)
+        carry, outs = engine.run_engine(
+            cfg, model, ev, engine.init_carry(cfg, seed=0, device=cuda),
+            device=cuda)
+        assert engine.match_sets(outs) == o.matches
+        np.testing.assert_array_equal(carry.complex_count.cpu().numpy(),
+                                      o.complex_count)
+        for f in ("pms_shed", "shed_calls", "overflow", "ebl_dropped"):
+            assert float(getattr(carry, f)) == getattr(o, f), f
+        np.testing.assert_array_equal(outs.l_e.cpu().numpy(), o.l_e)
+        np.testing.assert_array_equal(outs.shed.cpu().numpy(), o.shed)
+        np.testing.assert_array_equal(outs.dropped.cpu().numpy(), o.dropped)
 
 
 def _flat(tree, path=""):

@@ -22,6 +22,13 @@ PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "triton", "repro")
 
 
+# The quality evaluation's modules (the oracle, the sweep and the paper's
+# settings) are held to the same rules as the rest of the port.
+QUALITY_MODULES = ("repro_torch.configs.pspice_paper",
+                   "repro_torch.eval.oracle", "repro_torch.eval.oracle_cases",
+                   "repro_torch.eval.sweep")
+
+
 def _modules():
     return sorted(
         ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
@@ -42,6 +49,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                          text=True, env=env, check=True, timeout=120)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] >= 20 and res["bad"] == [], res
+
+
+def test_quality_modules_are_scanned():
+    assert set(QUALITY_MODULES) <= set(_modules())
 
 
 def _imported_roots(path: pathlib.Path):
@@ -81,6 +92,7 @@ def _stock():
 def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.cep import engine, runner
     from repro_torch.data import streams
+    from repro_torch.eval import sweep
     sc, specs, cp, cfg = _stock()
     raw = sc.raw(n=60)
     calls = {
@@ -89,6 +101,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         "init_carry": lambda: engine.init_carry(cfg),
         "run_experiment": lambda: runner.run_experiment(specs, raw,
                                                         max_pms=16),
+        "run_dataset": lambda: sweep.run_dataset("stock", levels=(1.2,),
+                                                 quick=True),
     }
     ev = streams.classify(specs, raw, rate=10.0, device="cpu")
     model = engine.make_model(cp, cfg, device="cpu")

@@ -56,3 +56,18 @@ def test_uniform_range_and_dtype():
     u = prng.uniform(prng.PRNGKey(3), (4096,))
     assert u.dtype.is_floating_point and u.dtype.itemsize == 4
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+
+
+def test_layout_context_sets_and_restores():
+    key = prng.PRNGKey(3)
+    before = prng.PARTITIONABLE
+    with prng.layout(not before):
+        assert prng.PARTITIONABLE is (not before)
+        inside = prng.split(key)
+    assert prng.PARTITIONABLE is before
+    assert np.array_equal(inside.numpy(),
+                          prng.split(key, partitionable=not before).numpy())
+    with pytest.raises(RuntimeError):
+        with prng.layout(not before):
+            raise RuntimeError("restored on the way out")
+    assert prng.PARTITIONABLE is before

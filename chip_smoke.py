@@ -18,8 +18,10 @@ Phases (one line each; any failure raises and exits non-zero):
            event rows, model tables and stats counts in device memory;
            the PM-BL cases again in jax's original threefry layout, and
            the kernel's threefry against repro_torch.prng in both
-           layouts); times against the memory bound, and the launch
-           path's host time per launch
+           layouts); its lane instance (one CTA per lane) at L = 3 on
+           every block case, each lane equal to the plain version and to
+           the one-lane kernel on that lane; times against the memory
+           bound, and the launch path's host time per launch
   parity   the engine on stock specs, N=2048, 3000 events, all four
            shedders with fires: backends "cuda" and "cuda_block" on the
            card == backend "torch" on the card == backend "torch" on the
@@ -41,6 +43,16 @@ Phases (one line each; any failure raises and exits non-zero):
            and every other cell within 0.05 of it; "cuda" == "cuda_block"
            at the headline level on every dataset; the wall of stock's
            run_experiment split by layer
+  runtime  the multi-tenant streaming runtime: 128 lanes of the stock
+           configuration (30000 events each, rates 1.2..1.4 x max_rate,
+           one model from lane 0's warm-up) through MultiTenantRuntime on
+           "cuda_block" (one launch of the block kernel's lane instance,
+           128 CTAs, per 32-event block, no host sync) against 128
+           sequential run_engine calls, every lane's carry bitwise equal;
+           events/s, speedup, launches, peak memory; the lane grid's time
+           per launch at L = 1, 8, 128 against its byte bound; the refresh
+           demo (8 drifting lanes, refresh every 4 chunks), each lane
+           equal to StreamRuntime on that lane alone
   profile  torch.profiler over one stock pspice run per path: device
            busy time by kernel and the device's idle share; on the block
            path also the host's time per launch (the enqueue alone)
@@ -75,8 +87,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("card", "build", "kernels", "parity", "main", "quality", "profile",
-          "model")
+PHASES = ("card", "build", "kernels", "parity", "main", "quality", "runtime",
+          "profile", "model")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -100,6 +112,10 @@ KERNEL_META = {
                           "src/repro/kernels/shed_select.py:115"),
     "block_step": ("src/repro_torch/csrc/block_step.cu",
                    "src/repro/kernels/block_step.py:87"),
+    # The lane instance: the same kernel vmapped over tenant lanes
+    # (src/repro/cep/engine.py:877), one CTA per lane.
+    "block_step_lanes": ("src/repro_torch/csrc/block_step.cu",
+                         "src/repro/kernels/block_step.py:87"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:29"),
 }
@@ -107,7 +123,7 @@ KERNEL_META = {
 # the main phase, or the model phase's prefill and decode.
 KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
                "utility_histogram": "cuda", "block_step": "cuda_block",
-               "flash_attention": "model"}
+               "block_step_lanes": "runtime", "flash_attention": "model"}
 W_BLOCK = 32                       # block_events on the block path
 
 
@@ -361,6 +377,7 @@ def phase_kernels(torch, np) -> dict:
         log("kernels", f"{name}: max |kernel - plain| {err!r} over every "
             "case and N")
     record["block_step"] = phase_block_kernel(torch, np)
+    record["block_step_lanes"] = phase_block_lanes(torch, np)
     record["flash_attention"] = phase_flash_kernel(torch, np)
     return record
 
@@ -620,6 +637,357 @@ def phase_block_kernel(torch, np) -> dict:
     log("kernels", f"block_step: max |kernel - plain| {err!r} over every "
         "case (both instantiations, both threefry layouts)")
     return record
+
+
+def lane_view(tree, k: int):
+    """Lane ``k`` of a lane-stacked tree (views)."""
+    from repro_torch.cep import engine as eng
+    return eng.tree_map(lambda x: x[k], tree)
+
+
+def lanes_bytes(torch, cfg, model, carry, blk, i0: int) -> int:
+    """``block_bytes`` of one lane-grid launch: the sum over its lanes,
+    each stepped from a copy of its own carry."""
+    from repro_torch.cep import engine as eng
+    return sum(block_bytes(torch, cfg, lane_view(model, k),
+                           eng.tree_map(lambda x: x[k].clone(), carry),
+                           lane_view(blk, k), i0)
+               for k in range(blk.ev_id.shape[0]))
+
+
+def lane_grid_timing(torch, cfg, model, carry, blk, i0: int,
+                     plain: bool = False) -> dict:
+    """One launch of the lane instance over every lane of ``blk``, from
+    the same carry each time (restored by copies timed apart): device
+    time (profiler), per call (CUDA events), the host's enqueue, the
+    bound over this launch's data, and with ``plain`` the plain version
+    lane by lane."""
+    from repro_torch.cep import engine as eng
+    from repro_torch.kernels import block_step as kb
+
+    L = blk.ev_id.shape[0]
+    base = eng.tree_map(lambda x: x.clone(), carry)
+    c = eng.tree_map(lambda x: x.clone(), carry)
+    rows = kb.new_rows(cfg, W_BLOCK, blk.ev_id.device, lanes=L)
+    scan = kb.BlockScan(cfg, model, c, blk, rows, lanes=L)
+
+    def restore():
+        for dst, src in zip(carry_leaves(c), carry_leaves(base)):
+            dst.copy_(src)
+
+    def launch():
+        restore()
+        scan.launch(0, i0, 0, W_BLOCK)
+
+    t_restore = cuda_ms(torch, restore, iters=50)
+    d_us = device_us(torch, launch, "block_step_kernel", iters=20)
+    call_ms = launch_ms(torch, restore, lambda: scan.launch(0, i0, 0,
+                                                             W_BLOCK))
+    host_us = host_us_per_launch(
+        torch, lambda k: scan.launch(0, i0, 0, W_BLOCK), 100)
+    out = dict(ms=d_us / 1e3 if d_us is not None else call_ms,
+               call_ms=call_ms, host_us_per_launch=host_us,
+               device_measured=d_us is not None)
+    if plain:
+        def run_plain():
+            restore()
+            for k in range(L):
+                kb.block_step_plain(
+                    cfg, lane_view(model, k), lane_view(c, k),
+                    lane_view(blk, k), i0, 0, W_BLOCK,
+                    {n: v[k] for n, v in rows.items()})
+        out["plain_ms"] = cuda_ms(torch, run_plain, iters=2) - t_restore
+    nbytes = lanes_bytes(torch, cfg, model, base, blk, i0)
+    out.update(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def phase_block_lanes(torch, np) -> dict:
+    """The block kernel's lane instance (one CTA per lane) at L = 3 on
+    every block case, each lane with its own stream, model and carry:
+    equal, lane by lane, to block_step_plain and to the one-lane kernel
+    on that lane alone, bit for bit, in both instantiations.  Times the
+    first case's launch."""
+    from repro_torch.cep import block_cases, convert
+    from repro_torch.cep import engine as eng
+    from repro_torch.kernels import block_step as kb
+
+    dev = torch.device("cuda")
+    record, err, seen = {}, 0.0, set()
+    for name, N, shedder in block_cases.CASES:
+        cfg, model, carry, blk, i0 = block_cases.firing_lanes(
+            name, N, shedder, dev, W=W_BLOCK, **paper_cost())
+        L = blk.ev_id.shape[0]
+        lay = kb.plan_layout(cfg, model.trans.shape[-1],
+                             model.ut_tables.shape[-2])
+        seen.add(lay.store)
+        saved = convert.tree_to_numpy(carry)
+        c = convert.carry_from_numpy(saved, dev)
+        _, rows, status = kb.block_step_lanes(cfg, model, c, blk, i0, 0,
+                                              W_BLOCK)
+        torch.cuda.synchronize()
+        fired = 0
+        for k in range(L):
+            got = carry_leaves(lane_view(c, k)) + \
+                [rows[n][k] for n in rows] + [status[k]]
+            for label, fn in (("plain", kb.block_step_plain),
+                              ("one-lane kernel", kb.block_step)):
+                ck = eng.tree_map(lambda x: x[k].clone(),
+                                  convert.carry_from_numpy(saved, dev))
+                rk = kb.new_rows(cfg, W_BLOCK, dev)
+                ck, rk, sk = fn(cfg, lane_view(model, k), ck,
+                                lane_view(blk, k), i0, 0, W_BLOCK, rk)
+                torch.cuda.synchronize()
+                want = carry_leaves(ck) + [rk[n] for n in rows] + [sk]
+                bad = [i for i, (a, b) in enumerate(zip(got, want))
+                       if not same(torch, a, b)]
+                if bad:
+                    raise AssertionError(
+                        f"lane grid {name} N={N} {shedder}: lane {k} != "
+                        f"{label} in leaves {bad}")
+                err = max([err] + [max_abs_err(torch, a, b)
+                                   for a, b in zip(got, want)])
+            fired += int(status[k, 0]) > 0
+        if shedder in ("pspice", "pmbl") and fired < 2:
+            raise AssertionError(f"lane grid {name} N={N} {shedder}: "
+                                 f"{fired} lanes fired, need 2")
+        log("kernels", f"block_step_lanes {name} P={cfg.num_patterns} "
+            f"N={N} W={W_BLOCK} {shedder}, L={L} lanes ({lay.store} store, "
+            f"fires per lane {status[:, 0].tolist()}): every lane bitwise "
+            "equal to block_step_plain and to the one-lane kernel")
+        if (name, N, shedder) == block_cases.CASES[0]:
+            t = lane_grid_timing(torch, cfg, model, carry, blk, i0,
+                                 plain=True)
+            src = "device time" if t["device_measured"] else \
+                "CUDA events, device time not measured"
+            log("kernels", f"block_step_lanes {name} N={N} L={L}: kernel "
+                f"{t['ms']:.6f} ms per launch ({src}), per call "
+                f"{t['call_ms']:.6f} ms, host {t['host_us_per_launch']:.3f}"
+                f" us per launch; plain (lane by lane) {t['plain_ms']:.6f} "
+                f"ms, library none, bound {t['bound_ms']:.6f} ms "
+                f"({t['bytes']} B at 3.35 TB/s)")
+            record = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                          bound_ms=t["bound_ms"], call_ms=t["call_ms"],
+                          host_us_per_launch=t["host_us_per_launch"],
+                          lanes=L, store=lay.store,
+                          smem_bytes=lay.smem_bytes)
+    if seen != {"shared", "global"}:
+        raise AssertionError(f"lane-grid cases took only the {seen} store")
+    record["max_abs_err"] = err
+    log("kernels", f"block_step_lanes: max |kernel - plain|, |kernel - "
+        f"one-lane kernel| {err!r} over every case and lane")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# The multi-tenant streaming runtime
+# ---------------------------------------------------------------------------
+
+RT_LANES, RT_EVENTS, RT_CHUNK = 128, 30000, 1024
+# The refresh demo's simulated-time costs (examples/runtime_multitenant.py).
+DEMO_COST = dict(c_base=3e-4, c_match=6e-5, c_shed_base=1.5e-4,
+                 c_shed_pm=1.5e-6, c_ebl=6e-5)
+
+
+def _cut(raw, a: int, b: int):
+    import dataclasses
+    return dataclasses.replace(raw, n=b - a, type_id=raw.type_id[a:b],
+                               attr=raw.attr[a:b], group=raw.group[a:b])
+
+
+def phase_runtime(torch, np) -> dict:
+    """The streaming runtime on the card: 128 tenant lanes of the stock
+    configuration through MultiTenantRuntime against 128 sequential
+    single-lane runs (every lane's carry equal), the lane grid's time
+    per launch at L = 1, 8 and 128, and the refresh demo at L = 8.
+    Returns the lane instance's launches on the 128-lane run and its
+    time and bound per launch at each L."""
+    launches = runtime_throughput(torch, np)
+    runtime_refresh(torch, np)
+    return launches
+
+
+def runtime_throughput(torch, np) -> dict:
+    from repro_torch import runtime as RT
+    from repro_torch.cep import engine as eng, patterns as pat, runner
+    from repro_torch.data import streams
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device("cuda")
+    L, n = RT_LANES, RT_EVENTS
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(
+        cp, max_pms=sc.max_pms, latency_bound=sc.latency_bound,
+        shedder="pspice", backend="cuda_block", block_events=W_BLOCK,
+        **paper_cost())
+    t0 = time.perf_counter()
+    raws = [sc.raw(n=n, seed=sc.seed + k) for k in range(L)]
+    warm = streams.classify(specs, _cut(raws[0], 0, int(n * 0.3)),
+                            rate=1.0, seed=sc.seed, device=dev)
+    built = runner.build_model(specs, cfg, warm, bin_size=sc.bin_size,
+                               seed=sc.seed, device=dev)
+    rates = [built.max_rate * (1.2 + 0.2 * k / (L - 1)) for k in range(L)]
+    evs = [streams.classify(specs, raws[k], rate=rates[k], seed=sc.seed + k,
+                            device=dev) for k in range(L)]
+    model = eng.make_model(
+        cp, cfg, ut_tables=built.ut_stacked, ut_bins=built.ut_bins,
+        f_model=built.f_model, g_model=built.g_model,
+        ebl_raw_mean=float(evs[0].ebl_raw.mean()), device=dev)
+    log("runtime", f"{L} lanes x {n} stock events (3 x Q1, N={sc.max_pms}, "
+        f"W={W_BLOCK}, pspice, LB {sc.latency_bound} s), rates "
+        f"{rates[0]:.1f}..{rates[-1]:.1f} events/s (max_rate "
+        f"{built.max_rate!r} x 1.2..1.4); set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # -- the sequential baseline: one run_engine per lane ---------------
+    eng.run_engine(cfg, model, evs[0], eng.init_carry(cfg, device=dev),
+                   device=dev)
+    carries = [eng.init_carry(cfg, seed=k, device=dev) for k in range(L)]
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    seq = []
+    for k in range(L):
+        c, _ = eng.run_engine(cfg, model, evs[k], carries[k], device=dev)
+        torch.cuda.synchronize()
+        seq.append(c)
+    wall_seq = time.perf_counter() - t0
+    seq_launches = kops.launch_counts()["block_step"]
+
+    # -- the lane-parallel runtime ---------------------------------------
+    mL, evL = RT.broadcast_model(model, L), RT.stack(evs)
+    rt = RT.RuntimeConfig(chunk_size=RT_CHUNK)
+    walls = []
+    for rep in range(2):                 # the first run warms the path
+        mt = RT.MultiTenantRuntime(cfg, mL, L, rt=rt, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        kops.reset_launch_counts()
+        eng.host_syncs = 0
+        t0 = time.perf_counter()
+        stats = mt.push(evL, flush=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts, syncs = kops.launch_counts(), eng.host_syncs
+        peak = torch.cuda.max_memory_allocated()
+    wall_mt = walls[-1]
+    want = sum(-(-s.n_events // (L * W_BLOCK)) for s in stats)
+    if counts["block_step_lanes"] != want or counts["block_step"] != 0:
+        raise AssertionError(f"runtime launches {counts}, expected {want} "
+                             "lane-grid launches and no one-lane launch")
+    if syncs:
+        raise AssertionError(f"{syncs} engine host syncs on the fused path")
+    bad = [k for k in range(L) if not all(
+        same(torch, a, b) for a, b in zip(
+            carry_leaves(lane_view(mt.carry, k)),
+            carry_leaves(seq[k])))]
+    if bad:
+        raise AssertionError(f"MultiTenantRuntime lanes {bad} != their "
+                             "sequential single-lane runs")
+    agg = mt.telemetry.aggregate()
+    total = L * n
+    log("runtime", f"MultiTenantRuntime: {total} events in {wall_mt:.4f} s "
+        f"= {total / wall_mt:.1f} events/s (warm-up run {walls[0]:.4f} s); "
+        f"sequential ({L} x run_engine, carries made before the clock): "
+        f"{wall_seq:.4f} s = {total / wall_seq:.1f} events/s; speedup "
+        f"{wall_seq / wall_mt:.2f}x")
+    log("runtime", f"lane-grid launches {counts['block_step_lanes']} (grid "
+        f"= {L} CTAs each; sequential: {seq_launches} one-lane launches), "
+        f"engine host syncs {syncs}, {len(stats)} chunks; peak device "
+        f"memory {peak / 2**20:.1f} MiB ({(peak - mem0) / 2**20:.1f} MiB "
+        f"above the {mem0 / 2**20:.1f} MiB held before the run); "
+        f"telemetry: p99 max {agg['l_e_p99_max']:.6f} s, pms_shed "
+        f"{agg['pms_shed']:g}, shed_calls {agg['shed_calls']:g}, "
+        f"completions {agg['completions']:g}")
+    log("runtime", f"every lane of MultiTenantRuntime == its sequential "
+        f"single-lane run in every carry leaf (bitwise, {L} lanes)")
+
+    # -- time per lane-grid launch at L = 1, 8, 128 -----------------------
+    half = n // 2 // W_BLOCK * W_BLOCK
+    by_lanes = {}
+    at = RT.MultiTenantRuntime(cfg, mL, L, rt=rt, device=dev)
+    at.push(eng.EventBatch(*(x[:, :half] for x in evL)), flush=True)
+    for lx in (1, 8, L):
+        sub = lambda t, lx=lx: eng.tree_map(  # noqa: E731
+            lambda x: x[:lx].contiguous(), t)
+        blk = eng.EventBatch(*(x[:lx, half:half + W_BLOCK].contiguous()
+                               for x in evL))
+        tm = lane_grid_timing(torch, cfg, sub(mL), sub(at.carry), blk, half)
+        src = "device time" if tm["device_measured"] else \
+            "CUDA events, device time not measured"
+        log("runtime", f"lane grid L={lx}: {tm['ms']:.6f} ms per launch "
+            f"({src}; per call {tm['call_ms']:.6f} ms, host "
+            f"{tm['host_us_per_launch']:.3f} us), "
+            f"{tm['ms'] / (lx * W_BLOCK) * 1e3:.4f} us per lane-event; "
+            f"bound {tm['bound_ms']:.6f} ms ({tm['bytes']} B at 3.35 TB/s),"
+            f" {tm['ms'] / tm['bound_ms']:.1f}x the bound")
+        by_lanes[str(lx)] = (tm["ms"], tm["bound_ms"])
+    return {"block_step_lanes": dict(
+        launches=counts["block_step_lanes"],
+        ms_by_lanes={k: v[0] for k, v in by_lanes.items()},
+        bound_ms_by_lanes={k: v[1] for k, v in by_lanes.items()})}
+
+
+def runtime_refresh(torch, np) -> None:
+    """The refresh demo (examples/runtime_multitenant.py at L = 8): Q1
+    over 4 symbols, drifting streams and rates, per-lane refresh every 4
+    chunks; every lane equal to the StreamRuntime run on that lane alone."""
+    from repro_torch import runtime as RT
+    from repro_torch.cep import engine as eng, patterns as pat, runner
+    from repro_torch.data import streams
+
+    dev = torch.device("cuda")
+    L, n, chunk = 8, 16384, 1024
+    specs = [pat.make_q1(window_size=400, num_symbols=4)]
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=128, latency_bound=0.02,
+                                gather_stats=True, shedder="pspice",
+                                backend="cuda_block", block_events=W_BLOCK,
+                                **DEMO_COST)
+    model = eng.make_model(cp, cfg, device=dev)
+    rate = 1.0 / (cfg.c_base + cfg.c_match * 0.3 * cfg.max_pms)
+    evs = [streams.classify(
+        specs, streams.gen_stock_drift(n, num_symbols=50, pattern_symbols=4,
+                                       p_class=0.03, p_class_end=0.10,
+                                       seed=100 + k),
+        rate=rate * (1 + 0.2 * k), rate_end=4.0 * rate, seed=k, device=dev)
+        for k in range(L)]
+    rt = RT.RuntimeConfig(chunk_size=chunk, refresh=RT.RefreshConfig(
+        every_chunks=4, min_observations=256, decay=0.5))
+    mt = RT.MultiTenantRuntime(cfg, RT.broadcast_model(model, L), L, rt=rt,
+                               specs=specs, device=dev)
+    evL = RT.stack(evs)
+    t0 = time.perf_counter()
+    for s in range(0, n, 3000):
+        mt.push(eng.EventBatch(*(x[:, s:s + 3000] for x in evL)),
+                flush=s + 3000 >= n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    agg = mt.telemetry.aggregate()
+    counts = [s.refresh_count for s in mt.refresh_state]
+    if agg["refreshes"] < 1 or min(counts) < 1:
+        raise AssertionError(f"refresh demo: no refresh ({agg}, {counts})")
+    for k in range(L):
+        srt = RT.StreamRuntime(cfg, model, rt=rt, specs=specs, seed=k,
+                               device=dev)
+        srt.push(evs[k], flush=True)
+        torch.cuda.synchronize()
+        if srt.refresh_state.refresh_count != counts[k] or not all(
+                same(torch, a, b) for a, b in zip(
+                    carry_leaves(lane_view(mt.carry, k)),
+                    carry_leaves(srt.carry))):
+            raise AssertionError(f"refresh demo lane {k} != StreamRuntime "
+                                 "on that lane alone")
+    log("runtime", f"refresh demo: {L} lanes x {n} events, chunk {chunk}, "
+        f"{agg['n_chunks']} chunks in {wall:.4f} s ({L * n / wall:.1f} "
+        f"events/s host clock); {agg['refreshes']} refresh rounds, per-lane "
+        f"refreshes {counts}, host time in refresh "
+        f"{agg['refresh_wall_s']:.4f} s; aggregate {json.dumps(agg)}")
+    log("runtime", "refresh demo: every lane == StreamRuntime on that lane "
+        "alone (carry bitwise, refresh counts equal)")
 
 
 def block_original_layout(torch) -> float:
@@ -1830,6 +2198,7 @@ def main() -> int:
                       ("parity", lambda: phase_parity(torch, np)),
                       ("main", lambda: phase_main(torch)),
                       ("quality", lambda: phase_quality(torch, np)),
+                      ("runtime", lambda: phase_runtime(torch, np)),
                       ("profile", lambda: [phase_profile(torch, b) for b in
                                            ("cuda", "cuda_block")]),
                       ("model", lambda: phase_model(torch, np))):
@@ -1841,9 +2210,12 @@ def main() -> int:
         log(phase, f"phase done in {timings[phase]:.2f} s")
         if phase == "kernels":
             record = out
-        if phase in ("main", "model"):
+        if phase in ("main", "runtime", "model"):
             for name, n in out.items():
-                record.setdefault(name, {})["launches"] = n
+                if isinstance(n, dict):
+                    record.setdefault(name, {}).update(n)
+                else:
+                    record.setdefault(name, {})["launches"] = n
         if phase == "quality":
             for name, n in out.items():
                 record.setdefault(name, {})["quality_launches"] = n
@@ -1859,7 +2231,8 @@ def main() -> int:
             bound_ms=r.get("bound_ms"), bound_by=r.get("bound_by", "bytes"),
             library_ms=r.get("library_ms")))
         for extra in ("us_per_event", "call_ms", "host_us_per_launch",
-                      "store", "smem_bytes", "quality_launches"):
+                      "store", "smem_bytes", "lanes", "ms_by_lanes",
+                      "bound_ms_by_lanes", "quality_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

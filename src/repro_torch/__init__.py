@@ -2,8 +2,8 @@
 
 A package of its own beside ``repro`` (the JAX reference).  It keeps the
 reference's module layout (``cep``, ``core``, ``data``, ``eval``,
-``kernels``, and for the model zoo's serving path ``configs``,
-``models``, ``serving``, ``launch``) so every module has an obvious
+``kernels``, ``runtime``, and for the model zoo's serving path
+``configs``, ``models``, ``serving``, ``launch``) so every module has an obvious
 counterpart, and never imports ``jax`` or ``repro``.
 
 Entry points take ``device=None``, which means ``"cuda"`` and raises
@@ -13,7 +13,7 @@ when no card is present; the CPU is used only when a caller passes
 import importlib
 
 __all__ = ["cep", "configs", "core", "data", "device", "eval", "fp",
-           "kernels", "launch", "models", "prng", "serving"]
+           "kernels", "launch", "models", "prng", "runtime", "serving"]
 
 
 def __getattr__(name: str):

@@ -32,6 +32,14 @@ lookup and the shed histogram go through the hand-written kernels of
 ``kernels/block_step.py``, per ``block_events`` events, with the whole
 operator state on the device and no host sync inside a block; on CPU
 tensors it runs the kernel's plain version).
+
+Lanes (the multi-tenant runtime's, ``repro_torch.runtime.lanes``): L
+independent operators with lane-stacked models, carries and events
+advance in lockstep.  The per-event loop is written over lanes — the
+single-lane engine is its one-lane case — with its device half run once
+over the L·P pattern rows; on "cuda_block" each W-event block is one
+launch of the block kernel's lane instance, one CTA per lane.
+``merge_carries`` folds the lanes into one L·P-pattern carry.
 """
 from __future__ import annotations
 
@@ -323,9 +331,17 @@ def init_carry(cfg: EngineConfig, seed: int = 0, lat_capacity: int = 4096,
 # Per-run constants and the host half of the carry
 # ---------------------------------------------------------------------------
 
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of NamedTuple trees of one structure."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+
+
 class _Ctx(NamedTuple):
     """What a run derives once from (cfg, model): index tensors on the
-    device and the model's scalars on the host."""
+    device over the model's pattern rows."""
     dev: torch.device
     pidx: torch.Tensor         # (P, 1) int64 pattern index
     rowbase: torch.Tensor      # (P, 1) int64 pattern row offset p·N
@@ -339,13 +355,7 @@ class _Ctx(NamedTuple):
     in_win: torch.Tensor       # (P,) bool
     id_slot: torch.Tensor      # (P, A) bool: slot 0 where spawn counts
     pattern_id: torch.Tensor   # (P·N,) int64
-    zero_cls: torch.Tensor     # (P,) int32
-    zero_open: torch.Tensor    # (P,) bool
     neg_one: torch.Tensor      # () int32 -1
-    cp: np.ndarray             # (P,) float32 c_match · proc_cost
-    f: ovl.HostLatencyModel
-    g: ovl.HostLatencyModel
-    ebl_mean_eff: np.float32
 
 
 def _make_ctx(cfg: EngineConfig, model: EngineModel) -> _Ctx:
@@ -353,7 +363,6 @@ def _make_ctx(cfg: EngineConfig, model: EngineModel) -> _Ctx:
     P, N, K, A = cfg.num_patterns, cfg.max_pms, cfg.ring_size, \
         cfg.max_any_ids
     pidx = torch.arange(P, device=dev)[:, None]
-    floor = F32(cfg.ebl_floor)
     return _Ctx(
         dev=dev, pidx=pidx, rowbase=pidx * N,
         cols=torch.arange(N, dtype=torch.int32, device=dev).repeat(P),
@@ -366,20 +375,37 @@ def _make_ctx(cfg: EngineConfig, model: EngineModel) -> _Ctx:
         id_slot=model.spawn_counts[:, None] & (
             torch.arange(A, device=dev) == 0),
         pattern_id=torch.arange(P, device=dev).repeat_interleave(N),
-        zero_cls=torch.zeros((P,), dtype=torch.int32, device=dev),
-        zero_open=torch.zeros((P,), dtype=torch.bool, device=dev),
         neg_one=torch.tensor(-1, dtype=torch.int32, device=dev),
-        cp=(F32(cfg.c_match) * model.proc_cost.cpu().numpy()).astype(
-            np.float32),
-        f=ovl.to_host(model.f_model), g=ovl.to_host(model.g_model),
-        ebl_mean_eff=fp.fma32(F32(1.0 - cfg.ebl_floor),
-                              model.ebl_raw_mean.item(), floor),
     )
+
+
+class _LaneModel(NamedTuple):
+    """One lane's model scalars on the host."""
+    cp: np.ndarray             # (P,) float32 c_match · proc_cost
+    f: ovl.HostLatencyModel
+    g: ovl.HostLatencyModel
+    ebl_mean_eff: np.float32
+
+
+def _lane_models(cfg: EngineConfig, model: EngineModel) -> list[_LaneModel]:
+    """Each lane's host scalars from a lane-stacked model (one read per
+    leaf)."""
+    h = lambda t: t.cpu().numpy()  # noqa: E731
+    proc, mean = h(model.proc_cost), h(model.ebl_raw_mean)
+    f, g = [tuple(h(x) for x in m) for m in (model.f_model, model.g_model)]
+    floor = F32(cfg.ebl_floor)
+    lat = lambda m, k: ovl.HostLatencyModel(  # noqa: E731
+        a=F32(m[0][k]), b=F32(m[1][k]), kind=int(m[2][k]))
+    return [_LaneModel(
+        cp=(F32(cfg.c_match) * proc[k]).astype(np.float32), f=lat(f, k),
+        g=lat(g, k),
+        ebl_mean_eff=fp.fma32(F32(1.0 - cfg.ebl_floor), mean[k], floor))
+        for k in range(proc.shape[0])]
 
 
 @dataclasses.dataclass
 class _Host:
-    """The carry's scalar control state, as float32 host scalars."""
+    """One lane's scalar control state, as float32 host scalars."""
     sim_time: np.float32
     key: torch.Tensor           # (2,) int32, on the CPU
     ebl_frac: np.float32
@@ -392,31 +418,37 @@ class _Host:
     lat_l: np.ndarray
     lat_ptr: int
 
-    @staticmethod
-    def of(c: Carry) -> "_Host":
-        s = lambda t: F32(t.item())  # noqa: E731
-        return _Host(sim_time=s(c.sim_time), key=c.key.cpu(),
-                     ebl_frac=s(c.ebl_frac), ema_gap=s(c.ema_gap),
-                     prev_arrival=s(c.prev_arrival), pms_shed=s(c.pms_shed),
-                     shed_calls=s(c.shed_calls),
-                     ebl_dropped=s(c.ebl_dropped),
-                     lat_n=c.lat_samples_n.cpu().numpy().copy(),
-                     lat_l=c.lat_samples_l.cpu().numpy().copy(),
-                     lat_ptr=int(c.lat_ptr.item()))
+    _SCALARS = ("sim_time", "ebl_frac", "ema_gap", "prev_arrival",
+                "pms_shed", "shed_calls", "ebl_dropped")
 
-    def into(self, c: Carry) -> Carry:
+    @staticmethod
+    def lanes(c: Carry) -> list["_Host"]:
+        """Each lane's host state from a lane-stacked carry."""
+        v = {k: getattr(c, k).cpu().numpy() for k in _Host._SCALARS}
+        key = c.key.cpu()
+        lat_n, lat_l = (t.cpu().numpy() for t in (c.lat_samples_n,
+                                                  c.lat_samples_l))
+        ptr = c.lat_ptr.cpu().numpy()
+        return [_Host(key=key[k], lat_n=lat_n[k].copy(),
+                      lat_l=lat_l[k].copy(), lat_ptr=int(ptr[k]),
+                      **{name: F32(v[name][k]) for name in _Host._SCALARS})
+                for k in range(key.shape[0])]
+
+    @staticmethod
+    def into(hs: list["_Host"], c: Carry) -> Carry:
+        """``c`` with every lane's host state written back, lane-stacked."""
         dev = c.sim_time.device
-        s = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
-                                   device=dev)
+        col = lambda name: torch.from_numpy(np.array(  # noqa: E731
+            [getattr(h, name) for h in hs], dtype=np.float32)).to(dev)
         return c._replace(
-            sim_time=s(self.sim_time), key=self.key.to(dev),
-            ebl_frac=s(self.ebl_frac), ema_gap=s(self.ema_gap),
-            prev_arrival=s(self.prev_arrival), pms_shed=s(self.pms_shed),
-            shed_calls=s(self.shed_calls), ebl_dropped=s(self.ebl_dropped),
-            lat_samples_n=torch.from_numpy(self.lat_n).to(dev),
-            lat_samples_l=torch.from_numpy(self.lat_l).to(dev),
-            lat_ptr=torch.tensor(_wrap32(self.lat_ptr), dtype=torch.int32,
-                                 device=dev))
+            key=torch.stack([h.key for h in hs]).to(dev),
+            lat_samples_n=torch.from_numpy(
+                np.stack([h.lat_n for h in hs])).to(dev),
+            lat_samples_l=torch.from_numpy(
+                np.stack([h.lat_l for h in hs])).to(dev),
+            lat_ptr=torch.tensor([_wrap32(h.lat_ptr) for h in hs],
+                                 dtype=torch.int32, device=dev),
+            **{name: col(name) for name in _Host._SCALARS})
 
 
 def _wrap32(v: int) -> int:
@@ -464,8 +496,8 @@ def _read(t: torch.Tensor) -> np.ndarray:
 def _advance(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
              ev_class: torch.Tensor, ev_bind: torch.Tensor,
              ev_id: torch.Tensor):
-    """Advance all active PMs against one event.  Returns (pms, old_state,
-    new_state, completed)."""
+    """Advance all active PMs against one event (``ev_id`` one per
+    pattern row).  Returns (pms, old_state, new_state, completed)."""
     M, C1 = model.trans.shape[1], model.trans.shape[2]
     final = ctx.final
     if cfg.kinds != "any" and cfg.backend == BACKEND_CUDA:
@@ -487,7 +519,7 @@ def _advance(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
         seq_next = model.trans.reshape(-1)[flat_idx]
 
     if cfg.kinds != "seq":
-        in_set = (pms.idset == ev_id).any(dim=-1)
+        in_set = (pms.idset == ev_id[:, None, None]).any(dim=-1)
         any_match = (c_eff == 1) & ~in_set & (pms.state < final)
         any_next = pms.state + any_match.to(torch.int32)
         A = cfg.max_any_ids
@@ -495,7 +527,7 @@ def _advance(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
         slot = torch.clamp(pms.state - 1 + sc, 0, A - 1)
         do_insert = ~ctx.is_seq & pms.active & any_match
         onehot = (slot[..., None] == ctx.a_iota) & do_insert[..., None]
-        idset = torch.where(onehot, ev_id, pms.idset)
+        idset = torch.where(onehot, ev_id[:, None, None], pms.idset)
 
     if cfg.kinds == "seq":
         new_state = torch.where(pms.active, seq_next, pms.state)
@@ -525,7 +557,8 @@ def _spawn(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
            ring: torch.Tensor, i: int, ev_open: torch.Tensor,
            ev_class: torch.Tensor, ev_bind: torch.Tensor,
            ev_id: torch.Tensor):
-    """Spawn new PMs.  Returns (pms, spawned (P,) f32, overflow () f32).
+    """Spawn new PMs.  Returns (pms, spawned (P,) f32, overflow (P,) int
+    per pattern row).
 
     SPAWN_AT_OPEN: the window-open event itself spawns one PM at state 1.
     SPAWN_IN_WINDOWS: a class-1 event spawns a PM (state 1, bound to its
@@ -559,7 +592,7 @@ def _spawn(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
     n_free = free.sum(dim=1)
     rank = torch.cumsum(cand, dim=1) - 1
     can_alloc = cand & (rank < n_free[:, None])
-    overflow = (cand & ~can_alloc).sum()
+    overflow = (cand & ~can_alloc).sum(dim=1)
     pick = torch.clamp(rank, 0, N - 1)
     if cfg.spawn_alloc == "argsort":
         free_order = torch.argsort(pms.active.to(torch.uint8), dim=1,
@@ -584,25 +617,28 @@ def _spawn(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
                          ev_bind[:, None].expand(P, K).reshape(-1))
     # Fresh idset row: the spawning event's id fills slot 0 where the
     # spawn consumes the first distinct match (Q4).
-    fresh = torch.where(ctx.id_slot, ev_id, ctx.neg_one)
+    fresh = torch.where(ctx.id_slot, ev_id[:, None], ctx.neg_one)
     idset = _scatter_drop(pms.idset.reshape(flat_n, A), upd,
                           fresh[:, None, :].expand(P, K, A).reshape(-1, A))
     spawned = can_alloc.sum(dim=1).float()
     pms2 = PMStore(active=active.reshape(P, N), state=state.reshape(P, N),
                    open_idx=open_i.reshape(P, N), bind=bind.reshape(P, N),
                    idset=idset.reshape(P, N, A))
-    return pms2, spawned, overflow.float()
+    return pms2, spawned, overflow
 
 
-def _shed_now(cfg: EngineConfig, model: EngineModel, ctx: _Ctx,
-              pms: PMStore, sub: torch.Tensor, i: int,
-              rho: int) -> torch.Tensor:
-    """Run the load shedder (Alg. 2 / PM-BL); returns the new (P, N)
-    active mask.  ``sub`` is the fire's threefry subkey."""
+def _shed_now(cfg: EngineConfig, model: EngineModel, pms: PMStore,
+              ws: torch.Tensor, pattern_id: torch.Tensor,
+              sub: torch.Tensor, i: int, rho: int) -> torch.Tensor:
+    """Run the load shedder (Alg. 2 / PM-BL) on one operator's store
+    (``ws`` (P, 1) its window sizes, ``pattern_id`` (P·N,) its slots'
+    patterns); returns the new (P, N) active mask.  ``sub`` is the fire's
+    threefry subkey."""
     P, N = cfg.num_patterns, cfg.max_pms
-    r_w = ctx.ws - (i - pms.open_idx)
+    dev = pms.active.device
+    r_w = ws - (i - pms.open_idx)
     flat_active = pms.active.reshape(-1)
-    rho_t = torch.tensor(rho, dtype=torch.int32, device=ctx.dev)
+    rho_t = torch.tensor(rho, dtype=torch.int32, device=dev)
     if cfg.shedder == SHED_PSPICE:
         if cfg.backend == BACKEND_CUDA:
             # Kernel path: one utility-lookup launch for the store, then
@@ -621,10 +657,10 @@ def _shed_now(cfg: EngineConfig, model: EngineModel, ctx: _Ctx,
             new_flat = shd.shed(
                 "pspice", key=sub, active=flat_active, rho=rho_t,
                 stacked_tables=model.ut_tables, bin_sizes=model.ut_bins,
-                pattern_id=ctx.pattern_id, state=pms.state.reshape(-1),
+                pattern_id=pattern_id, state=pms.state.reshape(-1),
                 r_w=r_w.reshape(-1), plan=cfg.shed_plan)
     else:  # PM-BL — O(N) select over uniform scores on either backend
-        new_flat = shd.shed("pmbl", key=sub.to(ctx.dev), active=flat_active,
+        new_flat = shd.shed("pmbl", key=sub.to(dev), active=flat_active,
                             rho=rho_t, plan=cfg.shed_plan)
     return new_flat.reshape(P, N)
 
@@ -636,122 +672,185 @@ def _shed_now(cfg: EngineConfig, model: EngineModel, ctx: _Ctx,
 def _scan_events(cfg: EngineConfig, model: EngineModel, events: EventBatch,
                  carry: Carry, start: int) -> tuple[Carry, StepOut]:
     """Run events ``start, start+1, ...`` (global, int32-wrapped indices,
-    so chunked runs replay a monolithic run's op sequence)."""
-    ctx = _make_ctx(cfg, model)
-    P, N = cfg.num_patterns, cfg.max_pms
-    n = events.ev_class.shape[0]
+    so chunked runs replay a monolithic run's op sequence): the lane loop
+    with one lane."""
+    one = lambda x: x[None]  # noqa: E731
+    c, outs = _scan_events_lanes(cfg, tree_map(one, model),
+                                 tree_map(one, events), tree_map(one, carry),
+                                 start)
+    return tree_map(lambda x: x[0], c), tree_map(lambda x: x[0], outs)
+
+
+def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
+                       events: EventBatch, carry: Carry,
+                       start: int) -> tuple[Carry, StepOut]:
+    """The per-event engine over L lanes in lockstep (the reference's
+    ``_scan_events_lanes`` / ``_step_lanes``).  ``model`` and ``carry``
+    are lane-stacked (a leading (L,) axis), ``events`` (L, n, ...); the
+    lanes share the global index ``start + j`` and each keeps its own
+    clock in its events.
+
+    The device half of each event runs ONCE over the L·P pattern rows —
+    the lanes' stores, rings and models laid end to end as one operator
+    of L·P patterns (on "cuda" one ``_nfa_kernel`` launch per event over
+    all of them) — and one read brings every lane's counts to the host.
+    The host half (Algorithm 1, E-BL, the clock, the latency ring, the
+    key) runs per lane on that lane's scalars; the shed runs once for
+    each lane that sheds, on its rows alone, and one more read brings
+    the shedding lanes' counts.  Returned StepOut leaves are (L, n, ...).
+    Every lane equals its own single-lane run bit for bit."""
+    L, n, P = events.ev_class.shape
+    N, R = cfg.max_pms, L * P
+    rows_of = lambda x: x.reshape((R,) + x.shape[2:])  # noqa: E731
+    flat = model._replace(**{k: rows_of(getattr(model, k)) for k in (
+        "trans", "kind", "spawn_mode", "window_size", "final_state",
+        "proc_cost", "uses_binding", "spawn_counts")})
+    rcfg = dataclasses.replace(cfg, num_patterns=R)
+    ctx = _make_ctx(rcfg, flat)
     dev = ctx.dev
-    h = _Host.of(carry)
-    arrival = events.arrival.cpu().numpy()
-    ev_rand = events.ev_rand.cpu().numpy()
-    ebl_raw = events.ebl_raw.cpu().numpy()
-    S = h.lat_n.shape[0]
-    l_e_out = np.zeros(n, np.float32)
-    n_pm_out = np.zeros(n, np.float32)
-    shed_out = np.zeros(n, bool)
-    drop_out = np.zeros(n, bool)
+    lm = _lane_models(cfg, model)
+    hs = _Host.lanes(carry)
+    pm_shedder = cfg.shedder in (SHED_PSPICE, SHED_PMBL)
+    lane_model = [tree_map(lambda x, k=k: x[k], model) for k in range(L)] \
+        if pm_shedder else []
+    arrival, ev_rand, ebl_raw = (x.cpu().numpy() for x in (
+        events.arrival, events.ev_rand, events.ebl_raw))
+    S = hs[0].lat_n.shape[0]
+    l_e_out = np.zeros((L, n), np.float32)
+    n_pm_out = np.zeros((L, n), np.float32)
+    shed_out = np.zeros((L, n), bool)
+    drop_out = np.zeros((L, n), bool)
     width = N if cfg.emit_matches else 0
-    m_open_out = torch.full((n, P, width), -1, dtype=torch.int32,
+    m_open_out = torch.full((n, R, width), -1, dtype=torch.int32,
                             device=dev)
-    m_bind_out = torch.full((n, P, width), -1, dtype=torch.int32,
+    m_bind_out = torch.full((n, R, width), -1, dtype=torch.int32,
                             device=dev)
     ev_class_h = events.ev_class.cpu().numpy()
     ev_open_h = events.ev_open.cpu().numpy()
-    zero_cls_h, zero_open_h = np.zeros(P, np.int32), np.zeros(P, bool)
-    at_open_h = ctx.at_open.cpu().numpy()
-    in_win_h = ctx.in_win.cpu().numpy()
+    # The events by index, each row over the L·P pattern rows.
+    by_j = lambda x: x.transpose(0, 1).reshape(n, R)  # noqa: E731
+    ev_class_r, ev_bind_r, ev_open_r = (by_j(x) for x in (
+        events.ev_class, events.ev_bind, events.ev_open))
+    ev_id_r = events.ev_id.transpose(0, 1).repeat_interleave(P, dim=1)
+    at_open_h = ctx.at_open.cpu().numpy().reshape(L, P)
+    in_win_h = ctx.in_win.cpu().numpy().reshape(L, P)
 
-    pms, ring, ring_ptr = carry.pms, carry.ring, carry.ring_ptr
-    complex_count, pms_created = carry.complex_count, carry.pms_created
+    pms = PMStore(*(rows_of(x) for x in carry.pms))
+    ring, ring_ptr = rows_of(carry.ring), rows_of(carry.ring_ptr)
+    complex_count = rows_of(carry.complex_count)
+    pms_created = rows_of(carry.pms_created)
     overflow = carry.overflow
     obs_counts, obs_rewards = carry.obs_counts, carry.obs_rewards
     lb, sb = cfg.latency_bound, cfg.safety_buffer
-    pm_shedder = cfg.shedder in (SHED_PSPICE, SHED_PMBL)
     one, c_base = F32(1.0), F32(cfg.c_base)
+    bk_rate = kblock.backlog_rate(cfg)
+    arr = np.zeros(L, np.float32)
+    l_q = np.zeros(L, np.float32)
 
     for j in range(n):
         i = _wrap32(start + j)
-        arr = F32(arrival[j])
         # -- 1. expire closed windows; ring bookkeeping ---------------------
         expired = pms.active & ((i - pms.open_idx) >= ctx.ws)
         act0 = pms.active
         pms = pms._replace(active=pms.active & ~expired)
-        if cfg.spawn_modes != "at_open" and (ev_open_h[j] & in_win_h).any():
-            opens = events.ev_open[j] & ctx.in_win
+        if cfg.spawn_modes != "at_open" and \
+                (ev_open_h[:, j] & in_win_h).any():
+            opens = ev_open_r[j] & ctx.in_win
             ring = torch.where(
                 opens[:, None] & (ctx.k_iota == ring_ptr[:, None]), i, ring)
             ring_ptr = torch.where(opens, (ring_ptr + 1) % cfg.ring_size,
                                    ring_ptr)
         # The one read of the event: active counts before (= the previous
-        # event's StepOut.n_pm) and after expiry.
-        counts = _read(torch.stack((act0.sum(dim=1), pms.active.sum(dim=1))))
+        # event's StepOut.n_pm) and after expiry, for every lane.
+        counts = _read(torch.stack((act0.sum(dim=1),
+                                    pms.active.sum(dim=1)))).reshape(2, L, P)
         if j:
-            n_pm_out[j - 1] = F32(counts[0].sum())
-        n_act = counts[1]
-        n_pm_i = int(n_act.sum())
+            n_pm_out[:, j - 1] = counts[0].sum(axis=1)
+        n_act = counts[1].copy()
+        n_pm_i = [int(v) for v in n_act.sum(axis=1)]
 
         # -- 2. queueing latency & overload check (Alg. 1) -------------------
-        h.sim_time = max(h.sim_time, arr)
-        l_q = F32(h.sim_time - arr)
-        did_shed = False
-        if pm_shedder:
-            shed, rho, _ = ovl.detect_overload_host(ctx.f, ctx.g, l_q,
-                                                    n_pm_i, lb, sb)
-            if shed and rho > 0:
-                keys = prng.split(h.key)
-                h.key = keys[0]
-                new_active = _shed_now(cfg, model, ctx, pms, keys[1], i, rho)
-                pms = pms._replace(active=new_active)
-                n_act = _read(new_active.sum(dim=1))
-                dropped = n_pm_i - int(n_act.sum())
+        did_shed = np.zeros(L, bool)
+        sheds = []
+        for k, h in enumerate(hs):
+            arr[k] = arrival[k, j]
+            h.sim_time = max(h.sim_time, arr[k])
+            l_q[k] = F32(h.sim_time - arr[k])
+            if pm_shedder:
+                shed, rho, _ = ovl.detect_overload_host(
+                    lm[k].f, lm[k].g, l_q[k], n_pm_i[k], lb, sb)
+                if shed and rho > 0:
+                    keys = prng.split(h.key)
+                    h.key = keys[0]
+                    rows = slice(k * P, (k + 1) * P)
+                    sheds.append((k, rows, _shed_now(
+                        cfg, lane_model[k], PMStore(*(x[rows] for x in pms)),
+                        ctx.ws[rows], ctx.pattern_id[:P * N], keys[1], i,
+                        rho)))
+        if sheds:
+            active = pms.active.clone()
+            for _, rows, new_active in sheds:
+                active[rows] = new_active
+            pms = pms._replace(active=active)
+            after = _read(active.sum(dim=1)).reshape(L, P)
+            for k, _, _ in sheds:
+                h = hs[k]
+                n_act[k] = after[k]
+                dropped = n_pm_i[k] - int(after[k].sum())
                 h.sim_time = F32(h.sim_time + fp.fma32(
-                    cfg.c_shed_pm, F32(n_pm_i), cfg.c_shed_base))
+                    cfg.c_shed_pm, F32(n_pm_i[k]), cfg.c_shed_base))
                 h.pms_shed = F32(h.pms_shed + F32(dropped))
                 h.shed_calls = F32(h.shed_calls + one)
-                did_shed = True
+                did_shed[k] = True
 
         # -- 3. E-BL input drop ----------------------------------------------
-        gap = max(F32(arr - h.prev_arrival), F32(1e-9))
-        h.ema_gap = fp.fma32(0.99, h.ema_gap, F32(F32(0.01) * gap))
-        h.prev_arrival = arr
-        ev_dropped = False
-        if cfg.shedder == SHED_EBL:
-            n_pm_f = F32(n_pm_i)
-            shed, _, _ = ovl.detect_overload_host(ctx.f, ctx.g, l_q, n_pm_i,
-                                                  lb, sb)
-            l_p_est = ovl.predict_latency_host(ctx.f, n_pm_f)
+        ev_dropped = np.zeros(L, bool)
+        for k, h in enumerate(hs):
+            gap = max(F32(arr[k] - h.prev_arrival), F32(1e-9))
+            h.ema_gap = fp.fma32(0.99, h.ema_gap, F32(F32(0.01) * gap))
+            h.prev_arrival = arr[k]
+            if cfg.shedder != SHED_EBL:
+                continue
+            n_pm_f = F32(n_pm_i[k])
+            shed, _, _ = ovl.detect_overload_host(lm[k].f, lm[k].g, l_q[k],
+                                                  n_pm_i[k], lb, sb)
+            l_p_est = ovl.predict_latency_host(lm[k].f, n_pm_f)
             d_ff = F32(l_p_est - h.ema_gap) / max(
                 F32(l_p_est - F32(cfg.c_ebl)), F32(1e-9))
-            d_bk = F32(F32(cfg.ebl_backlog_gain) * l_q) / F32(lb)
-            d_need = min(max(F32(d_ff + d_bk), F32(0.0)), one)
+            d_need = min(max(fp.fma32(l_q[k], bk_rate, d_ff), F32(0.0)),
+                         one)
             decayed = F32(h.ebl_frac * F32(cfg.ebl_decay))
             h.ebl_frac = max(decayed, d_need) if shed else decayed
-            raw_eff = fp.fma32(F32(1.0 - cfg.ebl_floor), ebl_raw[j],
+            raw_eff = fp.fma32(F32(1.0 - cfg.ebl_floor), ebl_raw[k, j],
                                cfg.ebl_floor)
             p_drop = min(max(F32(F32(raw_eff * h.ebl_frac) /
-                                 max(ctx.ebl_mean_eff, F32(1e-9))),
+                                 max(lm[k].ebl_mean_eff, F32(1e-9))),
                              F32(0.0)), one)
-            ev_dropped = bool(F32(ev_rand[j]) < p_drop)
-            h.ebl_dropped = F32(h.ebl_dropped + F32(ev_dropped))
-            did_shed = shed
+            ev_dropped[k] = bool(F32(ev_rand[k, j]) < p_drop)
+            h.ebl_dropped = F32(h.ebl_dropped + F32(ev_dropped[k]))
+            did_shed[k] = shed
 
         # Host-known no-ops: an event whose class is 0 for every pattern
-        # advances no PM, and one that opens no at-open window and is of
-        # class 1 for no in-window pattern spawns none — skipping those
+        # row advances no PM, and one that opens no at-open window and is
+        # of class 1 for no in-window pattern spawns none — skipping those
         # ops leaves every output bit as it is.
-        cls_h = zero_cls_h if ev_dropped else ev_class_h[j]
-        open_h = zero_open_h if ev_dropped else ev_open_h[j]
+        cls_h = np.where(ev_dropped[:, None], 0, ev_class_h[:, j])
+        open_h = ev_open_h[:, j] & ~ev_dropped[:, None]
         advances = bool(cls_h.any())
-        spawns = bool((open_h & at_open_h).any() or
-                      ((cls_h == 1) & ~at_open_h).any())
+        spawns = bool(((open_h & at_open_h) |
+                       ((cls_h == 1) & ~at_open_h)).any())
         if advances or spawns:
-            live_class = ctx.zero_cls if ev_dropped else events.ev_class[j]
-            ev_bind, ev_id = events.ev_bind[j], events.ev_id[j]
+            live_class, live_open = ev_class_r[j], ev_open_r[j]
+            if ev_dropped.any():
+                gone = torch.from_numpy(np.repeat(ev_dropped, P)).to(dev)
+                live_class = torch.where(gone, 0, live_class)
+                live_open = live_open & ~gone
+            ev_bind, ev_id = ev_bind_r[j], ev_id_r[j]
 
         # -- 4. advance + completions ----------------------------------------
         if advances:
             pms2, s_old, s_new, completed = _advance(
-                cfg, model, ctx, pms, live_class, ev_bind, ev_id)
+                rcfg, flat, ctx, pms, live_class, ev_bind, ev_id)
             complex_count = complex_count + completed.sum(dim=1).float()
             if cfg.emit_matches:
                 torch.where(completed, pms.open_idx, ctx.neg_one,
@@ -763,12 +862,11 @@ def _scan_events(cfg: EngineConfig, model: EngineModel, events: EventBatch,
 
         # -- 5. spawn --------------------------------------------------------
         if spawns:
-            live_open = ctx.zero_open if ev_dropped else events.ev_open[j]
-            pms3, spawned, oflow = _spawn(cfg, model, ctx, pms2, ring, i,
+            pms3, spawned, oflow = _spawn(rcfg, flat, ctx, pms2, ring, i,
                                           live_open, live_class, ev_bind,
                                           ev_id)
             pms_created = pms_created + spawned
-            overflow = overflow + oflow
+            overflow = overflow + oflow.reshape(L, P).sum(dim=1).float()
         else:
             pms3 = pms2
 
@@ -776,54 +874,56 @@ def _scan_events(cfg: EngineConfig, model: EngineModel, events: EventBatch,
         if cfg.gather_stats:
             M = cfg.max_states
             w = pms.active.float()
-            t = (cfg.c_match * model.proc_cost)[:, None] * w
-            flat = ((ctx.pidx * M + s_old) * M + s_new).reshape(-1)
+            t = (cfg.c_match * flat.proc_cost)[:, None] * w
+            cell = ((ctx.pidx * M + s_old) * M + s_new).reshape(-1)
             obs_counts = obs_counts.reshape(-1).index_add(
-                0, flat, w.reshape(-1)).reshape(obs_counts.shape)
+                0, cell, w.reshape(-1)).reshape(obs_counts.shape)
             obs_rewards = obs_rewards.reshape(-1).index_add(
-                0, flat, t.reshape(-1)).reshape(obs_rewards.shape)
+                0, cell, t.reshape(-1)).reshape(obs_rewards.shape)
 
         # -- 7. simulated processing time & latency --------------------------
-        t_proc = F32(cfg.c_ebl) if ev_dropped else \
-            _cost_sum(ctx.cp, n_act, c_base)
-        h.sim_time = F32(h.sim_time + t_proc)
-        l_e_out[j] = F32(h.sim_time - arr)
-        ptr = h.lat_ptr % S
-        h.lat_n[ptr] = F32(n_pm_i)
-        h.lat_l[ptr] = t_proc
-        h.lat_ptr = _wrap32(h.lat_ptr + 1)
-        shed_out[j] = did_shed
-        drop_out[j] = ev_dropped
+        for k, h in enumerate(hs):
+            t_proc = F32(cfg.c_ebl) if ev_dropped[k] else \
+                _cost_sum(lm[k].cp, n_act[k], c_base)
+            h.sim_time = F32(h.sim_time + t_proc)
+            l_e_out[k, j] = F32(h.sim_time - arr[k])
+            ptr = h.lat_ptr % S
+            h.lat_n[ptr] = F32(n_pm_i[k])
+            h.lat_l[ptr] = t_proc
+            h.lat_ptr = _wrap32(h.lat_ptr + 1)
+        shed_out[:, j] = did_shed
+        drop_out[:, j] = ev_dropped
         pms = pms3
 
     if n:
-        n_pm_out[n - 1] = F32(_read(pms.active.sum()).item())
-    c = Carry(
-        pms=pms, ring=ring, ring_ptr=ring_ptr, sim_time=carry.sim_time,
-        key=carry.key, ebl_frac=carry.ebl_frac, ema_gap=carry.ema_gap,
-        prev_arrival=carry.prev_arrival, complex_count=complex_count,
-        pms_created=pms_created, pms_shed=carry.pms_shed,
-        shed_calls=carry.shed_calls, overflow=overflow,
-        ebl_dropped=carry.ebl_dropped, obs_counts=obs_counts,
-        obs_rewards=obs_rewards, lat_samples_n=carry.lat_samples_n,
-        lat_samples_l=carry.lat_samples_l, lat_ptr=carry.lat_ptr)
+        n_pm_out[:, n - 1] = _read(pms.active.sum(dim=1)).reshape(
+            L, P).sum(axis=1)
+    lanes_of = lambda x: x.reshape((L, P) + x.shape[1:])  # noqa: E731
+    c = carry._replace(
+        pms=PMStore(*(lanes_of(x) for x in pms)), ring=lanes_of(ring),
+        ring_ptr=lanes_of(ring_ptr), complex_count=lanes_of(complex_count),
+        pms_created=lanes_of(pms_created), overflow=overflow,
+        obs_counts=obs_counts, obs_rewards=obs_rewards)
+    by_lane = lambda x: x.reshape(n, L, P, width).transpose(  # noqa: E731
+        0, 1).contiguous()
     outs = StepOut(
         l_e=torch.from_numpy(l_e_out).to(dev),
         n_pm=torch.from_numpy(n_pm_out).to(dev),
         shed=torch.from_numpy(shed_out).to(dev),
         dropped=torch.from_numpy(drop_out).to(dev),
-        match_open=m_open_out, match_bind=m_bind_out)
-    return h.into(c), outs
+        match_open=by_lane(m_open_out), match_bind=by_lane(m_bind_out))
+    return _Host.into(hs, c), outs
 
 
 # ---------------------------------------------------------------------------
 # Event-block execution (backend="cuda_block")
 # ---------------------------------------------------------------------------
 
-def _pad_event_blocks(events: EventBatch, n: int,
-                      w: int) -> tuple[EventBatch, int]:
-    """Pad the event axis with zeros to a whole number of ``w``-event
-    blocks (the kernel masks the tail); returns (padded events, nb)."""
+def _pad_event_blocks(events: EventBatch, n: int, w: int,
+                      axis: int = 0) -> tuple[EventBatch, int]:
+    """Pad the event axis (``axis``: 1 for lane-stacked events) with
+    zeros to a whole number of ``w``-event blocks (the kernel masks the
+    tail); returns (padded events, nb)."""
     pad = ktile.tile_pad(w, n)
     nb = max(1, (n + pad) // w)
     pad = nb * w - n
@@ -831,79 +931,118 @@ def _pad_event_blocks(events: EventBatch, n: int,
     def f(x):
         if not pad:
             return x.contiguous()
-        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        shape = list(x.shape)
+        shape[axis] = pad
+        return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
     return EventBatch(*(f(x) for x in events)), nb
 
 
-def _own(carry: Carry) -> Carry:
-    """A contiguous copy of the carry: the block kernel updates its
-    tensors in place, and the caller's carry stays as it was."""
-    cp = lambda t: t.clone(memory_format=torch.contiguous_format)  # noqa
-    return Carry(pms=PMStore(*(cp(t) for t in carry.pms)),
-                 **{k: cp(v) for k, v in carry._asdict().items()
-                    if k != "pms"})
+def _own(carry: Carry, copy: bool = True) -> Carry:
+    """The carry the block kernel updates in place: a contiguous copy, so
+    the caller's carry stays as it was; with ``copy=False`` (the caller
+    hands its carry over) its own tensors wherever they are contiguous."""
+    if copy:
+        cp = lambda t: t.clone(  # noqa: E731
+            memory_format=torch.contiguous_format)
+    else:
+        cp = lambda t: t.contiguous()  # noqa: E731
+    return tree_map(cp, carry)
 
 
-def _run_block(cfg: EngineConfig, model: EngineModel,
-               scan: kblock.BlockScan, b: int, i0: int,
-               n_valid: int) -> None:
-    """Block ``b`` of ``scan`` through the block kernel.
-
-    Fused (the default): ONE launch per block for every shedder, with
-    Algorithm-2 fires handled in the kernel and no host sync.  Replay
+def _replay(cfg: EngineConfig, model: EngineModel, scan: kblock.BlockScan,
+            b: int, i0: int, n_valid: int) -> None:
+    """Block ``b`` of ``scan`` in the replay protocol
     (``block_shed="replay"`` or ``shed_plan="sort"``): the kernel commits
     events up to the first fire; the fired event is replayed through the
     per-event step (which re-derives the same decision, splits the key
     and sheds), and the kernel re-enters at ``fire_idx + 1``.  Each
-    re-entry reads the kernel's status: one host sync per launch."""
-    if cfg.shedder not in (SHED_PSPICE, SHED_PMBL) or kblock.fused_shed(cfg):
-        scan.launch(b, i0, 0, n_valid)
-        return
+    re-entry reads the kernel's status: one host sync per launch.  On a
+    lane-stacked scan every launch runs all lanes from their own starts —
+    a lane that has finished its block starts at ``n_valid`` and does
+    nothing — and each lane that stopped replays its own event, as the
+    reference's batched while loop does."""
     replay_cfg = dataclasses.replace(cfg, backend=BACKEND_CUDA)
-    off = b * cfg.block_events
-    s = 0
-    while s < n_valid:
-        fired, j = (int(v) for v in _read(scan.launch(b, i0, s, n_valid)))
-        if not fired:
-            break
-        one = EventBatch(*(x[off + j:off + j + 1] for x in scan.events))
-        carry, row = _scan_events(replay_cfg, model, one, scan.carry,
-                                  _wrap32(i0 + j))
-        kblock.write_back(scan.carry, carry)
-        for name, v in zip(StepOut._fields, row):
-            scan.rows[name][off + j] = v[0]
-        s = j + 1
+    W = cfg.block_events
+    off = b * W
+    L = scan.lanes
+    starts = [0] * (L or 1)
+    while any(s < n_valid for s in starts):
+        status = _read(scan.launch(b, i0, starts[0] if L is None else
+                                   starts, n_valid)).reshape(-1, 2)
+        for k, (fired, j) in enumerate(status.tolist()):
+            if starts[k] >= n_valid:
+                continue
+            if not fired:
+                starts[k] = n_valid
+                continue
+            lv = (lambda x: x) if L is None else \
+                (lambda x, k=k: x[k])   # noqa: E731
+            one = EventBatch(*(lv(x)[off + j:off + j + 1]
+                               for x in scan.events))
+            carry = tree_map(lv, scan.carry)
+            c, row = _scan_events(replay_cfg, tree_map(lv, model), one,
+                                  carry, _wrap32(i0 + j))
+            kblock.write_back(carry, c)
+            for name, v in zip(StepOut._fields, row):
+                lv(scan.rows[name])[off + j] = v[0]
+            starts[k] = j + 1
 
 
-def _scan_event_blocks(cfg: EngineConfig, model: EngineModel,
-                       events: EventBatch, carry: Carry,
-                       start: int) -> tuple[Carry, StepOut]:
+def _scan_blocks(cfg: EngineConfig, model: EngineModel, events: EventBatch,
+                 carry: Carry, start: int, lanes: int | None,
+                 own: bool) -> tuple[Carry, StepOut]:
     """``_scan_events`` with one kernel launch per ``cfg.block_events``
     events.  Event indices stay global, so monolithic, chunked and
     blocked runs replay the same operator sequence.  The launches share
     one argument block (``kblock.BlockScan``): the kernel updates the
-    scan's own copy of the carry in place."""
-    n = events.ev_class.shape[0]
+    scan's carry in place — a copy of the caller's, or with ``own`` the
+    caller's own.  With ``lanes`` everything is lane-stacked and each
+    launch is the lane instance, one CTA per lane.
+
+    Fused (the default): ONE launch per block for every shedder, with
+    Algorithm-2 fires handled in the kernel and no host sync.  Replay:
+    ``_replay``."""
+    n = events.ev_class.shape[0 if lanes is None else 1]
     W = cfg.block_events
-    blocks, nb = _pad_event_blocks(events, n, W)
-    carry = _own(carry)
-    rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device)
-    scan = kblock.BlockScan(cfg, model, carry, blocks, rows)
+    blocks, nb = _pad_event_blocks(events, n, W, axis=0 if lanes is None
+                                   else 1)
+    carry = _own(carry, copy=not own)
+    rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device, lanes=lanes)
+    scan = kblock.BlockScan(cfg, model, carry, blocks, rows, lanes=lanes)
+    replay = cfg.shedder in (SHED_PSPICE, SHED_PMBL) and \
+        not kblock.fused_shed(cfg)
     for b in range(nb):
         off = b * W
-        _run_block(cfg, model, scan, b, _wrap32(start + off),
-                   min(max(n - off, 0), W))
-    return carry, StepOut(**{k: v[:n] for k, v in rows.items()})
+        i0, n_valid = _wrap32(start + off), min(max(n - off, 0), W)
+        if replay:
+            _replay(cfg, model, scan, b, i0, n_valid)
+        else:
+            scan.launch(b, i0, 0, n_valid)
+    cut = (lambda v: v[:n]) if lanes is None else (lambda v: v[:, :n])
+    return carry, StepOut(**{k: cut(v) for k, v in rows.items()})
 
 
 def _scan_events_backend(cfg: EngineConfig, model: EngineModel,
-                         events: EventBatch, carry: Carry,
-                         start: int) -> tuple[Carry, StepOut]:
-    """Backend dispatch of run_engine and run_engine_chunk."""
+                         events: EventBatch, carry: Carry, start: int,
+                         own: bool = False) -> tuple[Carry, StepOut]:
+    """Backend dispatch of run_engine and run_engine_chunk (``own``: the
+    caller hands its carry over to the block kernel)."""
     if cfg.backend == BACKEND_CUDA_BLOCK:
-        return _scan_event_blocks(cfg, model, events, carry, start)
+        return _scan_blocks(cfg, model, events, carry, start, None, own)
     return _scan_events(cfg, model, events, carry, start)
+
+
+def _scan_events_lanes_backend(cfg: EngineConfig, model: EngineModel,
+                               events: EventBatch, carry: Carry, start: int,
+                               own: bool = False) -> tuple[Carry, StepOut]:
+    """Lane-batched backend dispatch (the runtime's lanes): on
+    "cuda_block" one launch of the lane instance, one CTA per lane, per
+    W-event block."""
+    if cfg.backend == BACKEND_CUDA_BLOCK:
+        return _scan_blocks(cfg, model, events, carry, start,
+                            events.ev_class.shape[0], own)
+    return _scan_events_lanes(cfg, model, events, carry, start)
 
 
 # ---------------------------------------------------------------------------
@@ -944,6 +1083,53 @@ def run_engine_chunk(cfg: EngineConfig, model: EngineModel,
         start = int(start.item())
     return _scan_events_backend(cfg, model, events, carry,
                                 wrap_event_index(start))
+
+
+def merge_carries(stacked: Carry, axis: int = 0) -> Carry:
+    """Fold an L-lane-stacked carry (every leaf has a lane axis at
+    ``axis``) into one flat carry over L·P patterns — the global view the
+    runtime's telemetry and reporting aggregate over.
+
+    Pattern-dim state (PM store, rings, per-pattern counters, obs
+    matrices) concatenates along the pattern axis; scalar counters sum;
+    clocks take the slowest lane (``max``); the key is lane 0's; the
+    latency ring keeps per-slot global PM counts (sum) against the
+    slowest lane's per-event time (max).  With no lanes every folded
+    leaf takes its reduction's identity: zeros."""
+    def flat(x):  # (L, P, ...) -> (L·P, ...)
+        x = torch.movedim(x, axis, 0)
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    if stacked.sim_time.shape[axis] == 0:
+        def zero(x):
+            return torch.zeros(x.shape[:axis] + x.shape[axis + 1:],
+                               dtype=x.dtype, device=x.device)
+        mx = sm = first = zero
+    else:
+        def mx(x):
+            return x.amax(dim=axis)
+
+        def sm(x):
+            return x.sum(dim=axis)
+
+        def first(x):
+            return x.select(axis, 0)
+    return Carry(
+        pms=PMStore(*(flat(x) for x in stacked.pms)),
+        ring=flat(stacked.ring), ring_ptr=flat(stacked.ring_ptr),
+        sim_time=mx(stacked.sim_time), key=first(stacked.key),
+        ebl_frac=mx(stacked.ebl_frac), ema_gap=mx(stacked.ema_gap),
+        prev_arrival=mx(stacked.prev_arrival),
+        complex_count=flat(stacked.complex_count),
+        pms_created=flat(stacked.pms_created),
+        pms_shed=sm(stacked.pms_shed), shed_calls=sm(stacked.shed_calls),
+        overflow=sm(stacked.overflow), ebl_dropped=sm(stacked.ebl_dropped),
+        obs_counts=flat(stacked.obs_counts),
+        obs_rewards=flat(stacked.obs_rewards),
+        lat_samples_n=sm(stacked.lat_samples_n),
+        lat_samples_l=mx(stacked.lat_samples_l),
+        lat_ptr=mx(stacked.lat_ptr),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -85,8 +85,17 @@
 // PM-BL draws the fire's uniforms from the subkey, in the layout the
 // argument block names (jax's partitionable one or its original one).
 //
-// Lanes (one CTA per lane) and clusters for stores beyond one SM are not
-// built; all per-lane state is addressed from the argument block.
+// Lanes: the launch's grid has one CTA per tenant lane (the reference
+// vmaps the kernel over lanes).  Every operand is then lane-stacked and
+// contiguous, so CTA l works on the l-th slice of each: at entry thread 0
+// writes the CTA's view of the argument block, every pointer advanced by
+// l times its slice's element count (and, for the replay protocol's
+// relaunches, the lane's own start), into shared memory, and the body
+// reads its pointers and start from there; the other arguments stay in
+// the parameter space.  One launch with one lane is the
+// single-operator kernel.  The body is one CTA's, so a launch of L lanes
+// takes ceil(L / 132) waves (one CTA per SM).  Clusters for stores beyond
+// one SM are not built.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -179,6 +188,9 @@ struct BlockStepArgs {
   float* scratch_u;
   uint8_t* scratch_sel;
   int32_t* status;
+  // Each lane's start of the span to run, (lanes,); NULL: every lane
+  // starts at s.
+  const int32_t* lane_s;
   // Shapes, the span [s, n_valid) of the block to run, its first global
   // event index and the block's index in the scan.
   int P, N, M, C1, A, K, S, B, W;
@@ -190,6 +202,9 @@ struct BlockStepArgs {
   // device memory); event rows, model tables and stats counts in shared
   // memory; the dynamic shared-memory bytes this implies.
   int store_shared, rows_smem, model_smem, stats_smem, smem_bytes;
+  // The grid (one CTA per lane) and each lane's event rows, n_rows = the
+  // scan's nb·W: every operand above holds `lanes` such slices.
+  int lanes, n_rows;
   // Configuration constants, rounded to float32 by the wrapper.
   float c_base, c_match, c_ebl, c_shed_base, c_shed_pm;
   float latency_bound, safety_buffer, ebl_backlog_gain, ebl_decay;
@@ -583,14 +598,88 @@ struct EventFlags {
 // the event.
 constexpr int kStop = 1, kFire = 2, kDropped = 4;
 
+// Lane l's view of the argument block: each pointer at the l-th slice of
+// its lane-stacked operand.
+__device__ inline BlockStepArgs lane_view(const BlockStepArgs& g,
+                                          int64_t l) {
+  BlockStepArgs a = g;
+  const int64_t P = g.P, F = P * g.N, rows = g.n_rows;
+  const int64_t ev = l * rows, pat = l * P, mm = l * P * g.M * g.M;
+  a.ev_class += ev * P;
+  a.ev_bind += ev * P;
+  a.ev_open += ev * P;
+  a.ev_id += ev;
+  a.ev_rand += ev;
+  a.ebl_raw += ev;
+  a.arrival += ev;
+  a.trans += pat * g.M * g.C1;
+  a.kind += pat;
+  a.spawn_mode += pat;
+  a.window_size += pat;
+  a.final_state += pat;
+  a.proc_cost += pat;
+  a.uses_binding += pat;
+  a.spawn_counts += pat;
+  a.ut_tables += pat * g.B * g.M;
+  a.ut_bins += pat;
+  a.f_a += l;
+  a.f_b += l;
+  a.f_kind += l;
+  a.g_a += l;
+  a.g_b += l;
+  a.g_kind += l;
+  a.ebl_raw_mean += l;
+  a.active += l * F;
+  a.state += l * F;
+  a.open_idx += l * F;
+  a.bind += l * F;
+  a.idset += l * F * g.A;
+  a.ring += pat * g.K;
+  a.ring_ptr += pat;
+  a.sim_time += l;
+  a.key += 2 * l;
+  a.ebl_frac += l;
+  a.ema_gap += l;
+  a.prev_arrival += l;
+  a.complex_count += pat;
+  a.pms_created += pat;
+  a.pms_shed += l;
+  a.shed_calls += l;
+  a.overflow += l;
+  a.ebl_dropped += l;
+  a.obs_counts += mm;
+  a.obs_rewards += mm;
+  a.lat_n += l * g.S;
+  a.lat_l += l * g.S;
+  a.lat_ptr += l;
+  a.l_e += ev;
+  a.n_pm += ev;
+  a.shed += ev;
+  a.dropped += ev;
+  a.m_open += g.emit ? ev * F : 0;
+  a.m_bind += g.emit ? ev * F : 0;
+  a.scratch_u += l * F;
+  a.scratch_sel += l * F;
+  a.status += 2 * l;
+  if (g.lane_s != nullptr) a.s = g.lane_s[l];
+  return a;
+}
+
 // One CTA per SM at most: the registers may go to warp 0's scalar state
 // instead of occupancy no launch can use.
 template <bool kSharedStore>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-block_step_kernel(const BlockStepArgs a) {
+block_step_kernel(const BlockStepArgs args) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ EventFlags ev;
   __shared__ uint64_t mbar;
+  // The lane's pointers and start, read from shared memory where used;
+  // every other argument stays in the parameter space.
+  __shared__ BlockStepArgs lane_args;
+  if (threadIdx.x == 0) lane_args = lane_view(args, blockIdx.x);
+  __syncthreads();
+  const BlockStepArgs& a = args;
+  const BlockStepArgs& la = lane_args;
   const Layout L = plan(a);
   const int P = a.P, N = a.N, M = a.M, A = a.A, K = a.K, W = a.W;
   const int F = P * N;
@@ -644,29 +733,29 @@ block_step_kernel(const BlockStepArgs a) {
   uint8_t* o_drop = smem + L.o_drop;
   float* o_latn = reinterpret_cast<float*>(smem + L.o_latn);
   float* o_latl = reinterpret_cast<float*>(smem + L.o_latl);
-  const int32_t lat_ptr0 = *a.lat_ptr;
+  const int32_t lat_ptr0 = *la.lat_ptr;
 
   const int64_t row0 = static_cast<int64_t>(a.blk) * W;
-  const int32_t* g_class = a.ev_class + row0 * P;
-  const int32_t* g_bind = a.ev_bind + row0 * P;
-  const uint8_t* g_open = a.ev_open + row0 * P;
+  const int32_t* g_class = la.ev_class + row0 * P;
+  const int32_t* g_bind = la.ev_bind + row0 * P;
+  const uint8_t* g_open = la.ev_open + row0 * P;
   const int32_t* ev_class = a.rows_smem
       ? reinterpret_cast<const int32_t*>(smem + L.r_class) : g_class;
   const int32_t* ev_bind = a.rows_smem
       ? reinterpret_cast<const int32_t*>(smem + L.r_bind) : g_bind;
   const uint8_t* ev_open = a.rows_smem ? smem + L.r_open : g_open;
   const int32_t* ev_id = a.rows_smem
-      ? reinterpret_cast<const int32_t*>(smem + L.r_id) : a.ev_id + row0;
+      ? reinterpret_cast<const int32_t*>(smem + L.r_id) : la.ev_id + row0;
   const float* ev_rand = a.rows_smem
-      ? reinterpret_cast<const float*>(smem + L.r_rand) : a.ev_rand + row0;
+      ? reinterpret_cast<const float*>(smem + L.r_rand) : la.ev_rand + row0;
   const float* ebl_raw = a.rows_smem
-      ? reinterpret_cast<const float*>(smem + L.r_raw) : a.ebl_raw + row0;
+      ? reinterpret_cast<const float*>(smem + L.r_raw) : la.ebl_raw + row0;
   const float* arrival = a.rows_smem
-      ? reinterpret_cast<const float*>(smem + L.r_arr) : a.arrival + row0;
+      ? reinterpret_cast<const float*>(smem + L.r_arr) : la.arrival + row0;
   const int32_t* trans = a.model_smem
-      ? reinterpret_cast<const int32_t*>(smem + L.trans) : a.trans;
+      ? reinterpret_cast<const int32_t*>(smem + L.trans) : la.trans;
   const float* ut = a.model_smem
-      ? reinterpret_cast<const float*>(smem + L.ut) : a.ut_tables;
+      ? reinterpret_cast<const float*>(smem + L.ut) : la.ut_tables;
   int* hits = reinterpret_cast<int*>(smem + L.hits);
   const bool hits_smem = a.stats && a.stats_smem;
 
@@ -683,13 +772,13 @@ block_step_kernel(const BlockStepArgs a) {
     su = reinterpret_cast<float*>(smem + L.u);
     ssel = smem + L.sel;
   } else {
-    act = a.active;
-    st = a.state;
-    oi = a.open_idx;
-    bd = a.bind;
-    ids = a.idset;
-    su = a.scratch_u;
-    ssel = a.scratch_sel;
+    act = la.active;
+    st = la.state;
+    oi = la.open_idx;
+    bd = la.bind;
+    ids = la.idset;
+    su = la.scratch_u;
+    ssel = la.scratch_sel;
   }
 
   // -- entry: stage the launch's state ----------------------------------------
@@ -698,17 +787,17 @@ block_step_kernel(const BlockStepArgs a) {
       {smem + L.r_class, g_class, a.rows_smem ? 4ull * W * P : 0},
       {smem + L.r_bind, g_bind, a.rows_smem ? 4ull * W * P : 0},
       {smem + L.r_open, g_open, a.rows_smem ? 1ull * W * P : 0},
-      {smem + L.r_id, a.ev_id + row0, a.rows_smem ? 4ull * W : 0},
-      {smem + L.r_rand, a.ev_rand + row0, a.rows_smem ? 4ull * W : 0},
-      {smem + L.r_raw, a.ebl_raw + row0, a.rows_smem ? 4ull * W : 0},
-      {smem + L.r_arr, a.arrival + row0, a.rows_smem ? 4ull * W : 0},
-      {smem + L.trans, a.trans, a.model_smem ? 4ull * P * M * a.C1 : 0},
-      {smem + L.ut, a.ut_tables, a.model_smem ? 4ull * P * a.B * M : 0},
-      {smem + L.act, a.active, kSharedStore ? fz : 0},
-      {smem + L.state, a.state, kSharedStore ? 4 * fz : 0},
-      {smem + L.open, a.open_idx, kSharedStore ? 4 * fz : 0},
-      {smem + L.bind, a.bind, kSharedStore ? 4 * fz : 0},
-      {smem + L.ids, a.idset, kSharedStore && any_ids ? 4 * fz * A : 0},
+      {smem + L.r_id, la.ev_id + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_rand, la.ev_rand + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_raw, la.ebl_raw + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.r_arr, la.arrival + row0, a.rows_smem ? 4ull * W : 0},
+      {smem + L.trans, la.trans, a.model_smem ? 4ull * P * M * a.C1 : 0},
+      {smem + L.ut, la.ut_tables, a.model_smem ? 4ull * P * a.B * M : 0},
+      {smem + L.act, la.active, kSharedStore ? fz : 0},
+      {smem + L.state, la.state, kSharedStore ? 4 * fz : 0},
+      {smem + L.open, la.open_idx, kSharedStore ? 4 * fz : 0},
+      {smem + L.bind, la.bind, kSharedStore ? 4 * fz : 0},
+      {smem + L.ids, la.idset, kSharedStore && any_ids ? 4 * fz * A : 0},
   };
   constexpr int kPieces = sizeof(pieces) / sizeof(pieces[0]);
   const uint32_t bar = smem_u32(&mbar);
@@ -737,20 +826,20 @@ block_step_kernel(const BlockStepArgs a) {
     n_expn[p] = 0;
     n_drop[p] = 0;
     n_cmp[p] = 0;
-    ring_ptr[p] = a.ring_ptr[p];
-    cc[p] = a.complex_count[p];
-    pc[p] = a.pms_created[p];
-    cp[p] = __fmul_rn(a.c_match, a.proc_cost[p]);
-    ws[p] = a.window_size[p];
-    fin_s[p] = a.final_state[p];
-    kind[p] = a.kind[p];
-    smode[p] = a.spawn_mode[p];
-    uses[p] = a.uses_binding[p];
-    scnt[p] = a.spawn_counts[p];
-    bins[p] = a.ut_bins[p];
+    ring_ptr[p] = la.ring_ptr[p];
+    cc[p] = la.complex_count[p];
+    pc[p] = la.pms_created[p];
+    cp[p] = __fmul_rn(a.c_match, la.proc_cost[p]);
+    ws[p] = la.window_size[p];
+    fin_s[p] = la.final_state[p];
+    kind[p] = la.kind[p];
+    smode[p] = la.spawn_mode[p];
+    uses[p] = la.uses_binding[p];
+    scnt[p] = la.spawn_counts[p];
+    bins[p] = la.ut_bins[p];
   }
   for (int q = tid; q < P * K; q += T) {
-    ring[q] = a.ring[q];
+    ring[q] = la.ring[q];
     exists[q] = 0;
   }
   if (hits_smem) {
@@ -759,17 +848,17 @@ block_step_kernel(const BlockStepArgs a) {
   mbar_wait(bar, 0);
   __syncthreads();
 
-  if (a.s < a.n_valid) {
+  if (la.s < a.n_valid) {
     for (int p = tid; p < P; p += T) {
-      eb_s[p] = ev_bind[a.s * P + p];
-      ec_s[p] = ev_class[a.s * P + p];
-      eo_s[p] = ev_open[a.s * P + p];
+      eb_s[p] = ev_bind[la.s * P + p];
+      ec_s[p] = ev_class[la.s * P + p];
+      eo_s[p] = ev_open[la.s * P + p];
     }
   }
   // Live PMs per pattern and the first event's expiries.  From here on
   // n_act holds, before each event, the PMs that survive its expiries.
   {
-    const int32_t i = repro::wrap_add(a.i0, a.s);
+    const int32_t i = repro::wrap_add(a.i0, la.s);
     for (int base = 0; base < F; base += T) {
       const int f = base + tid;
       const bool valid = f < F;
@@ -788,13 +877,13 @@ block_step_kernel(const BlockStepArgs a) {
   int32_t lat_ptr = 0;
   uint32_t key[2] = {0u, 0u};
   if (warp == 0) {
-    sim = *a.sim_time; ema = *a.ema_gap; prev = *a.prev_arrival;
-    eblf = *a.ebl_frac; ovf = *a.overflow; ebld = *a.ebl_dropped;
-    pshed = *a.pms_shed; scalls = *a.shed_calls; lat_ptr = lat_ptr0;
-    key[0] = static_cast<uint32_t>(a.key[0]);
-    key[1] = static_cast<uint32_t>(a.key[1]);
-    fits = LatencyFits{*a.f_a, *a.f_b, *a.g_a, *a.g_b, *a.f_kind, *a.g_kind};
-    mean_eff = __fmaf_rn(a.one_minus_floor, *a.ebl_raw_mean, a.ebl_floor);
+    sim = *la.sim_time; ema = *la.ema_gap; prev = *la.prev_arrival;
+    eblf = *la.ebl_frac; ovf = *la.overflow; ebld = *la.ebl_dropped;
+    pshed = *la.pms_shed; scalls = *la.shed_calls; lat_ptr = lat_ptr0;
+    key[0] = static_cast<uint32_t>(la.key[0]);
+    key[1] = static_cast<uint32_t>(la.key[1]);
+    fits = LatencyFits{*la.f_a, *la.f_b, *la.g_a, *la.g_b, *la.f_kind, *la.g_kind};
+    mean_eff = __fmaf_rn(a.one_minus_floor, *la.ebl_raw_mean, a.ebl_floor);
   }
   // Per-event values warp 0 keeps from the control phase to the tail; the
   // next event's PM count comes from the tail.
@@ -805,16 +894,16 @@ block_step_kernel(const BlockStepArgs a) {
     int part = 0;
     for (int p = lane; p < P; p += 32) part += n_act[p];
     n_pm_next = warp_sum(part);
-    if (a.s < a.n_valid) {
-      arr_next = arrival[a.s];
-      eid_next = ev_id[a.s];
+    if (la.s < a.n_valid) {
+      arr_next = arrival[la.s];
+      eid_next = ev_id[la.s];
     }
   }
   float arr = 0.f;
   bool did_shed = false, ev_fire = false, ev_drop = false;
 
   int j_end = a.n_valid;      // the first event not committed
-  for (int j = a.s; j < a.n_valid; ++j) {
+  for (int j = la.s; j < a.n_valid; ++j) {
     const int32_t i = repro::wrap_add(a.i0, j);
     const int32_t* eb = ev_bind + j * P;
     // -- warp 0: Algorithm 1, ring, Algorithm 2's key, E-BL, EMA -------------
@@ -874,9 +963,12 @@ block_step_kernel(const BlockStepArgs a) {
           const float d_ff =
               __fdiv_rn(__fsub_rn(l_p_est, ema),
                         fmaxf(__fsub_rn(l_p_est, a.c_ebl), 1e-9f));
-          const float d_bk =
-              __fdiv_rn(__fmul_rn(a.ebl_backlog_gain, l_q), a.latency_bound);
-          const float d_need = fminf(fmaxf(__fadd_rn(d_ff, d_bk), 0.0f), 1.0f);
+          // d_ff + gain·l_q / LB as the reference's compiler folds it:
+          // fma(l_q, gain · (1 / LB), d_ff), the constant in float32.
+          const float bk_rate =
+              __fmul_rn(a.ebl_backlog_gain, __frcp_rn(a.latency_bound));
+          const float d_need =
+              fminf(fmaxf(__fmaf_rn(l_q, bk_rate, d_ff), 0.0f), 1.0f);
           const float decayed = __fmul_rn(eblf, a.ebl_decay);
           eblf = shed_e ? fmaxf(decayed, d_need) : decayed;
           const float raw_eff =
@@ -1035,8 +1127,8 @@ block_step_kernel(const BlockStepArgs a) {
     // -- advance, completions, match tiles, stats; counts for warp 0 --------
     {
       const int32_t inext = repro::wrap_add(i, 1);
-      int32_t* m_open = a.m_open + (row0 + j) * static_cast<int64_t>(F);
-      int32_t* m_bind = a.m_bind + (row0 + j) * static_cast<int64_t>(F);
+      int32_t* m_open = la.m_open + (row0 + j) * static_cast<int64_t>(F);
+      int32_t* m_bind = la.m_bind + (row0 + j) * static_cast<int64_t>(F);
       const bool seq_only = a.kinds == CENSUS_SEQ;
       const bool any_only = a.kinds == CENSUS_ANY;
       int pn = p_first, rn = r_first;
@@ -1100,8 +1192,8 @@ block_step_kernel(const BlockStepArgs a) {
             // PR 12's path, for stats counts too large for shared memory:
             // within one event every addend of a cell is the same value,
             // so the atomics give the sequential bits.
-            atomicAdd(&a.obs_counts[cell], 1.0f);
-            atomicAdd(&a.obs_rewards[cell], cp[p]);
+            atomicAdd(&la.obs_counts[cell], 1.0f);
+            atomicAdd(&la.obs_rewards[cell], cp[p]);
           }
         }
         const bool live = on && !completed;
@@ -1304,48 +1396,48 @@ block_step_kernel(const BlockStepArgs a) {
 
   // -- exit: write the launch's state back -----------------------------------
   if constexpr (kSharedStore) {
-    copy_plain(a.active, act, fz, tid, T);
-    copy_plain(a.state, st, 4 * fz, tid, T);
-    copy_plain(a.open_idx, oi, 4 * fz, tid, T);
-    copy_plain(a.bind, bd, 4 * fz, tid, T);
-    if (any_ids) copy_plain(a.idset, ids, 4 * fz * A, tid, T);
+    copy_plain(la.active, act, fz, tid, T);
+    copy_plain(la.state, st, 4 * fz, tid, T);
+    copy_plain(la.open_idx, oi, 4 * fz, tid, T);
+    copy_plain(la.bind, bd, 4 * fz, tid, T);
+    if (any_ids) copy_plain(la.idset, ids, 4 * fz * A, tid, T);
   }
   for (int p = tid; p < P; p += T) {
-    a.ring_ptr[p] = ring_ptr[p];
-    a.complex_count[p] = cc[p];
-    a.pms_created[p] = pc[p];
+    la.ring_ptr[p] = ring_ptr[p];
+    la.complex_count[p] = cc[p];
+    la.pms_created[p] = pc[p];
   }
-  for (int q = tid; q < P * K; q += T) a.ring[q] = ring[q];
-  for (int k = a.s + tid; k < j_end; k += T) {
-    a.l_e[row0 + k] = o_le[k];
-    a.n_pm[row0 + k] = o_npm[k];
-    a.shed[row0 + k] = o_shed[k];
-    a.dropped[row0 + k] = o_drop[k];
+  for (int q = tid; q < P * K; q += T) la.ring[q] = ring[q];
+  for (int k = la.s + tid; k < j_end; k += T) {
+    la.l_e[row0 + k] = o_le[k];
+    la.n_pm[row0 + k] = o_npm[k];
+    la.shed[row0 + k] = o_shed[k];
+    la.dropped[row0 + k] = o_drop[k];
   }
   // Event j took the latency ring's slot floor_mod(lat_ptr + (j - s), S);
   // when the block outruns the ring, the last S events' slots survive.
-  for (int k = max(a.s, j_end - a.S) + tid; k < j_end; k += T) {
-    const int pos = repro::floor_mod(repro::wrap_add(lat_ptr0, k - a.s), a.S);
-    a.lat_n[pos] = o_latn[k];
-    a.lat_l[pos] = o_latl[k];
+  for (int k = max(la.s, j_end - a.S) + tid; k < j_end; k += T) {
+    const int pos = repro::floor_mod(repro::wrap_add(lat_ptr0, k - la.s), a.S);
+    la.lat_n[pos] = o_latn[k];
+    la.lat_l[pos] = o_latl[k];
   }
   if (hits_smem) {
     for (int q = tid; q < P * M * M; q += T) {
       const int c = hits[q];
       if (c > 0) {
-        a.obs_counts[q] = repeat_add(a.obs_counts[q], 1.0f, c);
-        a.obs_rewards[q] = repeat_add(a.obs_rewards[q], cp[q / (M * M)], c);
+        la.obs_counts[q] = repeat_add(la.obs_counts[q], 1.0f, c);
+        la.obs_rewards[q] = repeat_add(la.obs_rewards[q], cp[q / (M * M)], c);
       }
     }
   }
   if (tid == 0) {
-    *a.sim_time = sim; *a.ema_gap = ema; *a.prev_arrival = prev;
-    *a.ebl_frac = eblf; *a.overflow = ovf; *a.ebl_dropped = ebld;
-    *a.pms_shed = pshed; *a.shed_calls = scalls; *a.lat_ptr = lat_ptr;
-    a.key[0] = static_cast<int32_t>(key[0]);
-    a.key[1] = static_cast<int32_t>(key[1]);
-    a.status[0] = nfire;
-    a.status[1] = fire_idx;
+    *la.sim_time = sim; *la.ema_gap = ema; *la.prev_arrival = prev;
+    *la.ebl_frac = eblf; *la.overflow = ovf; *la.ebl_dropped = ebld;
+    *la.pms_shed = pshed; *la.shed_calls = scalls; *la.lat_ptr = lat_ptr;
+    la.key[0] = static_cast<int32_t>(key[0]);
+    la.key[1] = static_cast<int32_t>(key[1]);
+    la.status[0] = nfire;
+    la.status[1] = fire_idx;
   }
 }
 
@@ -1381,7 +1473,8 @@ int g_smem_opened[2] = {48 * 1024, 48 * 1024};
 extern "C" int block_step_launch(const BlockStepArgs* args, void* stream) {
   const BlockStepArgs& a = *args;
   if (a.P < 1 || a.N < 1 || a.M < 1 || a.A < 1 || a.K < 1 || a.S < 1 ||
-      a.W < 1 || a.s < 0 || a.n_valid > a.W || a.blk < 0) {
+      a.W < 1 || a.s < 0 || a.n_valid > a.W || a.blk < 0 || a.lanes < 1 ||
+      a.n_rows < (a.blk + 1) * a.W) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Layout L = plan(a);
@@ -1397,7 +1490,7 @@ extern "C" int block_step_launch(const BlockStepArgs* args, void* stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     g_smem_opened[inst] = a.smem_bytes;
   }
-  kernel<<<1, block_threads(a.P * a.N), a.smem_bytes,
+  kernel<<<a.lanes, block_threads(a.P * a.N), a.smem_bytes,
            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

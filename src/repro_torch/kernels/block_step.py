@@ -28,7 +28,11 @@ Shedding protocols, as in the reference:
 ``block_step`` launches the kernel for CUDA tensors and runs
 ``block_step_plain`` — a straight PyTorch transcription of the kernel
 body, written independently of the per-event engine — for CPU tensors;
-nothing falls back from one to the other.  The engine launches through
+nothing falls back from one to the other.  ``block_step_lanes`` is the
+lane instance (the reference vmaps the kernel over tenant lanes): L
+independent operators whose every operand carries a leading ``(L,)``
+axis, one CTA per lane in one launch; on CPU tensors it runs the plain
+version lane by lane.  The engine launches through
 ``BlockScan``, which checks the operands and builds the argument block
 once per scan; ``plan_layout`` picks the kernel's instantiation (the PM
 store in shared or in device memory) from the byte count.  Both update the carry's
@@ -70,20 +74,28 @@ def fused_shed(cfg) -> bool:
             and cfg.block_shed == "fused")
 
 
-def new_rows(cfg, n: int, device) -> dict:
+def new_rows(cfg, n: int, device, lanes: int | None = None) -> dict:
     """Row buffers for ``n`` events (match tiles zero-width unless
-    ``cfg.emit_matches``)."""
+    ``cfg.emit_matches``), with a leading ``(lanes,)`` axis when given."""
     width = cfg.max_pms if cfg.emit_matches else 0
     P = cfg.num_patterns
+    lead = () if lanes is None else (lanes,)
     return dict(
-        l_e=torch.zeros((n,), dtype=torch.float32, device=device),
-        n_pm=torch.zeros((n,), dtype=torch.float32, device=device),
-        shed=torch.zeros((n,), dtype=torch.bool, device=device),
-        dropped=torch.zeros((n,), dtype=torch.bool, device=device),
-        match_open=torch.full((n, P, width), -1, dtype=torch.int32,
+        l_e=torch.zeros(lead + (n,), dtype=torch.float32, device=device),
+        n_pm=torch.zeros(lead + (n,), dtype=torch.float32, device=device),
+        shed=torch.zeros(lead + (n,), dtype=torch.bool, device=device),
+        dropped=torch.zeros(lead + (n,), dtype=torch.bool, device=device),
+        match_open=torch.full(lead + (n, P, width), -1, dtype=torch.int32,
                               device=device),
-        match_bind=torch.full((n, P, width), -1, dtype=torch.int32,
+        match_bind=torch.full(lead + (n, P, width), -1, dtype=torch.int32,
                               device=device))
+
+
+def lane(tree, k: int):
+    """Lane ``k`` of a lane-stacked NamedTuple tree of tensors (views)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[k]
+    return type(tree)(*(lane(x, k) for x in tree))
 
 
 def _wrap32(v: int) -> int:
@@ -113,6 +125,15 @@ def _cost_sum(cp: torch.Tensor, n: torch.Tensor,
     for p in range(1, P):
         acc = fp.fma(cp[p], nf[p], acc)
     return acc + c_base
+
+
+def backlog_rate(cfg) -> float:
+    """E-BL's backlog term ``gain·l_q / LB`` is compiled by the
+    reference's XLA as ``l_q · (gain · (1/LB))`` fused into the add of
+    ``d_ff``: this constant, in float32 (found by test)."""
+    one = fp.F32(1.0)
+    return float(fp.F32(cfg.ebl_backlog_gain) *
+                 (one / fp.F32(cfg.latency_bound)))
 
 
 def _scatter_drop(flat: torch.Tensor, idx: torch.Tensor, values) -> None:
@@ -228,8 +249,9 @@ def block_step_plain(cfg, model, carry, blk, i0: int, s: int,
             l_p_est = ovl.predict_latency(model.f_model, n_pm_f)
             d_ff = (l_p_est - ema) / torch.clamp_min(l_p_est - cfg.c_ebl,
                                                      1e-9)
-            d_bk = (c(cfg.ebl_backlog_gain) * l_q) / lb
-            d_need = torch.clamp(d_ff + d_bk, 0.0, 1.0)
+            # d_ff + gain·l_q / LB as the reference's compiler folds it.
+            d_need = torch.clamp(fp.fma(l_q, c(backlog_rate(cfg)), d_ff),
+                                 0.0, 1.0)
             decayed = eblf * cfg.ebl_decay
             did_shed = bool(dec_e.shed)
             eblf = torch.maximum(decayed, d_need) if did_shed else decayed
@@ -442,11 +464,11 @@ _PTRS = (
     "complex_count", "pms_created", "pms_shed", "shed_calls", "overflow",
     "ebl_dropped", "obs_counts", "obs_rewards", "lat_n", "lat_l", "lat_ptr",
     "l_e", "n_pm", "shed", "dropped", "m_open", "m_bind",
-    "scratch_u", "scratch_sel", "status")
+    "scratch_u", "scratch_sel", "status", "lane_s")
 _INTS = ("P", "N", "M", "C1", "A", "K", "S", "B", "W", "s", "n_valid",
          "i0", "blk", "kinds", "spawn_modes", "shedder", "fused", "emit",
          "stats", "partitionable", "store_shared", "rows_smem",
-         "model_smem", "stats_smem", "smem_bytes")
+         "model_smem", "stats_smem", "smem_bytes", "lanes", "n_rows")
 _FLOATS = ("c_base", "c_match", "c_ebl", "c_shed_base", "c_shed_pm",
            "latency_bound", "safety_buffer", "ebl_backlog_gain",
            "ebl_decay", "ebl_floor", "one_minus_floor")
@@ -467,19 +489,23 @@ def _check(name, t, dtype, shape, dev):
 
 
 def _operands(cfg, model, carry, events, rows, scratch_u, scratch_sel,
-              status):
+              status, lanes: int | None = None):
     """Every tensor the kernel reads or writes, by its argument name,
     with the dtype and shape it must have.  ``events`` and ``rows`` hold
-    whole W-event blocks (the scan's, or one block's)."""
+    whole W-event blocks (the scan's, or one block's).  With ``lanes``
+    every operand has a leading ``(lanes,)`` axis: the lane instance,
+    whose CTA l works on the l-th slice of each (contiguous, so its
+    offset is l times the slice's element count)."""
     P, N, M = cfg.num_patterns, cfg.max_pms, cfg.max_states
     A, K = cfg.max_any_ids, cfg.ring_size
-    C1, B = model.trans.shape[2], model.ut_tables.shape[1]
-    S = carry.lat_samples_n.shape[0]
-    n = events.ev_id.shape[0]
+    C1, B = model.trans.shape[-1], model.ut_tables.shape[-2]
+    S = carry.lat_samples_n.shape[-1]
+    n = events.ev_id.shape[-1]
     width = N if cfg.emit_matches else 0
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     pms = carry.pms
-    return (
+    lead = () if lanes is None else (lanes,)
+    return tuple((name, t, dtype, lead + shape) for name, t, dtype, shape in (
         ("ev_class", events.ev_class, i32, (n, P)),
         ("ev_bind", events.ev_bind, i32, (n, P)),
         ("ev_open", events.ev_open, b8, (n, P)),
@@ -536,31 +562,35 @@ def _operands(cfg, model, carry, events, rows, scratch_u, scratch_sel,
         ("scratch_u", scratch_u, f32, (P * N,)),
         ("scratch_sel", scratch_sel, torch.uint8, (P * N,)),
         ("status", status, i32, (2,)),
-    )
+    ))
 
 
 def fill_args(cfg, model, carry, events, i0: int, s: int, n_valid: int,
-              rows: dict, scratch_u, scratch_sel, status,
-              b: int = 0) -> _Args:
+              rows: dict, scratch_u, scratch_sel, status, b: int = 0,
+              lanes: int | None = None) -> _Args:
     """The kernel's argument block for block ``b`` of ``events`` /
     ``rows`` (whole W-event blocks), after checking every operand's dtype,
-    shape, contiguity and device."""
+    shape, contiguity and device; ``lanes`` as in ``_operands`` (the
+    launch's grid).  ``lane_s`` starts NULL: every lane starts at ``s``."""
     dev = carry.sim_time.device
     W = cfg.block_events
-    n = events.ev_id.shape[0]
+    n = events.ev_id.shape[-1]
     if n % W or not 0 <= b < n // W:
         raise ValueError(f"block_step: block {b} of {n} event rows at "
                          f"W={W}")
+    if lanes is not None and lanes < 1:
+        raise ValueError(f"block_step: {lanes} lanes")
     args = _Args()
     for name, t, dtype, shape in _operands(cfg, model, carry, events, rows,
-                                           scratch_u, scratch_sel, status):
+                                           scratch_u, scratch_sel, status,
+                                           lanes):
         _check(name, t, dtype, shape, dev)
         setattr(args, name, t.data_ptr())
-    lay = plan_layout(cfg, model.trans.shape[2], model.ut_tables.shape[1])
+    lay = plan_layout(cfg, model.trans.shape[-1], model.ut_tables.shape[-2])
     for name, v in dict(
             P=cfg.num_patterns, N=cfg.max_pms, M=cfg.max_states,
-            C1=model.trans.shape[2], A=cfg.max_any_ids, K=cfg.ring_size,
-            S=carry.lat_samples_n.shape[0], B=model.ut_tables.shape[1],
+            C1=model.trans.shape[-1], A=cfg.max_any_ids, K=cfg.ring_size,
+            S=carry.lat_samples_n.shape[-1], B=model.ut_tables.shape[-2],
             W=W, s=s, n_valid=n_valid, i0=_wrap32(i0), blk=b,
             kinds=_KINDS[cfg.kinds],
             spawn_modes=_SPAWN_MODES[cfg.spawn_modes],
@@ -570,7 +600,8 @@ def fill_args(cfg, model, carry, events, i0: int, s: int, n_valid: int,
             store_shared=int(lay.store == "shared"),
             rows_smem=int(lay.rows_smem), model_smem=int(lay.model_smem),
             stats_smem=int(lay.stats_smem),
-            smem_bytes=lay.smem_bytes).items():
+            smem_bytes=lay.smem_bytes, lanes=lanes or 1,
+            n_rows=n).items():
         setattr(args, name, v)
     for name in _FLOATS[:-1]:
         setattr(args, name, getattr(cfg, name))
@@ -587,51 +618,91 @@ class BlockScan:
     scratch and the status; each block then sets only its index, ``i0``,
     ``s`` and ``n_valid`` (``set_block``).  On a CUDA carry ``launch``
     enqueues the kernel; on a CPU carry it runs ``block_step_plain`` on
-    the block's rows."""
+    the block's rows.  With ``lanes`` every operand is lane-stacked and a
+    launch is the lane instance: one CTA per lane (``block_step_lanes``),
+    on a CPU carry the plain version lane by lane."""
 
-    def __init__(self, cfg, model, carry, events, rows):
+    def __init__(self, cfg, model, carry, events, rows,
+                 lanes: int | None = None):
         self.cfg, self.model, self.carry = cfg, model, carry
-        self.events, self.rows = events, rows
+        self.events, self.rows, self.lanes = events, rows, lanes
         dev = carry.sim_time.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"block_step: unsupported device {dev}")
         self.cuda = dev.type == "cuda"
         F = cfg.num_patterns * cfg.max_pms
-        self.layout = plan_layout(cfg, model.trans.shape[2],
-                                  model.ut_tables.shape[1])
+        lead = () if lanes is None else (lanes,)
+        self.layout = plan_layout(cfg, model.trans.shape[-1],
+                                  model.ut_tables.shape[-2])
         # The fire's scratch in device memory (the "global" store's).
-        self.scratch_u = torch.empty((F,), dtype=torch.float32, device=dev)
-        self.scratch_sel = torch.empty((F,), dtype=torch.uint8, device=dev)
-        self.status = torch.zeros((2,), dtype=torch.int32, device=dev)
+        self.scratch_u = torch.empty(lead + (F,), dtype=torch.float32,
+                                     device=dev)
+        self.scratch_sel = torch.empty(lead + (F,), dtype=torch.uint8,
+                                       device=dev)
+        self.status = torch.zeros(lead + (2,), dtype=torch.int32,
+                                  device=dev)
+        # Per-lane starts (the replay protocol's relaunches; a lane whose
+        # start is n_valid does nothing).
+        self.starts = torch.zeros(lead, dtype=torch.int32, device=dev) \
+            if lanes is not None else None
         self.args = fill_args(cfg, model, carry, events, 0, 0, 0, rows,
-                              self.scratch_u, self.scratch_sel, self.status)
+                              self.scratch_u, self.scratch_sel, self.status,
+                              lanes=lanes)
         if self.cuda:
             self._ref = ctypes.byref(self.args)
             self._stream = torch.cuda.current_stream(dev).cuda_stream
             self._fn = _build.load().block_step_launch
 
-    def set_block(self, b: int, i0: int, s: int, n_valid: int) -> _Args:
+    def set_block(self, b: int, i0: int, s, n_valid: int) -> _Args:
         """The argument block for events ``[s, n_valid)`` of block ``b``
         with global indices ``i0 + j``: the kernel offsets the event rows
-        and the row buffers by ``b·W`` itself."""
+        and the row buffers by ``b·W`` itself.  ``s`` is an int (every
+        lane) or, for a lane-stacked scan, one start per lane."""
         a = self.args
-        a.blk, a.i0, a.s, a.n_valid = b, _wrap32(i0), s, n_valid
+        a.blk, a.i0, a.n_valid = b, _wrap32(i0), n_valid
+        if isinstance(s, int):
+            a.s, a.lane_s = s, None
+        else:
+            if self.lanes is None or len(s) != self.lanes or \
+                    not all(0 <= int(v) <= n_valid for v in s):
+                raise ValueError(f"block_step: per-lane starts {list(s)} "
+                                 f"for {self.lanes} lanes, n_valid "
+                                 f"{n_valid}")
+            self.starts.copy_(torch.as_tensor(s, dtype=torch.int32))
+            a.s, a.lane_s = 0, self.starts.data_ptr()
         return a
 
-    def launch(self, b: int, i0: int, s: int, n_valid: int):
-        """Run events ``[s, n_valid)`` of block ``b``.  Returns the (2,)
-        int32 status ``[fires, index]``."""
+    def launch(self, b: int, i0: int, s, n_valid: int):
+        """Run events ``[s, n_valid)`` of block ``b`` (``s`` as in
+        ``set_block``).  Returns the status ``[fires, index]``, (2,) or
+        (lanes, 2) int32."""
         if not self.cuda:
-            W = self.cfg.block_events
-            cut = slice(b * W, b * W + W)
+            return self._plain(b, i0, s, n_valid)
+        self.set_block(b, i0, s, n_valid)
+        _build.check(self._fn(self._ref, self._stream), "block_step")
+        if self.lanes is None:
+            block_step.launches += 1
+        else:
+            block_step_lanes.launches += 1
+        return self.status
+
+    def _plain(self, b: int, i0: int, s, n_valid: int):
+        W = self.cfg.block_events
+        cut = slice(b * W, b * W + W)
+        if self.lanes is None:
             blk = type(self.events)(*(x[cut] for x in self.events))
             _, _, status = block_step_plain(
                 self.cfg, self.model, self.carry, blk, i0, s, n_valid,
                 {k: v[cut] for k, v in self.rows.items()})
             return status
-        self.set_block(b, i0, s, n_valid)
-        _build.check(self._fn(self._ref, self._stream), "block_step")
-        block_step.launches += 1
+        starts = [s] * self.lanes if isinstance(s, int) else list(s)
+        for k in range(self.lanes):
+            blk = type(self.events)(*(x[k, cut] for x in self.events))
+            _, _, st = block_step_plain(
+                self.cfg, lane(self.model, k), lane(self.carry, k), blk, i0,
+                int(starts[k]), n_valid,
+                {name: v[k, cut] for name, v in self.rows.items()})
+            self.status[k] = st
         return self.status
 
 
@@ -667,6 +738,30 @@ def block_step(cfg, model, carry, blk, i0: int, s: int, n_valid: int,
     return carry, rows, status
 
 
+
+def block_step_lanes(cfg, model, carry, blk, i0: int, s, n_valid: int,
+                     rows: dict | None = None):
+    """The lane instance of ``block_step``: L independent operators, each
+    advancing its own W-event block against its own model and carry in
+    one launch of L CTAs (the reference vmaps the kernel over tenant
+    lanes).  Every operand carries a leading ``(L,)`` axis; events
+    ``[s, n_valid)`` of each lane's block run, with ``s`` an int or one
+    start per lane (a lane whose start is ``n_valid`` does nothing).
+    Returns ``(carry, rows, status)`` with ``status`` (L, 2).  On CPU
+    tensors it runs ``block_step_plain`` lane by lane."""
+    dev = carry.sim_time.device
+    W = cfg.block_events
+    L = blk.ev_id.shape[0]
+    if rows is None:
+        rows = new_rows(cfg, W, dev, lanes=L)
+    if not 0 <= n_valid <= W or (isinstance(s, int) and not 0 <= s <= n_valid):
+        raise ValueError(f"block_step: need 0 <= s <= n_valid <= W, got "
+                         f"s={s} n_valid={n_valid} W={W}")
+    status = BlockScan(cfg, model, carry, blk, rows, lanes=L).launch(
+        0, i0, s, n_valid)
+    return carry, rows, status
+
+
 def threefry_probe(key: torch.Tensor, n: int,
                    partitionable: bool | None = None):
     """The kernel's threefry on the card, for the tests: ``(split(key)
@@ -686,3 +781,4 @@ def threefry_probe(key: torch.Tensor, n: int,
 
 
 block_step.launches = 0
+block_step_lanes.launches = 0

@@ -4,8 +4,9 @@ Port of ``repro.kernels.ops``.  The per-event engine never touches a
 kernel directly: it calls ``advance_seq_multi`` / ``pm_utilities_multi``
 / ``shed_lowest_threshold`` below, which launch the hand-written CUDA
 kernels for CUDA tensors (their plain PyTorch versions for CPU tensors).
-The block backend calls ``kernels.block_step`` itself; ``KERNELS``
-counts the launches of all four.
+The block backend calls ``kernels.block_step`` itself, and the
+runtime's lanes its lane instance ``block_step_lanes``; ``KERNELS``
+counts the launches of all five.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import functools
 import torch
 
 from repro_torch.core import shedder as shd
-from repro_torch.kernels.block_step import block_step
+from repro_torch.kernels.block_step import block_step, block_step_lanes
 from repro_torch.kernels.nfa_transition import nfa_advance
 from repro_torch.kernels.shed_select import (utility_histogram,
                                              utility_histogram_edges,
@@ -26,6 +27,7 @@ KERNELS = {
     "utility_lookup": utility_lookup,
     "utility_histogram": utility_histogram_edges,
     "block_step": block_step,
+    "block_step_lanes": block_step_lanes,
 }
 
 

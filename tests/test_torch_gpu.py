@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the block kernel's threefry against ``repro_torch.prng`` (in
+version (the block kernel also as its lane instance, one CTA per lane,
+and inside the multi-tenant runtime), the block kernel's threefry against ``repro_torch.prng`` (in
 both of jax's layouts), the engine's ``cuda`` and ``cuda_block`` backends
 on the card against its ``torch`` backend on the CPU, and both on the
 card against the NumPy oracle — BITWISE.
@@ -190,6 +191,127 @@ def _kernel_equals_plain(cuda, name, N, shedder):
     a = dict(_flat(got["kernel"]))
     b = dict(_flat(got["plain"]))
     assert a.keys() == b.keys()
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name,N,shedder", block_cases.CASES)
+def test_lane_kernel_equals_plain_and_single_lane_kernel(cuda, name, N,
+                                                         shedder):
+    """The block kernel's lane instance (one CTA per lane, L = 3 lanes
+    with their own streams, models and carries) equals, on every lane,
+    ``block_step_plain`` and the one-lane kernel on that lane alone: bit
+    for bit, in both instantiations (soccer N=2048 keeps its store in
+    device memory)."""
+    cfg, model, carry, blk, i0 = block_cases.firing_lanes(name, N, shedder,
+                                                          cuda, **COST)
+    W, L = cfg.block_events, blk.ev_id.shape[0]
+    saved = convert.tree_to_numpy(carry)
+    c = convert.carry_from_numpy(saved, cuda)
+    before = kblock.block_step_lanes.launches
+    _, rows, status = kblock.block_step_lanes(cfg, model, c, blk, i0, 0, W)
+    assert kblock.block_step_lanes.launches == before + 1
+    torch.cuda.synchronize()
+    got = dict(_flat(convert.tree_to_numpy((c, rows, status))))
+    fired = 0
+    for k in range(L):
+        lane = lambda t, k=k: engine.tree_map(lambda x: x[k], t)  # noqa
+        for fn in (kblock.block_step, kblock.block_step_plain):
+            ck = engine.tree_map(lambda x, k=k: x[k].clone(),
+                                 convert.carry_from_numpy(saved, cuda))
+            rk = kblock.new_rows(cfg, W, cuda)
+            ck, rk, sk = fn(cfg, lane(model), ck, lane(blk), i0, 0, W, rk)
+            torch.cuda.synchronize()
+            want = dict(_flat(convert.tree_to_numpy((ck, rk, sk))))
+            lane_got = dict(_flat(convert.tree_to_numpy(
+                (lane(c), {n: v[k] for n, v in rows.items()}, status[k]))))
+            bad = [n for n in want
+                   if not np.array_equal(want[n], lane_got[n])]
+            assert not bad, (k, fn.__name__, bad)
+        fired += int(status[k, 0]) > 0
+    assert got.keys()
+    if shedder in ("pspice", "pmbl"):
+        assert fired >= 2, "two lanes must fire Alg. 2 in the block"
+
+
+def test_lanes_on_cuda_backend_equal_torch_on_cpu(cuda):
+    """Lanes on "cuda" (the per-event kernels: one nfa_advance launch per
+    event over all L·P pattern rows, the lookup and histogram kernels once
+    per shedding lane) on the card equal lanes on "torch" on the CPU, bit
+    for bit, with at most one advance launch per event."""
+    from repro_torch import runtime as RT
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=97, latency_bound=0.005,
+                                shedder="pspice", emit_matches=True,
+                                gather_stats=True, **COST)
+    rate = 3.0 / (cfg.c_base + cfg.c_match * 30)
+    L, n = 3, 400
+    out = {}
+    for backend, dev in (("cuda", "cuda"), ("torch", "cpu")):
+        c = dataclasses.replace(cfg, backend=backend)
+        evs = [streams.classify(specs, sc.raw(n=n, seed=sc.seed + k),
+                                rate=rate * (1 + 0.3 * k), seed=k,
+                                device=dev) for k in range(L)]
+        model = engine.make_model(cp, c, device=dev)
+        kops.reset_launch_counts()
+        carry, outs = RT.run_chunk_lanes(
+            c, RT.broadcast_model(model, L), RT.stack(evs),
+            RT.init_lane_carries(c, L, seed=1, device=dev), 0, device=dev)
+        counts = kops.launch_counts()
+        out[backend] = dict(_flat(convert.tree_to_numpy((carry, outs))))
+        if backend == "cuda":
+            torch.cuda.synchronize()
+            assert 0 < counts["nfa_advance"] <= n
+            assert counts["utility_lookup"] >= 2
+            fired = (carry.shed_calls > 0).sum().item()
+            assert fired >= 2, "two lanes must shed"
+    a, b = out["cuda"], out["torch"]
+    bad = [k for k in a if not np.array_equal(a[k], b[k])]
+    assert not bad, bad
+
+
+def test_multitenant_runtime_on_card_equals_cpu(cuda):
+    """MultiTenantRuntime on "cuda_block" (the lane instance per W-event
+    block, fused) on the card equals its run on the CPU (the plain
+    version lane by lane), with refresh on: every carry leaf and every
+    telemetry field but the walls, bit for bit; 0 engine host syncs."""
+    from repro_torch import runtime as RT
+    specs = [pat.make_q1(window_size=400, num_symbols=4)]
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=64, latency_bound=0.005,
+                                gather_stats=True, shedder="pspice",
+                                backend="cuda_block", block_events=32,
+                                **COST)
+    rate = 3.0 / (cfg.c_base + cfg.c_match * 20)
+    L, n = 4, 1500
+    rt = RT.RuntimeConfig(chunk_size=256, refresh=RT.RefreshConfig(
+        every_chunks=2, min_observations=64.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        evs = [streams.classify(specs, streams.gen_stock(
+            n, num_symbols=50, pattern_symbols=4, p_class=0.05,
+            seed=100 + k), rate=rate * (1 + 0.3 * k), seed=k, device=dev)
+            for k in range(L)]
+        model = engine.make_model(cp, cfg, device=dev)
+        mt = RT.MultiTenantRuntime(cfg, RT.broadcast_model(model, L), L,
+                                   rt=rt, specs=specs, device=dev)
+        engine.host_syncs = 0
+        kops.reset_launch_counts()
+        mt.push(RT.stack(evs), flush=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert engine.host_syncs == 0
+            assert kops.launch_counts()["block_step_lanes"] == sum(
+                -(-c.n_events // (L * 32)) for c in mt.telemetry.chunks)
+        rows = [{k: v for k, v in r.items() if "wall" not in k
+                 and k != "events_per_s"} for r in mt.telemetry.rows()]
+        out[dev] = (dict(_flat(convert.tree_to_numpy(mt.carry))), rows,
+                    [s.refresh_count for s in mt.refresh_state])
+    (a, ra, na), (b, rb, nb) = out["cuda"], out["cpu"]
+    assert sum(na) > 0 and na == nb
+    assert ra == rb
     bad = [k for k in a if not np.array_equal(a[k], b[k])]
     assert not bad, bad
 

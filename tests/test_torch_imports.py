@@ -51,8 +51,24 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert res["n"] >= 20 and res["bad"] == [], res
 
 
+# The streaming runtime's modules, likewise.
+RUNTIME_MODULES = ("repro_torch.runtime", "repro_torch.runtime.chunker",
+                   "repro_torch.runtime.lanes", "repro_torch.runtime.refresh",
+                   "repro_torch.runtime.service",
+                   "repro_torch.runtime.telemetry")
+
+
 def test_quality_modules_are_scanned():
     assert set(QUALITY_MODULES) <= set(_modules())
+
+
+def test_runtime_modules_are_scanned():
+    assert set(RUNTIME_MODULES) <= set(_modules())
+    scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
+    for m in RUNTIME_MODULES:
+        rel = m.replace(".", "/")
+        assert f"src/{rel}.py" in scanned or \
+            f"src/{rel}/__init__.py" in scanned, m
 
 
 def _imported_roots(path: pathlib.Path):
@@ -111,6 +127,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
     calls["build_model"] = lambda: runner.build_model(specs, cfg, ev)
     calls["run_with_shedder"] = lambda: runner.run_with_shedder(
         specs, cfg, None, raw, rate=10.0, shedder="none")
+    from repro_torch import runtime
+    calls["StreamRuntime"] = lambda: runtime.StreamRuntime(cfg, model)
+    calls["MultiTenantRuntime"] = lambda: runtime.MultiTenantRuntime(
+        cfg, runtime.broadcast_model(model, 2), 2)
+    calls["init_lane_carries"] = lambda: runtime.init_lane_carries(cfg, 2)
+    calls["run_chunk_lanes"] = lambda: runtime.run_chunk_lanes(
+        cfg, runtime.broadcast_model(model, 1), runtime.stack([ev]),
+        runtime.stack([carry]), 0)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

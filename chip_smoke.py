@@ -21,7 +21,11 @@ Phases (one line each; any failure raises and exits non-zero):
            layouts); its lane instance (one CTA per lane) at L = 3 on
            every block case, each lane equal to the plain version and to
            the one-lane kernel on that lane; times against the memory
-           bound, and the launch path's host time per launch
+           bound, and the launch path's host time per launch; the
+           histogram's lane instance at L = 1, 3, 128 against its plain
+           version and the one-lane kernel row by row, the lookup over
+           128 lanes' pattern rows, and the launch floor (an empty kernel
+           launched back to back)
   parity   the engine on stock specs, N=2048, 3000 events, all four
            shedders with fires: backends "cuda" and "cuda_block" on the
            card == backend "torch" on the card == backend "torch" on the
@@ -53,6 +57,33 @@ Phases (one line each; any failure raises and exits non-zero):
            per launch at L = 1, 8, 128 against its byte bound; the refresh
            demo (8 drifting lanes, refresh every 4 chunks), each lane
            equal to StreamRuntime on that lane alone
+  resilience  the runtime's resilience layer (bench_faults' counterpart):
+           the fault matrix (clean, each stream and state fault alone,
+           all faults) through StreamRuntime on "cuda_block" with ingest,
+           ladder, guard and refresh on stock's configuration, 30000
+           events, gated as bench_faults (no exception, finite state, a
+           clean guard sweep, every decision mirrored in telemetry,
+           completions >= 2 % of clean), clean and all faults also on
+           "cuda" with an equal carry sha256 and counters; resilience off
+           == one monolithic run_engine on both paths, configured and
+           never triggered == off (one stream, and 128 lanes with both
+           runs' events/s); 128 lanes under lane faults (only the
+           poisoned lanes restored, every other lane bitwise its run
+           without faults) and under a ladder that trims (the trim over
+           lanes: one lookup launch and one launch of the histogram's lane
+           instance per level, equal to its plain version and to one-lane
+           trims, lane by lane; its time against lane by lane)
+  recovery durable recovery (bench_recovery's counterpart): the
+           supervisor's children on the card (N = 256, W = 32, 30000
+           events, chunk 1024, snapshot every 4 chunks) SIGKILLed at the
+           reference grid's kill sites on cuda_block x {none, pspice,
+           pmbl, ebl} and cuda/pspice, relaunched, and bitwise equal to
+           the uninterrupted run (carry sha256, matches, counters,
+           events; a torn snapshot rejected where the kill tore one);
+           then 128 stock lanes snapshot, abandoned mid-push and
+           recovered in process, every lane equal to the uninterrupted
+           run, with snapshot bytes, write and recovery times, WAL
+           records replayed and WAL append time per push
   profile  torch.profiler over one stock pspice run per path: device
            busy time by kernel and the device's idle share; on the block
            path also the host's time per launch (the enqueue alone)
@@ -88,7 +119,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "parity", "main", "quality", "runtime",
-          "profile", "model")
+          "resilience", "recovery", "profile", "model")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -110,6 +141,10 @@ KERNEL_META = {
                        "src/repro/kernels/shed_select.py:38"),
     "utility_histogram": ("src/repro_torch/csrc/shed_select.cu",
                           "src/repro/kernels/shed_select.py:115"),
+    # Its lane instance: the histogram vmapped over tenant lanes by the
+    # ladder's PM trim (src/repro/runtime/guard.py:116), grid y = lane.
+    "utility_histogram_lanes": ("src/repro_torch/csrc/shed_select.cu",
+                                "src/repro/kernels/shed_select.py:115"),
     "block_step": ("src/repro_torch/csrc/block_step.cu",
                    "src/repro/kernels/block_step.py:87"),
     # The lane instance: the same kernel vmapped over tenant lanes
@@ -123,7 +158,9 @@ KERNEL_META = {
 # the main phase, or the model phase's prefill and decode.
 KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
                "utility_histogram": "cuda", "block_step": "cuda_block",
-               "block_step_lanes": "runtime", "flash_attention": "model"}
+               "block_step_lanes": "runtime",
+               "utility_histogram_lanes": "resilience",
+               "flash_attention": "model"}
 W_BLOCK = 32                       # block_events on the block path
 
 
@@ -371,15 +408,119 @@ def phase_kernels(torch, np) -> dict:
                         f"{bound:.6f} ms ({bytes_[name]} B at 3.35 TB/s)")
                     if N == 256:     # the stock main path's shape
                         record[name] = dict(ms=k_ms, plain_ms=p_ms,
-                                            bound_ms=bound)
+                                            bound_ms=bound,
+                                            device_us=dev_us[name])
     for name, err in errs.items():
         record[name]["max_abs_err"] = err
         log("kernels", f"{name}: max |kernel - plain| {err!r} over every "
             "case and N")
+    record["utility_histogram_lanes"] = phase_hist_lanes(torch, np)
+    record["utility_lookup"].update(lookup_over_lanes(torch, np))
+    record["nfa_advance"].update(launch_floor(torch))
     record["block_step"] = phase_block_kernel(torch, np)
     record["block_step_lanes"] = phase_block_lanes(torch, np)
     record["flash_attention"] = phase_flash_kernel(torch, np)
     return record
+
+
+def phase_hist_lanes(torch, np) -> dict:
+    """The histogram's lane instance (grid y = lane) against its plain
+    version and, row by row, the one-lane kernel, at L = 1, 3 and 128 on
+    the ladder's trim shape (P·N = 3 x 256 utilities per lane, 128 bins,
+    a third of them NaN); timed at L = 128."""
+    from repro_torch.core.shedder import bucket_edges
+    from repro_torch.kernels import shed_select as ks
+
+    dev = torch.device("cuda")
+    n, nbins = 3 * 256, 128
+    err, out = 0.0, {}
+    for L in (1, 3, RT_LANES):
+        rng = np.random.default_rng(L)
+        u = rng.random((L, n)).astype(np.float32)
+        u[rng.random((L, n)) < 1 / 3] = np.nan
+        u = torch.from_numpy(u).to(dev)
+        lo = torch.nan_to_num(u, nan=2.0).amin(1)
+        hi = torch.nan_to_num(u, nan=-1.0).amax(1)
+        edges = bucket_edges(lo, torch.where(hi > lo, hi, lo + 1.0), nbins)
+        got = ks.utility_histogram_lanes(u, edges)
+        want = ks.utility_histogram_lanes_plain(u, edges)
+        rows = torch.stack([ks.utility_histogram_edges(u[k], edges[k])
+                            for k in range(L)])
+        torch.cuda.synchronize()
+        if not (same(torch, got, want) and same(torch, got, rows)):
+            raise AssertionError(f"utility_histogram_lanes L={L} != plain "
+                                 "or the one-lane kernel")
+        err = max(err, max_abs_err(torch, got, want))
+        if L == RT_LANES:
+            k_ms = cuda_ms(torch, lambda: ks.utility_histogram_lanes(
+                u, edges))
+            p_ms = cuda_ms(torch, lambda: ks.utility_histogram_lanes_plain(
+                u, edges), iters=20)
+            d_us = device_us(torch, lambda: ks.utility_histogram_lanes(
+                u, edges), "utility_histogram_kernel")
+            nbytes = L * n * 4 + L * (nbins + 1) * 4 + L * nbins * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
+            log("kernels", f"utility_histogram_lanes L={L} n={n} "
+                f"nbins={nbins}: kernel {k_ms:.6f} ms per call (device-only "
+                f"{d_txt}), plain {p_ms:.6f} ms, library none, bound "
+                f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
+            out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       device_us=d_us, lanes=L)
+    log("kernels", f"utility_histogram_lanes at L = 1, 3, {RT_LANES}: equal "
+        f"to its plain version and to the one-lane kernel row by row, max "
+        f"|kernel - plain| {err!r}")
+    out["max_abs_err"] = err
+    return out
+
+
+def lookup_over_lanes(torch, np) -> dict:
+    """The lookup over L·P pattern rows laid end to end (the trim over
+    128 stock lanes: 384 rows of N = 256), one launch, against its plain
+    version."""
+    from repro_torch.kernels import shed_select as ks
+
+    dev = torch.device("cuda")
+    P, N, M, C1, B = 3 * RT_LANES, 256, 11, 11, 38
+    c = {k: torch.from_numpy(v).to(dev)
+         for k, v in kernel_cases(np, P, N, M, C1, B, 7).items()}
+    args = (c["state"], c["r_w"], c["active"], c["tables"], c["bins"])
+    got, want = ks.utility_lookup(*args), ks.utility_lookup_plain(*args)
+    torch.cuda.synchronize()
+    if not same(torch, got, want):
+        raise AssertionError("utility_lookup over L·P rows != plain")
+    k_ms = cuda_ms(torch, lambda: ks.utility_lookup(*args))
+    p_ms = cuda_ms(torch, lambda: ks.utility_lookup_plain(*args), iters=20)
+    d_us = device_us(torch, lambda: ks.utility_lookup(*args),
+                     "utility_lookup_kernel")
+    nbytes = bound_bytes(torch, c, 128)["utility_lookup"]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
+    log("kernels", f"utility_lookup over {RT_LANES} lanes' pattern rows "
+        f"(P={P}, N={N}): bitwise ok; kernel {k_ms:.6f} ms per call "
+        f"(device-only {d_txt}), plain {p_ms:.6f} ms, bound {bound:.6f} ms "
+        f"({nbytes} B at 3.35 TB/s)")
+    return dict(lanes_ms=k_ms, lanes_plain_ms=p_ms, lanes_bound_ms=bound,
+                lanes_device_us=d_us)
+
+
+def launch_floor(torch) -> dict:
+    """The card's launch floor: an empty kernel launched back to back
+    (10 x 1 000 launches from one host loop), as CUDA events per launch
+    and as the profiler's device time per launch."""
+    from repro_torch.kernels import nfa_transition as kn
+
+    dev = torch.device("cuda")
+    per = 1000
+    ms = cuda_ms(torch, lambda: kn.empty_kernels(per, dev), iters=10) / per
+    d_us = device_us(torch, lambda: kn.empty_kernels(100, dev),
+                     "empty_kernel", iters=10)
+    d_us = None if d_us is None else d_us / 100
+    d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
+    log("kernels", f"launch floor: an empty kernel launched back to back "
+        f"takes {ms * 1e3:.3f} us per launch (CUDA events) and {d_txt} of "
+        "device time per launch (profiler)")
+    return dict(launch_floor_us=ms * 1e3, launch_floor_device_us=d_us)
 
 
 # ---------------------------------------------------------------------------
@@ -988,6 +1129,568 @@ def runtime_refresh(torch, np) -> None:
         f"{agg['refresh_wall_s']:.4f} s; aggregate {json.dumps(agg)}")
     log("runtime", "refresh demo: every lane == StreamRuntime on that lane "
         "alone (carry bitwise, refresh counts equal)")
+
+
+# ---------------------------------------------------------------------------
+# The runtime's resilience layer (counterpart of benchmarks/bench_faults.py)
+# ---------------------------------------------------------------------------
+
+RES_EVENTS, RES_CHUNK, RES_PUSH = 30000, 1024, 4096
+RES_FN_BOUND = 0.98        # bench_faults.FN_BOUND: a liveness bound
+RES_POISONED = (3, 64, 127)
+DEV = "cuda"               # the card; the phases' functions run there
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stock_setup(torch, dev, backend: str, n: int, lanes: int = 1,
+                rates=(1.0, 1.0), gather: bool = False):
+    """The stock main path's configuration (3 x Q1, N = 256, W = 32,
+    pspice, LB 0.05 s) with the model built on lane 0's warm-up (the
+    runtime phase's recipe); lane l's stream is seed 7 + l at max_rate x
+    (rates[0] + (rates[1] - rates[0]) l / (lanes - 1)).  Returns (specs,
+    cfg, model, [events per lane], max_rate)."""
+    from repro_torch.cep import engine as eng, patterns as pat, runner
+    from repro_torch.data import streams
+
+    sc = streams.get_scenario("stock")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(
+        cp, max_pms=sc.max_pms, latency_bound=sc.latency_bound,
+        shedder="pspice", backend=backend, block_events=W_BLOCK,
+        gather_stats=gather, **paper_cost())
+    raws = [sc.raw(n=n, seed=sc.seed + k) for k in range(lanes)]
+    warm = streams.classify(specs, _cut(raws[0], 0, int(n * 0.3)),
+                            rate=1.0, seed=sc.seed, device=dev)
+    built = runner.build_model(specs, cfg, warm, bin_size=sc.bin_size,
+                               seed=sc.seed, device=dev)
+    mult = [rates[0] + (rates[1] - rates[0]) * k / max(lanes - 1, 1)
+            for k in range(lanes)]
+    evs = [streams.classify(specs, raws[k], rate=built.max_rate * mult[k],
+                            seed=sc.seed + k, device=dev)
+           for k in range(lanes)]
+    model = eng.make_model(
+        cp, cfg, ut_tables=built.ut_stacked, ut_bins=built.ut_bins,
+        f_model=built.f_model, g_model=built.g_model,
+        ebl_raw_mean=float(evs[0].ebl_raw.mean()), device=dev)
+    return specs, cfg, model, evs, built.max_rate
+
+
+def resilience_rt(RT, cfg, **kw):
+    """benchmarks/bench_faults.py's resilience_rt values at the stock
+    chunk, with the ladder's bound at 2 x LB (as the reference's 0.01 is
+    to its 0.005)."""
+    return RT.RuntimeConfig(
+        chunk_size=RES_CHUNK,
+        refresh=RT.RefreshConfig(every_chunks=4, min_observations=64.0),
+        ingest=RT.IngestConfig(max_queue_events=1 << 15,
+                               high_watermark=1 << 13,
+                               low_watermark=1 << 11, seed=5),
+        ladder=RT.LadderConfig(escalate_streak=2, deescalate_streak=2,
+                               latency_bound=2 * cfg.latency_bound),
+        guard=RT.GuardConfig(check_every_chunks=1,
+                             checkpoint_every_chunks=4), **kw)
+
+
+def floats_finite(torch, tree) -> bool:
+    from repro_torch.cep import engine as eng
+    return all(np_finite(a) for _, a in eng.tree_leaves_with_path(tree))
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+    return not np.issubdtype(a.dtype, np.floating) or bool(
+        np.isfinite(a).all())
+
+
+def push_all(RT, srt, ev, axis: int = 0, inj=None, lanes=None) -> None:
+    """Push ``ev`` in pieces of RES_PUSH events, then flush.  With an
+    injector, state faults strike between pushes (into ``lanes``, or the
+    whole state) and stream faults rewrite each push."""
+    n = RT.num_events(ev, axis)
+    for s in range(0, n, RES_PUSH):
+        batch = RT.slice_events(ev, s, min(s + RES_PUSH, n), axis)
+        if inj is not None:
+            for lane in (lanes or [None]):
+                srt.carry = inj.corrupt_carry(srt.carry, lane=lane)
+                srt.model = inj.corrupt_model(srt.model, lane=lane)
+            batch = inj.corrupt_events(batch, axis=axis)
+        srt.push(batch)
+    srt.flush()
+
+
+def fault_cell(torch, dev, specs, cfg, model, ev, kinds) -> tuple:
+    """One cell of bench_faults' matrix on the card: the resilient
+    StreamRuntime over the stream, state faults between pushes and
+    stream faults on each push (seed 3, p 0.35), then the end-of-run
+    guard sweep.  Returns (row with its gates, runtime)."""
+    from repro_torch import runtime as RT
+
+    inj = RT.FaultInjector(RT.FaultConfig(kinds=kinds, seed=3,
+                                          p_fault=0.35)) if kinds else None
+    srt = RT.StreamRuntime(cfg, model, resilience_rt(RT, cfg), specs=specs,
+                           device=dev)
+    t0 = time.perf_counter()
+    push_all(RT, srt, ev, inj=inj)
+    srt.guard_now()
+    sync(torch, dev)
+    agg = srt.telemetry.aggregate()
+    tel = srt.telemetry
+    row = dict(
+        wall_s=time.perf_counter() - t0, events=srt.events_processed,
+        completions=agg.get("completions", 0.0),
+        faults=len(inj.log) if inj else 0, restores=srt.guard.restores,
+        violations=srt.guard.violations, max_rung=agg.get("max_rung", 0),
+        transitions=len(srt.ladder.transitions),
+        admission_shed=srt.ingest.total_shed,
+        quarantine_dropped=srt.quarantine_dropped,
+        refreshes=agg.get("refreshes", 0))
+    row["ok_state_finite"] = floats_finite(torch, srt.carry) and \
+        floats_finite(torch, srt.model)
+    row["ok_guard_clean"] = srt.guard.check(srt.carry, srt.model) == []
+    row["ok_mirrored"] = (
+        len(srt.ladder.transitions) == len(tel.events_of("ladder"))
+        == agg.get("ladder_transitions", -1)
+        and srt.guard.violations == len(tel.events_of("guard_violation"))
+        and srt.guard.restores == len(tel.events_of("guard_restore")))
+    return row, srt
+
+
+def phase_resilience(torch, np) -> dict:
+    """The resilience layer on the card: bench_faults' matrix on
+    cuda_block (clean and all faults also on cuda, equal in carry sha256
+    and counters); resilience off and inert cost nothing (one stream on
+    both paths, and 128 lanes); 128 lanes under lane faults (a per-lane
+    restore) and under a ladder that trims, the trim over lanes on the
+    kernels against its plain version and lane by lane.  Returns the lane
+    histogram's launches on the trimming run and its trim times."""
+    resilience_matrix(torch, np)
+    resilience_inert(torch, np)
+    return resilience_lanes(torch, np)
+
+
+def resilience_matrix(torch, np) -> None:
+    import dataclasses
+
+    from repro_torch import runtime as RT
+    from repro_torch.runtime import supervisor as SV
+
+    dev = torch.device(DEV)
+    specs, cfg, model, (ev,), max_rate = stock_setup(
+        torch, dev, "cuda_block", RES_EVENTS, gather=True)
+    log("resilience", f"fault matrix: stock {RES_EVENTS} events (3 x Q1, "
+        f"N={cfg.max_pms}, W={W_BLOCK}, pspice, LB {cfg.latency_bound} s) "
+        f"at max_rate {max_rate!r} x 1.0, chunk {RES_CHUNK}, pushes of "
+        f"{RES_PUSH}; ingest + ladder (bound {2 * cfg.latency_bound} s) + "
+        "guard + refresh every 4 chunks; faults seed 3, p 0.35")
+    cells = [("clean", ())] + [(k, (k,)) for k in RT.STREAM_FAULTS +
+                               RT.STATE_FAULTS] + \
+        [("all_faults", RT.STREAM_FAULTS + RT.STATE_FAULTS)]
+    clean = None
+    kept = {}
+    for name, kinds in cells:
+        row, srt = fault_cell(torch, dev, specs, cfg, model, ev, kinds)
+        if name == "clean":
+            clean = row["completions"]
+            row["ok_clean_nonempty"] = clean > 0
+        else:
+            row["fn_vs_clean"] = 1.0 - row["completions"] / clean
+            row["ok_fn_bounded"] = row["fn_vs_clean"] <= RES_FN_BOUND
+        bad = [k for k, v in row.items() if k.startswith("ok_") and not v]
+        log("resilience", f"cell {name} (cuda_block): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if not k.startswith("ok_")) +
+            f"; gates {'FAIL ' + '+'.join(bad) if bad else 'pass'}")
+        if bad:
+            raise AssertionError(f"fault cell {name}: gates {bad} failed")
+        if name in ("clean", "all_faults"):
+            kept[name] = cell_digest(SV, srt)
+    for name, kinds in (cells[0], cells[-1]):
+        row, srt = fault_cell(torch, dev, specs,
+                              dataclasses.replace(cfg, backend="cuda"),
+                              model, ev, kinds)
+        got = cell_digest(SV, srt)
+        if got != kept[name]:
+            raise AssertionError(f"fault cell {name}: cuda {got} != "
+                                 f"cuda_block {kept[name]}")
+        log("resilience", f"cell {name} on cuda ({row['wall_s']:.2f} s): "
+            f"carry sha256 {got[0][:16]}... and semantic counters equal "
+            "cuda_block's")
+
+
+def cell_digest(SV, srt) -> tuple:
+    """(carry sha256, semantic counters as sorted JSON): a poisoned
+    chunk's NaN latencies compare equal as text."""
+    return SV.carry_sha(srt), json.dumps(SV.semantic_counters(srt),
+                                         sort_keys=True)
+
+
+def resilience_inert(torch, np) -> None:
+    """Resilience off: the chunked runtime equals one monolithic
+    run_engine (cuda_block and cuda).  Configured but never triggered: it
+    equals resilience off (one stream; 128 lanes, with both runs'
+    events/s and the guard's host reads per chunk)."""
+    import dataclasses
+
+    from repro_torch import runtime as RT
+    from repro_torch.cep import engine as eng
+
+    dev = torch.device(DEV)
+    specs, cfg, model, (ev,), _ = stock_setup(torch, dev, "cuda_block",
+                                              RES_EVENTS)
+    inert = dict(ingest=RT.IngestConfig(),
+                 ladder=RT.LadderConfig(latency_bound=1e6, max_rung=1),
+                 guard=RT.GuardConfig(check_every_chunks=1,
+                                      checkpoint_every_chunks=4))
+    for backend in ("cuda_block", "cuda"):
+        c = dataclasses.replace(cfg, backend=backend)
+        mono, _ = eng.run_engine(c, model, ev, eng.init_carry(c, device=dev),
+                                 device=dev)
+        runs = {}
+        for label, kw in (("off", {}), ("inert", inert)):
+            if backend == "cuda" and label == "inert":
+                continue
+            srt = RT.StreamRuntime(c, model, RT.RuntimeConfig(
+                chunk_size=RES_CHUNK, **kw), device=dev)
+            push_all(RT, srt, ev)
+            sync(torch, dev)
+            runs[label] = srt
+        for label, srt in runs.items():
+            bad = [i for i, (a, b) in enumerate(zip(
+                carry_leaves(mono), carry_leaves(srt.carry)))
+                if not same(torch, a, b)]
+            if bad:
+                raise AssertionError(f"resilience {label} on {backend}: "
+                                     f"carry leaves {bad} != run_engine")
+        log("resilience", f"{backend}: resilience off == one monolithic "
+            f"run_engine" + (" == resilience configured and never "
+                             "triggered" if "inert" in runs else "") +
+            f" (every carry leaf, {RES_EVENTS} events, pushes of "
+            f"{RES_PUSH}, chunk {RES_CHUNK})")
+
+    # -- 128 lanes, the runtime phase's cell --------------------------------
+    specs, cfg, model, evs, _ = stock_setup(torch, dev, "cuda_block",
+                                            RES_EVENTS, lanes=RT_LANES,
+                                            rates=(1.2, 1.4))
+    mL, evL = RT.broadcast_model(model, RT_LANES), RT.stack(evs)
+    out = {}
+    for label, kw in (("off", {}), ("inert", inert), ("off", {}),
+                      ("inert", inert)):
+        mt = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=RT.RuntimeConfig(
+            chunk_size=RES_CHUNK, **kw), device=dev)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        push_all(RT, mt, evL, axis=1)
+        sync(torch, dev)
+        out[label] = (time.perf_counter() - t0, mt)   # the second run kept
+    (w_off, off), (w_in, inr) = out["off"], out["inert"]
+    bad = [k for k in range(RT_LANES) if not all(
+        same(torch, a, b) for a, b in zip(
+            carry_leaves(lane_view(off.carry, k)),
+            carry_leaves(lane_view(inr.carry, k))))]
+    if bad:
+        raise AssertionError(f"inert resilience changed lanes {bad}")
+    total = RT_LANES * RES_EVENTS
+    n_chunks = inr.telemetry.aggregate()["n_chunks"]
+    g = inr.guard
+    log("resilience", f"{RT_LANES} lanes x {RES_EVENTS} events, pushes of "
+        f"{RES_PUSH}: resilience off {w_off:.4f} s = {total / w_off:.1f} "
+        f"events/s; inert (ingest + ladder + guard) {w_in:.4f} s = "
+        f"{total / w_in:.1f} events/s ({w_in / w_off:.2f}x the time); every "
+        f"lane's carry equal; guard: {g.checks_run} checks (one host read "
+        f"each, at the end of each group of chunks) over {n_chunks} chunks "
+        f"= {g.checks_run / n_chunks:.3f} host reads per chunk, "
+        f"{g.checkpoints} host-copy checkpoints")
+
+
+def resilience_lanes(torch, np) -> dict:
+    """128 lanes under lane faults (lane_poison and table_corrupt into
+    lanes 3, 64 and 127 at one push, ladder off) and under a ladder whose
+    bound forces the PM-trim rung (trim_store_lanes on the kernels)."""
+    from repro_torch import runtime as RT
+    from repro_torch.cep import engine as eng
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import guard as GD
+
+    dev = torch.device(DEV)
+    specs, cfg, model, evs, _ = stock_setup(torch, dev, "cuda_block",
+                                            RES_EVENTS, lanes=RT_LANES,
+                                            rates=(1.2, 1.4))
+    mL, evL = RT.broadcast_model(model, RT_LANES), RT.stack(evs)
+
+    # -- (a) per-lane restore -------------------------------------------------
+    rt = RT.RuntimeConfig(chunk_size=RES_CHUNK, guard=RT.GuardConfig(
+        check_every_chunks=1, checkpoint_every_chunks=4))
+    clean = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt, device=dev)
+    push_all(RT, clean, evL, axis=1)
+    hit = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt, device=dev)
+    inj = RT.FaultInjector(RT.FaultConfig(
+        kinds=("lane_poison", "table_corrupt"), seed=3, p_fault=1.0))
+    n = RES_EVENTS
+    for k, s in enumerate(range(0, n, RES_PUSH)):
+        if k == 3:
+            for lane in RES_POISONED:
+                hit.carry = inj.corrupt_carry(hit.carry, lane=lane)
+                hit.model = inj.corrupt_model(hit.model, lane=lane)
+        hit.push(RT.slice_events(evL, s, min(s + RES_PUSH, n), 1))
+    hit.flush()
+    sync(torch, dev)
+    restored = [e.detail["lanes"] for e in
+                hit.telemetry.events_of("guard_restore")]
+    if restored != [list(RES_POISONED)]:
+        raise AssertionError(f"lane faults: restores {restored}, expected "
+                             f"one of lanes {list(RES_POISONED)}")
+    bad = [k for k in range(RT_LANES) if k not in RES_POISONED and not all(
+        same(torch, a, b) for a, b in zip(
+            carry_leaves(lane_view(clean.carry, k)),
+            carry_leaves(lane_view(hit.carry, k))))]
+    if bad or not floats_finite(torch, hit.carry) or \
+            not floats_finite(torch, hit.model):
+        raise AssertionError(f"lane faults: lanes {bad} differ from the run "
+                             "without faults, or state not finite")
+    log("resilience", f"lane faults into lanes {list(RES_POISONED)} of "
+        f"{RT_LANES} at push 4 ({len(inj.log)} faults): the guard restored "
+        f"exactly those lanes ({hit.guard.violations} violations, "
+        f"{hit.guard.restores} restore); the other {RT_LANES - 3} lanes "
+        "equal the run without faults in every carry leaf")
+
+    # -- (b) the PM-trim rung over lanes --------------------------------------
+    trims = []
+
+    class Capturing(RT.MultiTenantRuntime):
+        def _trim_call(self, i, frac):
+            keep = len(trims) < 2
+            if keep:
+                before = (GD.host_copy(self.carry), GD.host_copy(self.model))
+            out = super()._trim_call(i, frac)
+            if keep:
+                trims.append((before, i, frac, GD.host_copy(out)))
+            return out
+
+    rt = RT.RuntimeConfig(chunk_size=RES_CHUNK, group_chunks=1,
+                          ladder=RT.LadderConfig(
+                              escalate_streak=1, deescalate_streak=2,
+                              latency_bound=cfg.latency_bound / 2,
+                              max_rung=RT.RUNG_PM_TRIM, trim_frac=0.25))
+    mt = Capturing(cfg, mL, RT_LANES, rt=rt, device=dev)
+    sync(torch, dev)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    push_all(RT, mt, evL, axis=1)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    n_trims = sum(1 for s in mt.telemetry.chunks if s.rung >= 1)
+    if not trims or counts["utility_histogram_lanes"] != 3 * n_trims or \
+            counts["utility_lookup"] != n_trims:
+        raise AssertionError(f"trim rung: {n_trims} trims, launches "
+                             f"{counts}: expected 1 lookup and 3 lane "
+                             "histograms per trim")
+    err = 0.0
+    on_card = lambda t: eng.tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    for (carry0, model0), i, frac, out in trims:
+        plain = GD.trim_store_lanes(cfg, model0, carry0, i, frac)
+        c_card, m_card = on_card(carry0), on_card(model0)
+        for k in range(RT_LANES):
+            one = GD.trim_store(cfg, lane_view(m_card, k),
+                                lane_view(c_card, k), i, frac)
+            got = carry_leaves(lane_view(out, k))
+            for label, want in (("plain", carry_leaves(lane_view(plain, k))),
+                                ("lane by lane", carry_leaves(one))):
+                if not all(same(torch, a, b.cpu())
+                           for a, b in zip(got, want)):
+                    raise AssertionError(f"trim lanes != {label} at lane "
+                                         f"{k}")
+                err = max([err] + [max_abs_err(torch, a, b.cpu())
+                                   for a, b in zip(got, want)])
+    # Time one trim over 128 lanes against 128 one-lane trims.
+    (carry0, model0), i, frac, _ = trims[0]
+    c_card, m_card = on_card(carry0), on_card(model0)
+    kops.reset_launch_counts()
+    GD.trim_store_lanes(cfg, m_card, c_card, i, frac)
+    per_lanes = sum(kops.launch_counts().values())
+    kops.reset_launch_counts()
+    views = [(lane_view(m_card, k), lane_view(c_card, k))
+             for k in range(RT_LANES)]
+    for m1, c1 in views:
+        GD.trim_store(cfg, m1, c1, i, frac)
+    per_lane = sum(kops.launch_counts().values())
+    ms_lanes = cuda_ms(torch, lambda: GD.trim_store_lanes(
+        cfg, m_card, c_card, i, frac), iters=20)
+    ms_one = cuda_ms(torch, lambda: [GD.trim_store(cfg, m1, c1, i, frac)
+                                     for m1, c1 in views], iters=3)
+    n_active = int(c_card.pms.active.sum())
+    hist_bytes = RT_LANES * cfg.num_patterns * cfg.max_pms * 4 + \
+        RT_LANES * (2 * 128 + 1) * 4
+    log("resilience", f"trim rung at L={RT_LANES}: {n_trims} trims in "
+        f"{len(mt.telemetry.chunks)} chunks ({wall:.3f} s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }; the first two trims "
+        f"equal the plain version (CPU) and {RT_LANES} one-lane trims on the "
+        f"card, "
+        f"lane by lane, max |d| {err!r}")
+    log("resilience", f"one trim over {RT_LANES} lanes ({n_active} active "
+        f"PMs): {ms_lanes:.4f} ms, {per_lanes} launches; lane by lane "
+        f"{ms_one:.4f} ms, {per_lane} launches ({ms_one / ms_lanes:.1f}x)")
+    return {"utility_histogram_lanes": dict(
+        launches=counts["utility_histogram_lanes"], trim_ms=ms_lanes,
+        trim_lane_by_lane_ms=ms_one, trim_launches=per_lanes,
+        trim_lane_by_lane_launches=per_lane, trim_hist_bytes=hist_bytes)}
+
+
+# ---------------------------------------------------------------------------
+# Durable recovery (counterpart of benchmarks/bench_recovery.py)
+# ---------------------------------------------------------------------------
+
+# bench_recovery's kill draws per site (the snapshot site strikes the
+# SECOND write, so a previous generation exists to fall back to) and its
+# grid's cells for pallas_block and pallas, with the site and seed that
+# grid's cycling gives them (cell i: site KILL_SITES[i % 3], seed 100 + i).
+REC_KILL_RANGES = {"chunk": (2, 10), "refresh": (1, 2), "snapshot": (2, 2)}
+REC_CELLS = (("cuda_block", "none", 8), ("cuda_block", "pspice", 9),
+             ("cuda_block", "pmbl", 10), ("cuda_block", "ebl", 11),
+             ("cuda", "pspice", 5))
+
+
+def rec_spec(backend: str, shedder: str) -> dict:
+    """The supervisor's workload at full width: N = 256, W = 32, 30 000
+    events, chunk 1 024, pushes of 4 096, snapshot every 4 chunks."""
+    return {"backend": backend, "shedder": shedder, "n": RES_EVENTS,
+            "push": RES_PUSH, "chunk": RES_CHUNK, "max_pms": 256,
+            "block_events": W_BLOCK, "rate_mult": 3.0, "refresh_every": 4,
+            "snapshot_every": 4, "min_observations": 64.0, "device": DEV}
+
+
+def phase_recovery(torch, np) -> None:
+    """SIGKILL recovery on the card: the supervisor's children run on the
+    card, die at a seeded kill site, and the relaunched child must end
+    bitwise equal to the uninterrupted run; then an in-process snapshot +
+    recovery of 128 stock lanes."""
+    import shutil
+    import tempfile
+
+    from repro_torch import runtime as RT
+    from repro_torch.runtime import supervisor as SV
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="smoke-persist-",
+                                         dir=ROOT / "build"))
+    try:
+        for backend, shedder, i in REC_CELLS:
+            site = RT.KILL_SITES[i % len(RT.KILL_SITES)]
+            inj = RT.FaultInjector(RT.FaultConfig(kinds=RT.PROCESS_FAULTS,
+                                                  seed=100 + i))
+            ks = inj.plan_kill(site, *REC_KILL_RANGES[site])
+            spec = rec_spec(backend, shedder)
+            t0 = time.perf_counter()
+            ref = SV.run_service(spec)
+            t_ref = time.perf_counter() - t0
+            d = work / f"{backend}-{shedder}"
+            d.mkdir()
+            t0 = time.perf_counter()
+            res = SV.Supervisor(str(d)).run(spec, kill=ks.spec())
+            t_sup = time.perf_counter() - t0
+            rep, rec = res["report"], res["report"]["recovery"]
+            gates = {
+                "ok_killed": res["killed"] and res["attempts"][0][
+                    "returncode"] == -9,
+                "ok_recovered": res["recovered"],
+                "ok_bitwise": all(rep[k] == ref[k] for k in (
+                    "carry_sha", "matches", "counters",
+                    "events_processed"))}
+            if site == "snapshot":
+                gates["ok_torn_rejected"] = len(rec["rejected_snapshots"]) \
+                    >= 1
+            snaps = sorted((d / "persist").glob("snap-*.ckpt"))
+            log("recovery", f"{backend}/{shedder} kill {ks.spec()}: "
+                f"attempts {[a['returncode'] for a in res['attempts']]}, "
+                f"snapshot chunk {rec['snapshot_chunk']}, replayed "
+                f"{rec['replayed_records']} WAL records, rejected "
+                f"{len(rec['rejected_snapshots'])}, recovery "
+                f"{rec['recovery_wall_s'] * 1e3:.1f} ms in the child, "
+                f"snapshot {snaps[-1].stat().st_size if snaps else 0} B; "
+                f"{sum(len(m) for m in rep['matches'])} matches, "
+                f"{rep['events_processed']} events; uninterrupted run "
+                f"{t_ref:.2f} s, supervised {t_sup:.2f} s; gates " +
+                ", ".join(f"{k} {v}" for k, v in gates.items()))
+            if not all(gates.values()):
+                raise AssertionError(f"recovery {backend}/{shedder}: "
+                                     f"{gates}")
+        recovery_lanes(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def recovery_lanes(torch, work) -> None:
+    """128 stock lanes with the guard and persistence: snapshot, abandon
+    the runtime mid-stream (what a SIGKILL leaves on disk), recover into
+    a fresh MultiTenantRuntime and finish; every lane equals the
+    uninterrupted run."""
+    from repro_torch import runtime as RT
+
+    dev = torch.device(DEV)
+    specs, cfg, model, evs, _ = stock_setup(torch, dev, "cuda_block",
+                                            RES_EVENTS, lanes=RT_LANES,
+                                            rates=(1.2, 1.4))
+    mL, evL = RT.broadcast_model(model, RT_LANES), RT.stack(evs)
+    d = work / "lanes"
+
+    def rt(persist):
+        return RT.RuntimeConfig(
+            chunk_size=RES_CHUNK, guard=RT.GuardConfig(
+                check_every_chunks=1, checkpoint_every_chunks=4),
+            persist=RT.PersistConfig(dir=str(d), snapshot_every_chunks=4)
+            if persist else None)
+
+    clean = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt(False),
+                                  device=dev)
+    push_all(RT, clean, evL, axis=1)
+    a = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt(True), device=dev)
+    append_s = []
+    wal_append = a.persist.wal.append
+
+    def timed(ev):
+        t0 = time.perf_counter()
+        rid = wal_append(ev)
+        append_s.append(time.perf_counter() - t0)
+        return rid
+
+    a.persist.wal.append = timed
+    cut = 3 * RES_PUSH + RES_CHUNK + RES_CHUNK // 2   # a buffered tail
+    for s in range(0, 3 * RES_PUSH, RES_PUSH):
+        a.push(RT.slice_events(evL, s, s + RES_PUSH, 1))
+    t0 = time.perf_counter()
+    path = a.snapshot_now()
+    write_ms = (time.perf_counter() - t0) * 1e3
+    snap_bytes = pathlib.Path(path).stat().st_size   # rotated away later
+    a.push(RT.slice_events(evL, 3 * RES_PUSH, cut, 1))
+    a.persist.wal.close()
+    del a
+    b = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt(True), device=dev)
+    t0 = time.perf_counter()
+    rec = b.recover_from_disk()
+    sync(torch, dev)
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    for s in range(cut, RES_EVENTS, RES_PUSH):
+        b.push(RT.slice_events(evL, s, min(s + RES_PUSH, RES_EVENTS), 1))
+    b.flush()
+    sync(torch, dev)
+    bad = [k for k in range(RT_LANES) if not all(
+        same(torch, x, y) for x, y in zip(
+            carry_leaves(lane_view(clean.carry, k)),
+            carry_leaves(lane_view(b.carry, k))))]
+    if bad or rec["replayed_records"] != 1:
+        raise AssertionError(f"128-lane recovery: lanes {bad} differ, "
+                             f"{rec['replayed_records']} records replayed")
+    log("recovery", f"{RT_LANES} lanes in process: snapshot "
+        f"{snap_bytes} B written in {write_ms:.2f} "
+        f"ms (fsync included), recovery {rec_ms:.2f} ms replaying "
+        f"{rec['replayed_records']} WAL record, WAL append "
+        f"{statistics.mean(append_s) * 1e6:.1f} us per push of "
+        f"{RT_LANES} x {RES_PUSH} events (mean of {len(append_s)}); every "
+        "lane equals the uninterrupted run in every carry leaf")
 
 
 def block_original_layout(torch) -> float:
@@ -2199,6 +2902,8 @@ def main() -> int:
                       ("main", lambda: phase_main(torch)),
                       ("quality", lambda: phase_quality(torch, np)),
                       ("runtime", lambda: phase_runtime(torch, np)),
+                      ("resilience", lambda: phase_resilience(torch, np)),
+                      ("recovery", lambda: phase_recovery(torch, np)),
                       ("profile", lambda: [phase_profile(torch, b) for b in
                                            ("cuda", "cuda_block")]),
                       ("model", lambda: phase_model(torch, np))):
@@ -2210,7 +2915,7 @@ def main() -> int:
         log(phase, f"phase done in {timings[phase]:.2f} s")
         if phase == "kernels":
             record = out
-        if phase in ("main", "runtime", "model"):
+        if phase in ("main", "runtime", "resilience", "model"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -2232,7 +2937,12 @@ def main() -> int:
             library_ms=r.get("library_ms")))
         for extra in ("us_per_event", "call_ms", "host_us_per_launch",
                       "store", "smem_bytes", "lanes", "ms_by_lanes",
-                      "bound_ms_by_lanes", "quality_launches"):
+                      "bound_ms_by_lanes", "quality_launches", "device_us",
+                      "launch_floor_us", "launch_floor_device_us",
+                      "lanes_ms", "lanes_plain_ms", "lanes_bound_ms",
+                      "lanes_device_us",
+                      "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
+                      "trim_lane_by_lane_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

@@ -65,6 +65,10 @@ SHED_NONE, SHED_PSPICE, SHED_PMBL, SHED_EBL = "none", "pspice", "pmbl", "ebl"
 BACKEND_TORCH, BACKEND_CUDA = "torch", "cuda"
 BACKEND_CUDA_BLOCK = "cuda_block"
 BACKENDS = (BACKEND_TORCH, BACKEND_CUDA, BACKEND_CUDA_BLOCK)
+# Backends whose between-event shed (the ladder's PM trim, the replay of
+# a fire) routes through the kernels, as the reference's pallas and
+# pallas_block do: their utility lookup rounds as the kernel does.
+_KERNEL_BACKENDS = (BACKEND_CUDA, BACKEND_CUDA_BLOCK)
 
 # Host syncs made by the event loop (device→host reads), for telemetry.
 host_syncs = 0
@@ -354,7 +358,6 @@ class _Ctx(NamedTuple):
     at_open: torch.Tensor      # (P,) bool
     in_win: torch.Tensor       # (P,) bool
     id_slot: torch.Tensor      # (P, A) bool: slot 0 where spawn counts
-    pattern_id: torch.Tensor   # (P·N,) int64
     neg_one: torch.Tensor      # () int32 -1
 
 
@@ -374,7 +377,6 @@ def _make_ctx(cfg: EngineConfig, model: EngineModel) -> _Ctx:
         in_win=model.spawn_mode == pat.SPAWN_IN_WINDOWS,
         id_slot=model.spawn_counts[:, None] & (
             torch.arange(A, device=dev) == 0),
-        pattern_id=torch.arange(P, device=dev).repeat_interleave(N),
         neg_one=torch.tensor(-1, dtype=torch.int32, device=dev),
     )
 
@@ -628,41 +630,71 @@ def _spawn(cfg: EngineConfig, model: EngineModel, ctx: _Ctx, pms: PMStore,
 
 
 def _shed_now(cfg: EngineConfig, model: EngineModel, pms: PMStore,
-              ws: torch.Tensor, pattern_id: torch.Tensor,
-              sub: torch.Tensor, i: int, rho: int) -> torch.Tensor:
-    """Run the load shedder (Alg. 2 / PM-BL) on one operator's store
-    (``ws`` (P, 1) its window sizes, ``pattern_id`` (P·N,) its slots'
-    patterns); returns the new (P, N) active mask.  ``sub`` is the fire's
-    threefry subkey."""
-    P, N = cfg.num_patterns, cfg.max_pms
+              sub: torch.Tensor, i: int, rho: torch.Tensor) -> torch.Tensor:
+    """Run the load shedder (Alg. 2 / PM-BL) on L operators' stores at
+    once: ``model`` and ``pms`` lane-stacked ((L, P, N) stores), ``sub``
+    (L, 2) each lane's threefry subkey of the fire, ``rho`` (L,) int32
+    each lane's budget.  Returns the new (L, P, N) active masks; each lane
+    equals its one-lane call bit for bit.  On the kernel backends one
+    utility-lookup launch covers the L·P pattern rows laid end to end and
+    each histogram level is one launch of the histogram's lane instance
+    (of the one-lane kernel for a single lane)."""
+    L, P, N = pms.active.shape
     dev = pms.active.device
-    r_w = ws - (i - pms.open_idx)
-    flat_active = pms.active.reshape(-1)
-    rho_t = torch.tensor(rho, dtype=torch.int32, device=dev)
+    rows = lambda x: x.reshape((L * P,) + x.shape[2:])  # noqa: E731
+    r_w = model.window_size[:, :, None] - (i - pms.open_idx)
+    flat_active = pms.active.reshape(L, P * N)
     if cfg.shedder == SHED_PSPICE:
-        if cfg.backend == BACKEND_CUDA:
-            # Kernel path: one utility-lookup launch for the store, then
+        if cfg.backend in _KERNEL_BACKENDS:
+            # Kernel path: one utility-lookup launch for the stores, then
             # the threshold plan with the histogram kernel counting.
             u = kops.pm_utilities_multi(
-                pms.state, r_w, pms.active, model.ut_tables,
-                model.ut_bins).reshape(-1)
+                rows(pms.state), rows(r_w), rows(pms.active),
+                rows(model.ut_tables), rows(model.ut_bins)).reshape(L, -1)
             if cfg.shed_plan == "sort":
                 new_flat = shd.drop_lowest_utility(
                     flat_active, torch.where(flat_active, u,
                                              torch.full_like(u, np.inf)),
-                    rho_t)
+                    rho)
             else:
-                new_flat = kops.shed_lowest_threshold(flat_active, u, rho_t)
+                new_flat = kops.shed_lowest_threshold(flat_active, u, rho)
         else:
+            pattern_id = torch.arange(L * P, device=dev).repeat_interleave(
+                N).reshape(L, P * N)
             new_flat = shd.shed(
-                "pspice", key=sub, active=flat_active, rho=rho_t,
-                stacked_tables=model.ut_tables, bin_sizes=model.ut_bins,
-                pattern_id=pattern_id, state=pms.state.reshape(-1),
-                r_w=r_w.reshape(-1), plan=cfg.shed_plan)
+                "pspice", key=sub, active=flat_active, rho=rho,
+                stacked_tables=rows(model.ut_tables),
+                bin_sizes=rows(model.ut_bins), pattern_id=pattern_id,
+                state=pms.state.reshape(L, -1), r_w=r_w.reshape(L, -1),
+                plan=cfg.shed_plan)
     else:  # PM-BL — O(N) select over uniform scores on either backend
-        new_flat = shd.shed("pmbl", key=sub.to(dev), active=flat_active,
-                            rho=rho_t, plan=cfg.shed_plan)
-    return new_flat.reshape(P, N)
+        new_flat = shd.shed("pmbl", key=sub, active=flat_active, rho=rho,
+                            plan=cfg.shed_plan)
+    return new_flat.reshape(L, P, N)
+
+
+def shed_carry_lanes(cfg: EngineConfig, model: EngineModel, carry: Carry,
+                     i: int, rho: torch.Tensor) -> tuple[Carry, torch.Tensor]:
+    """The reference's carry-level ``_shed_now`` on L lane-stacked
+    carries: each lane splits its key, sheds its store by ``rho`` (L,)
+    int32, pays the simulated shed cost ``c_shed_base + c_shed_pm ·
+    n_before`` and bumps ``pms_shed`` / ``shed_calls`` — with no host
+    sync.  Returns (carry, dropped (L,) float32).  The degradation
+    ladder's PM trim is this call between chunks."""
+    pms = carry.pms
+    L = carry.sim_time.shape[0]
+    n_before = pms.active.reshape(L, -1).sum(1)
+    keys = prng.split(carry.key)                     # (L, 2, 2)
+    active = _shed_now(cfg, model, pms, keys[:, 1], i, rho)
+    dropped = (n_before - active.reshape(L, -1).sum(1)).float()
+    # The reference's compiled form: one fused multiply-add into the
+    # base cost, then the add into the clock (found by test).
+    cost = fp.fma(cfg.c_shed_pm, n_before.float(), cfg.c_shed_base)
+    c = carry._replace(
+        pms=pms._replace(active=active), key=keys[:, 0].contiguous(),
+        sim_time=carry.sim_time + cost, pms_shed=carry.pms_shed + dropped,
+        shed_calls=carry.shed_calls + 1.0)
+    return c, dropped
 
 
 # ---------------------------------------------------------------------------
@@ -711,8 +743,9 @@ def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
     lm = _lane_models(cfg, model)
     hs = _Host.lanes(carry)
     pm_shedder = cfg.shedder in (SHED_PSPICE, SHED_PMBL)
-    lane_model = [tree_map(lambda x, k=k: x[k], model) for k in range(L)] \
-        if pm_shedder else []
+    # Each lane's model as a one-lane stack (the shed's lane axis).
+    lane_model = [tree_map(lambda x, k=k: x[k:k + 1], model)
+                  for k in range(L)] if pm_shedder else []
     arrival, ev_rand, ebl_raw = (x.cpu().numpy() for x in (
         events.arrival, events.ev_rand, events.ebl_raw))
     S = hs[0].lat_n.shape[0]
@@ -784,9 +817,11 @@ def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
                     h.key = keys[0]
                     rows = slice(k * P, (k + 1) * P)
                     sheds.append((k, rows, _shed_now(
-                        cfg, lane_model[k], PMStore(*(x[rows] for x in pms)),
-                        ctx.ws[rows], ctx.pattern_id[:P * N], keys[1], i,
-                        rho)))
+                        cfg, lane_model[k],
+                        PMStore(*(x[None, rows] for x in pms)),
+                        keys[1:].to(dev), i,
+                        torch.tensor([rho], dtype=torch.int32,
+                                     device=dev))[0]))
         if sheds:
             active = pms.active.clone()
             for _, rows, new_active in sheds:
@@ -1130,6 +1165,65 @@ def merge_carries(stacked: Carry, axis: int = 0) -> Carry:
         lat_samples_l=mx(stacked.lat_samples_l),
         lat_ptr=mx(stacked.lat_ptr),
     )
+
+
+# ---------------------------------------------------------------------------
+# Durable-state manifest (repro_torch.runtime.persist)
+# ---------------------------------------------------------------------------
+
+def tree_leaves_with_path(tree, path: str = ""):
+    """``(path, array)`` pairs of a tree's leaves as host NumPy arrays, in
+    the reference's ``jax.tree_util`` flatten order and with its
+    ``keystr`` paths: NamedTuple fields ``.name``, list items ``[i]``,
+    dict keys ``['k']`` (sorted), None no leaf.  A latency model is a
+    registered pytree without keys in the reference, so its leaves read
+    ``[<flat index i>]``.  The carry's threefry key is written as the
+    reference's uint32 words (the same bits as the port's int32 key)."""
+    if tree is None:
+        return
+    if isinstance(tree, ovl.LatencyModel):
+        for k, x in enumerate(tree):
+            yield from tree_leaves_with_path(x, f"{path}[<flat index {k}>]")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for name, x in zip(tree._fields, tree):
+            if isinstance(tree, Carry) and name == "key":
+                yield f"{path}.key", _host(x).view(np.uint32)
+            else:
+                yield from tree_leaves_with_path(x, f"{path}.{name}")
+    elif isinstance(tree, (list, tuple)):
+        for k, x in enumerate(tree):
+            yield from tree_leaves_with_path(x, f"{path}[{k}]")
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], f"{path}[{k!r}]")
+    else:
+        yield path, _host(tree)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def pytree_manifest(tree) -> list[dict]:
+    """Leaf schema of a tree in the reference's flatten order:
+    ``[{"path", "dtype", "shape"}, ...]`` — equal to
+    ``repro.cep.engine.pytree_manifest`` of the reference's tree of the
+    same config, so a snapshot written by either package validates in
+    the other."""
+    return [{"path": p, "dtype": a.dtype.str, "shape": list(a.shape)}
+            for p, a in tree_leaves_with_path(tree)]
+
+
+def carry_manifest(cfg: EngineConfig, seed: int = 0,
+                   lat_capacity: int = 4096) -> list[dict]:
+    """The manifest any durable snapshot of this config's carry must
+    match (``init_carry`` shapes are a pure function of the config; the
+    carry is built on the CPU, where it costs nothing)."""
+    return pytree_manifest(init_carry(cfg, seed=seed,
+                                      lat_capacity=lat_capacity,
+                                      device="cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -34,34 +34,38 @@ def pspice_utilities(stacked_tables, bin_sizes, active, pattern_id, state,
 def drop_lowest_utility(active: torch.Tensor, utilities: torch.Tensor,
                         rho: torch.Tensor) -> torch.Tensor:
     """Algorithm 2 oracle: clear the rho active PMs of lowest utility
-    (stable argsort rank < rho).  O(N log N)."""
-    order = torch.argsort(utilities, stable=True)
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(order.shape[0], device=order.device)
-    return active & ~(ranks < rho)
+    (stable argsort rank < rho).  O(N log N).  Over the last axis: a
+    leading lane axis gives each lane its own ρ."""
+    order = torch.argsort(utilities, dim=-1, stable=True)
+    iota = torch.arange(order.shape[-1], device=order.device)
+    ranks = torch.empty_like(order).scatter_(-1, order,
+                                             iota.expand_as(order))
+    return active & ~(ranks < rho[..., None])
 
 
 def bucket_edges(lo: torch.Tensor, hi: torch.Tensor,
                  nbins: int) -> torch.Tensor:
     """The (nbins+1,) bucket edges every histogram shares; top edge +inf
     (the last bucket owns the max).  The histogram kernel receives these
-    and never recomputes them."""
+    and never recomputes them.  Lane-stacked lo/hi (L,) give (L, nbins+1)
+    edges, each row that lane's."""
     k = torch.arange(nbins + 1, dtype=torch.float32, device=lo.device)
-    edges = lo + (hi - lo) * k / nbins
-    edges[-1] = float("inf")
+    edges = lo[..., None] + (hi - lo)[..., None] * k / nbins
+    edges[..., -1] = float("inf")
     return edges
 
 
 def _histogram_jnp(u: torch.Tensor, mask: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, nbins: int) -> torch.Tensor:
     """O(N) masked bucket counts: searchsorted against ``bucket_edges``
-    + one scatter-add (the reference's jnp histogram)."""
+    + one scatter-add (the reference's jnp histogram), per lane."""
     edges = bucket_edges(lo, hi, nbins)
-    v = torch.where(mask, u, lo)
+    v = torch.where(mask, u, lo[..., None])
     b = torch.clamp(torch.searchsorted(edges, v, right=True) - 1,
                     0, nbins - 1)
-    return torch.zeros((nbins,), dtype=torch.int32, device=u.device
-                       ).index_add_(0, b, mask.to(torch.int32))
+    return torch.zeros(u.shape[:-1] + (nbins,), dtype=torch.int32,
+                       device=u.device).scatter_add_(-1, b,
+                                                     mask.to(torch.int32))
 
 
 def threshold_drop_mask(active: torch.Tensor, utilities: torch.Tensor,
@@ -74,15 +78,19 @@ def threshold_drop_mask(active: torch.Tensor, utilities: torch.Tensor,
     below it and recurses into it; the remaining budget then breaks ties
     by slot index.  Exactly min(ρ, n_active) PMs are dropped.
 
-    ``hist_fn(u, lo, hi) -> (nbins,) int32`` may count the buckets (the
-    CUDA backend passes the histogram kernel); excluded entries come in
-    as NaN, which no bucket counts.
+    Works over the last axis: (n,) utilities with a scalar ρ, or (L, n)
+    with ρ (L,) — each lane its own select, equal to its one-lane call
+    bit for bit (the reference vmaps this function over lanes).
+
+    ``hist_fn(u, lo, hi) -> (..., nbins) int32`` may count the buckets
+    (the CUDA backend passes the histogram kernel); excluded entries come
+    in as NaN, which no bucket counts.
     """
     u = utilities.float()
-    n_active = active.sum().to(torch.int32)
+    n_active = active.sum(-1).to(torch.int32)
     need = torch.minimum(rho.to(torch.int32), n_active)
-    lo = torch.where(active, u, torch.full_like(u, _BIG)).min()
-    hi0 = torch.where(active, u, torch.full_like(u, -_BIG)).max()
+    lo = torch.where(active, u, torch.full_like(u, _BIG)).amin(-1)
+    hi0 = torch.where(active, u, torch.full_like(u, -_BIG)).amax(-1)
     hi = torch.where(hi0 > lo, hi0, lo + 1.0)
     mask = active
     drop = torch.zeros_like(active)
@@ -92,29 +100,30 @@ def threshold_drop_mask(active: torch.Tensor, utilities: torch.Tensor,
             hist = _histogram_jnp(u, mask, lo, hi, nbins)
         else:
             hist = hist_fn(torch.where(mask, u, nan), lo, hi)
-        cum = torch.cumsum(hist, 0, dtype=torch.int32)
-        kb = torch.clamp(torch.searchsorted(cum, need.reshape(1)),
+        cum = torch.cumsum(hist, -1, dtype=torch.int32)
+        kb = torch.clamp(torch.searchsorted(cum, need[..., None]),
                          0, nbins - 1)
         edges = bucket_edges(lo, hi, nbins)
-        edge = edges[kb][0]
-        upper = edges[kb + 1][0]
+        edge = torch.gather(edges, -1, kb)
+        upper = torch.gather(edges, -1, kb + 1)
         below = mask & (u < edge)
         drop = drop | below
-        need = torch.clamp_min(need - below.sum().to(torch.int32), 0)
+        need = torch.clamp_min(need - below.sum(-1).to(torch.int32), 0)
         mask = mask & ~below & (u < upper)
-        lo = edge
-        hi_next = torch.where(kb[0] == nbins - 1, hi, upper)
+        lo = edge[..., 0]
+        hi_next = torch.where(kb[..., 0] == nbins - 1, hi, upper[..., 0])
         hi = torch.where(hi_next > lo, hi_next, lo + 1.0)
-    idx_rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
-    drop = drop | (mask & (idx_rank < need))
+    idx_rank = torch.cumsum(mask, -1, dtype=torch.int32) - 1
+    drop = drop | (mask & (idx_rank < need[..., None]))
     return active & ~drop
 
 
 def random_drop(key: torch.Tensor, active: torch.Tensor,
                 rho: torch.Tensor) -> torch.Tensor:
     """PM-BL: drop a uniformly random ρ-subset of the active PMs — the
-    threshold select over iid uniform scores."""
-    scores = prng.uniform(key, active.shape)
+    threshold select over iid uniform scores (lane-stacked keys (L, 2)
+    draw each lane's own)."""
+    scores = prng.uniform(key, active.shape[-1:])
     return threshold_drop_mask(active, scores, rho)
 
 
@@ -123,7 +132,8 @@ def shed(kind: str, *, key: torch.Tensor, active: torch.Tensor,
          pattern_id=None, state=None, r_w=None,
          plan: str = "threshold") -> torch.Tensor:
     """Dispatch used by the engine: kind in {'pspice', 'pmbl'}, plan in
-    {'threshold', 'sort'}."""
+    {'threshold', 'sort'}; over the last axis, lanes leading (keys
+    (L, 2), ρ (L,))."""
     if kind == "pspice":
         u = pspice_utilities(stacked_tables, bin_sizes, active, pattern_id,
                              state, r_w)
@@ -132,7 +142,7 @@ def shed(kind: str, *, key: torch.Tensor, active: torch.Tensor,
         return threshold_drop_mask(active, u, rho)
     if kind == "pmbl":
         if plan == "sort":
-            scores = prng.uniform(key, active.shape)
+            scores = prng.uniform(key, active.shape[-1:])
             scores = torch.where(active, scores,
                                  torch.full_like(scores, float("inf")))
             return drop_lowest_utility(active, scores, rho)

@@ -479,6 +479,18 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
   return v;
 }
 
+// max / min that propagate a NaN, as the plain version's torch.maximum,
+// torch.clamp and amin/amax do (and the reference's jnp.maximum / clip /
+// min): fmaxf / fminf would drop it, so a poisoned clock (a NaN sim_time)
+// would heal inside the kernel and nowhere else.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
 // ---------------------------------------------------------------------------
 // The control phase's scalar arithmetic (the port's host path, op by op)
 // ---------------------------------------------------------------------------
@@ -492,17 +504,18 @@ __device__ float predict_latency(float a, float b, int kind, float n) {
 // f^{-1}: (l - b) / a for LINEAR; 16 Newton steps for NLOGN (log2f is not
 // numpy's log2 to the bit, so NLOGN decisions are held to equal ρ only).
 __device__ float invert_latency(float a, float b, int kind, float l) {
-  const float t = fmaxf(__fdiv_rn(__fsub_rn(l, b), a), 0.0f);
+  const float t = nan_max(__fdiv_rn(__fsub_rn(l, b), a), 0.0f);
   if (kind == LINEAR) return t;
   const float ln2 = 0.693147182464599609375f;   // float32 log(2)
-  float n = fmaxf(t, 1.0f);
+  float n = nan_max(t, 1.0f);
   for (int it = 0; it < 16; ++it) {
     const float lg = log2f(__fadd_rn(n, 1.0f));
     const float fn = __fsub_rn(__fmul_rn(n, lg), t);
     const float dfn =
         __fadd_rn(lg, __fdiv_rn(n, __fmul_rn(__fadd_rn(n, 1.0f), ln2)));
-    n = fminf(fmaxf(__fsub_rn(n, __fdiv_rn(fn, fmaxf(dfn, 1e-9f))), 0.0f),
-              1e12f);
+    n = nan_min(
+        nan_max(__fsub_rn(n, __fdiv_rn(fn, nan_max(dfn, 1e-9f))), 0.0f),
+        1e12f);
   }
   return n;
 }
@@ -526,7 +539,7 @@ __device__ void detect_overload(const BlockStepArgs& a, const LatencyFits& m,
   *shed = __fadd_rn(__fadd_rn(l_e, l_s), a.safety_buffer) > a.latency_bound;
   *rho = 0;
   if (!*shed || !want_rho) return;
-  const float l_p_new = fmaxf(
+  const float l_p_new = nan_max(
       __fsub_rn(__fsub_rn(__fsub_rn(a.latency_bound, l_q), l_s),
                 a.safety_buffer), 0.0f);
   const int n_keep = __float2int_rz(
@@ -910,7 +923,7 @@ block_step_kernel(const BlockStepArgs args) {
     if (warp == 0) {
       arr = arr_next;
       n_pm_i = n_pm_next;
-      const float sim1 = fmaxf(sim, arr);
+      const float sim1 = nan_max(sim, arr);
       const float l_q = __fsub_rn(sim1, arr);
       bool shed = false;
       int rho = 0;
@@ -950,7 +963,7 @@ block_step_kernel(const BlockStepArgs args) {
           did_shed = true;
         }
         // E-BL input drop and the inter-arrival EMA.
-        const float gap = fmaxf(__fsub_rn(arr, prev), 1e-9f);
+        const float gap = nan_max(__fsub_rn(arr, prev), 1e-9f);
         ema = __fmaf_rn(0.99f, ema, __fmul_rn(0.01f, gap));
         prev = arr;
         if (a.shedder == SHED_EBL) {
@@ -962,20 +975,22 @@ block_step_kernel(const BlockStepArgs args) {
                               __int2float_rn(n_pm_i));
           const float d_ff =
               __fdiv_rn(__fsub_rn(l_p_est, ema),
-                        fmaxf(__fsub_rn(l_p_est, a.c_ebl), 1e-9f));
+                        nan_max(__fsub_rn(l_p_est, a.c_ebl), 1e-9f));
           // d_ff + gain·l_q / LB as the reference's compiler folds it:
           // fma(l_q, gain · (1 / LB), d_ff), the constant in float32.
           const float bk_rate =
               __fmul_rn(a.ebl_backlog_gain, __frcp_rn(a.latency_bound));
           const float d_need =
-              fminf(fmaxf(__fmaf_rn(l_q, bk_rate, d_ff), 0.0f), 1.0f);
+              nan_min(nan_max(__fmaf_rn(l_q, bk_rate, d_ff), 0.0f), 1.0f);
           const float decayed = __fmul_rn(eblf, a.ebl_decay);
-          eblf = shed_e ? fmaxf(decayed, d_need) : decayed;
+          eblf = shed_e ? nan_max(decayed, d_need) : decayed;
           const float raw_eff =
               __fmaf_rn(a.one_minus_floor, ebl_raw[j], a.ebl_floor);
-          const float p_drop = fminf(
-              fmaxf(__fdiv_rn(__fmul_rn(raw_eff, eblf), fmaxf(mean_eff, 1e-9f)),
-                    0.0f), 1.0f);
+          const float p_drop = nan_min(
+              nan_max(__fdiv_rn(__fmul_rn(raw_eff, eblf),
+                                nan_max(mean_eff, 1e-9f)),
+                      0.0f),
+              1.0f);
           ev_drop = ev_rand[j] < p_drop;
           ebld = __fadd_rn(ebld, ev_drop ? 1.0f : 0.0f);
           did_shed = shed_e;
@@ -1021,14 +1036,14 @@ block_step_kernel(const BlockStepArgs args) {
         su[f] = u;
         ssel[f] = on ? 1 : 0;
         if (on) {
-          mn = fminf(mn, u);
-          mx = fmaxf(mx, u);
+          mn = nan_min(mn, u);
+          mx = nan_max(mx, u);
         }
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
-        mn = fminf(mn, __shfl_xor_sync(kFull, mn, o));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        mn = nan_min(mn, __shfl_xor_sync(kFull, mn, o));
+        mx = nan_max(mx, __shfl_xor_sync(kFull, mx, o));
       }
       if (lane == 0) {
         fred[warp] = mn;
@@ -1037,8 +1052,8 @@ block_step_kernel(const BlockStepArgs args) {
       __syncthreads();
       float lo = fred[0], hi0 = fred[32];
       for (int k = 1; k < nwarps; ++k) {
-        lo = fminf(lo, fred[k]);
-        hi0 = fmaxf(hi0, fred[32 + k]);
+        lo = nan_min(lo, fred[k]);
+        hi0 = nan_max(hi0, fred[32 + k]);
       }
       float hi = hi0 > lo ? hi0 : __fadd_rn(lo, 1.0f);
       int need = ev.need;

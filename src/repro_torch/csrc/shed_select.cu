@@ -28,6 +28,12 @@
 // never counted.
 // Bound: bytes — 4 B per utility in, nbins·4 B out; the edges sit in
 // shared memory.  At P·N of a few thousand, launch latency dominates.
+//
+// utility_histogram_lanes is the lane instance of _hist_kernel (the
+// reference vmaps it over tenant lanes in the ladder's PM trim,
+// src/repro/runtime/guard.py:116): the grid's y axis is the lane, each
+// lane its own (n,) utilities, (nbins+1,) edges and (nbins,) counts.  The
+// one-lane launch above is its L = 1 case.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,6 +66,10 @@ __global__ void utility_histogram_kernel(const float* __restrict__ u,
                                          const float* __restrict__ edges,
                                          int nbins, int32_t* __restrict__ out) {
   extern __shared__ unsigned char smem[];
+  const int64_t lane = blockIdx.y;
+  u += lane * n;
+  edges += lane * (nbins + 1);
+  out += lane * nbins;
   float* e = reinterpret_cast<float*>(smem);
   int32_t* counts = reinterpret_cast<int32_t*>(e + nbins + 1);
   for (int b = threadIdx.x; b <= nbins; b += blockDim.x) e[b] = edges[b];
@@ -97,20 +107,28 @@ extern "C" int utility_lookup_launch(const void* state, const void* r_w,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int utility_histogram_launch(const void* u, long long n,
-                                        const void* edges, int nbins,
-                                        void* out, void* stream) {
+extern "C" int utility_histogram_lanes_launch(const void* u, int lanes,
+                                              long long n, const void* edges,
+                                              int nbins, void* out,
+                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int32_t) * nbins, st);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(int32_t) * nbins * static_cast<size_t>(lanes), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
+  if (n > 0 && lanes > 0) {
     const int64_t want = (n + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(want < 264 ? want : 264);
+    const int per_lane = static_cast<int>(want < 264 ? want : 264);
     const size_t shmem = sizeof(float) * (nbins + 1) +
                          sizeof(int32_t) * nbins;
-    utility_histogram_kernel<<<blocks, kThreads, shmem, st>>>(
+    utility_histogram_kernel<<<dim3(per_lane, lanes), kThreads, shmem, st>>>(
         static_cast<const float*>(u), static_cast<int64_t>(n),
         static_cast<const float*>(edges), nbins, static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int utility_histogram_launch(const void* u, long long n,
+                                        const void* edges, int nbins,
+                                        void* out, void* stream) {
+  return utility_histogram_lanes_launch(u, 1, n, edges, nbins, out, stream);
 }

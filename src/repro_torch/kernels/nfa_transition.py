@@ -89,3 +89,15 @@ def nfa_advance(state: torch.Tensor, bind: torch.Tensor,
 
 
 nfa_advance.launches = 0
+
+
+def empty_kernels(count: int, device=None) -> None:
+    """Launch ``count`` empty kernels back to back on ``device``'s current
+    stream (CUDA only): what a launch costs the card with no work in it,
+    the floor the per-event kernels are held against."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"empty_kernels: needs a CUDA device, got {dev}")
+    _build.check(_build.load().empty_kernel_launch(
+        int(count), torch.cuda.current_stream(dev).cuda_stream),
+        "empty_kernel")

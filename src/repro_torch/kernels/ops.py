@@ -5,8 +5,9 @@ kernel directly: it calls ``advance_seq_multi`` / ``pm_utilities_multi``
 / ``shed_lowest_threshold`` below, which launch the hand-written CUDA
 kernels for CUDA tensors (their plain PyTorch versions for CPU tensors).
 The block backend calls ``kernels.block_step`` itself, and the
-runtime's lanes its lane instance ``block_step_lanes``; ``KERNELS``
-counts the launches of all five.
+runtime's lanes its lane instance ``block_step_lanes``; the ladder's PM
+trim over lanes counts with ``utility_histogram_lanes``.  ``KERNELS``
+counts the launches of all six.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.kernels.block_step import block_step, block_step_lanes
 from repro_torch.kernels.nfa_transition import nfa_advance
 from repro_torch.kernels.shed_select import (utility_histogram,
                                              utility_histogram_edges,
+                                             utility_histogram_lanes,
                                              utility_lookup)
 
 # Every kernel wrapper of the slice, by kernel name.
@@ -26,6 +28,7 @@ KERNELS = {
     "nfa_advance": nfa_advance,
     "utility_lookup": utility_lookup,
     "utility_histogram": utility_histogram_edges,
+    "utility_histogram_lanes": utility_histogram_lanes,
     "block_step": block_step,
     "block_step_lanes": block_step_lanes,
 }
@@ -51,7 +54,8 @@ def advance_seq_multi(state, bind, active, trans, ev_class, ev_bind,
 
 def pm_utilities_multi(state, r_w, active, tables, bin_sizes):
     """pSPICE utilities of the whole (P, N) store in one kernel launch,
-    each pattern against its own (B, M) table and bin size."""
+    each pattern against its own (B, M) table and bin size (L lanes'
+    stores go in as L·P pattern rows laid end to end)."""
     return utility_lookup(state, r_w, active, tables, bin_sizes)
 
 
@@ -59,7 +63,9 @@ def shed_lowest_threshold(active: torch.Tensor, utilities: torch.Tensor,
                           rho: torch.Tensor, *,
                           nbins: int = 128) -> torch.Tensor:
     """Histogram-threshold drop mask over flat (N,) utilities with the
-    histogram kernel as the bucket counter."""
+    histogram kernel as the bucket counter; over (L, N) lane-stacked
+    utilities with ρ (L,), its lane instance (one launch per level for
+    all lanes)."""
     hist = functools.partial(utility_histogram, nbins=nbins)
     return shd.threshold_drop_mask(active, utilities, rho, nbins=nbins,
                                    hist_fn=hist)

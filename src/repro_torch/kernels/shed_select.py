@@ -8,7 +8,13 @@ Port of ``repro.kernels.shed_select``:
      pattern;
   2. ``utility_histogram``: bucket counts of the utilities over the
      shared ``core.shedder.bucket_edges`` — the bucket counter of
-     ``threshold_drop_mask`` on the CUDA backend.
+     ``threshold_drop_mask`` on the CUDA backend;
+  3. ``utility_histogram_lanes``: its lane instance (the reference vmaps
+     the histogram kernel over tenant lanes in the degradation ladder's
+     PM trim): (L, n) utilities against (L, nbins+1) per-lane edges,
+     one launch whose grid's y axis is the lane.  A trim over L lanes is
+     one lookup launch over the L·P pattern rows laid end to end plus one
+     lane-instance launch per refinement level.
 
 Each wrapper launches its CUDA kernel (``csrc/shed_select.cu``) for CUDA
 tensors and computes its plain PyTorch version for CPU tensors.
@@ -51,6 +57,15 @@ def utility_histogram_plain(u: torch.Tensor,
     lo, hi = edges[:-1], edges[1:]
     inside = (u[:, None] >= lo[None, :]) & (u[:, None] < hi[None, :])
     return inside.sum(dim=0, dtype=torch.int32)
+
+
+def utility_histogram_lanes_plain(u: torch.Tensor,
+                                  edges: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the lane instance: (L, nbins) int32, row
+    l the counts of u[l] over edges[l]."""
+    lo, hi = edges[:, None, :-1], edges[:, None, 1:]
+    inside = (u[:, :, None] >= lo) & (u[:, :, None] < hi)
+    return inside.sum(dim=1, dtype=torch.int32)
 
 
 def _check(fn, name, t, dtype, shape, dev):
@@ -121,9 +136,49 @@ def utility_histogram_edges(u: torch.Tensor,
 def utility_histogram(u: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                       *, nbins: int = 64) -> torch.Tensor:
     """Bucket counts of u within [lo, hi) over ``bucket_edges(lo, hi,
-    nbins)`` — the ``hist_fn`` signature of ``threshold_drop_mask``."""
-    return utility_histogram_edges(u, bucket_edges(lo, hi, nbins))
+    nbins)`` — the ``hist_fn`` signature of ``threshold_drop_mask``;
+    lane-stacked (L, n) utilities with (L,) lo/hi go through the lane
+    instance when L > 1, one lane (the per-event engine's shed) through
+    the one-lane kernel."""
+    edges = bucket_edges(lo, hi, nbins)
+    if u.dim() == 1:
+        return utility_histogram_edges(u, edges)
+    if u.shape[0] == 1:
+        return utility_histogram_edges(u[0], edges[0])[None]
+    return utility_histogram_lanes(u, edges)
+
+
+def utility_histogram_lanes(u: torch.Tensor,
+                            edges: torch.Tensor) -> torch.Tensor:
+    """Bucket counts per lane: (L, n) float32 utilities over (L, nbins+1)
+    per-lane edges → (L, nbins) int32.  Row l equals
+    ``utility_histogram_edges(u[l], edges[l])`` bit for bit."""
+    dev = u.device
+    if dev.type == "cpu":
+        return utility_histogram_lanes_plain(u, edges)
+    if dev.type != "cuda":
+        raise ValueError(f"utility_histogram_lanes: unsupported device {dev}")
+    L, n = u.shape
+    nbins = edges.shape[-1] - 1
+    if not 1 <= nbins <= 4096:
+        raise ValueError(f"utility_histogram_lanes: nbins must be in "
+                         f"[1, 4096]: {nbins}")
+    if not 1 <= L <= 65535:
+        raise ValueError(f"utility_histogram_lanes: lanes must be in "
+                         f"[1, 65535]: {L}")
+    _check("utility_histogram_lanes", "u", u, torch.float32, (L, n), dev)
+    _check("utility_histogram_lanes", "edges", edges, torch.float32,
+           (L, nbins + 1), dev)
+    out = torch.empty((L, nbins), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    _build.check(lib.utility_histogram_lanes_launch(
+        u.data_ptr(), L, n, edges.data_ptr(), nbins, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "utility_histogram_lanes")
+    utility_histogram_lanes.launches += 1
+    return out
 
 
 utility_lookup.launches = 0
 utility_histogram_edges.launches = 0
+utility_histogram_lanes.launches = 0

@@ -73,35 +73,41 @@ def _counts(n: int, device):
 
 
 def _hash_flat(key, n: int, partitionable: bool):
-    """(bits1, bits2) of the n-counter hash in the given layout."""
+    """(bits1, bits2) of the n-counter hash in the given layout; a key of
+    shape (..., 2) (lane-stacked keys) hashes each key's counters, giving
+    (..., n) words."""
     k = _u32(key)
+    k1, k2 = k[..., 0:1], k[..., 1:2]
     if partitionable:
         hi, lo = _counts(n, key.device)
-        return threefry2x32(k[0], k[1], hi, lo)
+        return threefry2x32(k1, k2, hi, lo)
     # Original layout: counters 0..n-1 (odd n padded with one 0), split
     # into halves that hash pairwise; the results concatenate back.
     cnt = torch.arange(n, dtype=torch.int64, device=key.device)
     if n % 2:
         cnt = torch.cat([cnt, cnt.new_zeros(1)])
     h = cnt.shape[0] // 2
-    b0, b1 = threefry2x32(k[0], k[1], cnt[:h], cnt[h:])
-    return torch.cat([b0, b1])[:n], None
+    b0, b1 = threefry2x32(k1, k2, cnt[:h], cnt[h:])
+    return torch.cat([b0, b1], dim=-1)[..., :n], None
 
 
 def split(key: torch.Tensor, num: int = 2,
           partitionable: bool | None = None) -> torch.Tensor:
-    """``jax.random.split(key, num)`` → (num, 2) int32 keys."""
+    """``jax.random.split(key, num)`` → (num, 2) int32 keys; for
+    lane-stacked keys (..., 2) each lane's split, (..., num, 2)."""
     part = PARTITIONABLE if partitionable is None else partitionable
+    lead = tuple(key.shape[:-1])
     if part:
         b1, b2 = _hash_flat(key, num, True)
-        return _as_i32(torch.stack([b1, b2], dim=1))
+        return _as_i32(torch.stack([b1, b2], dim=-1))
     bits, _ = _hash_flat(key, 2 * num, False)
-    return _as_i32(bits.reshape(num, 2))
+    return _as_i32(bits.reshape(lead + (num, 2)))
 
 
 def random_bits(key: torch.Tensor, n: int,
                 partitionable: bool | None = None) -> torch.Tensor:
-    """The n 32-bit words ``jax.random.bits`` draws (int64, uint32 values)."""
+    """The n 32-bit words ``jax.random.bits`` draws (int64, uint32 values);
+    (..., n) for lane-stacked keys."""
     part = PARTITIONABLE if partitionable is None else partitionable
     b1, b2 = _hash_flat(key, n, part)
     return b1 ^ b2 if part else b1
@@ -109,7 +115,8 @@ def random_bits(key: torch.Tensor, n: int,
 
 def uniform(key: torch.Tensor, shape, partitionable: bool | None = None
             ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in [0, 1), float32."""
+    """``jax.random.uniform(key, shape)`` in [0, 1), float32; for
+    lane-stacked keys (..., 2) each lane's draw, (...) + shape."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for d in shape:
@@ -117,4 +124,5 @@ def uniform(key: torch.Tensor, shape, partitionable: bool | None = None
     bits = random_bits(key, n, partitionable)
     fbits = _as_i32((bits >> 9) | 0x3F800000)
     floats = fbits.view(torch.float32) - 1.0
-    return torch.clamp_min(floats, 0.0).reshape(shape)
+    return torch.clamp_min(floats, 0.0).reshape(tuple(key.shape[:-1]) +
+                                                shape)

@@ -95,6 +95,22 @@ class ChunkBuffer:
     def next_start(self) -> int:
         return self._next_start
 
+    def buffered(self) -> EventBatch | None:
+        """A copy of the sub-chunk remainder (None when empty) — what a
+        durable snapshot must carry so a recovered buffer resumes
+        mid-chunk."""
+        if self._pending is None:
+            return None
+        return slice_events(self._pending, 0,
+                            num_events(self._pending, self.axis), self.axis)
+
+    def restore(self, pending: EventBatch | None, next_start: int) -> None:
+        """Reset buffer state from a snapshot (repro_torch.runtime.persist);
+        the buffer keeps a copy of ``pending``."""
+        self._pending = None if pending is None else slice_events(
+            pending, 0, num_events(pending, self.axis), self.axis)
+        self._next_start = int(next_start)
+
     def push(self, events: EventBatch) -> list[tuple[int, EventBatch]]:
         start, region, n_chunks = self.push_region(events)
         if n_chunks == 0:

@@ -122,7 +122,7 @@ class ChunkStats:
 @dataclasses.dataclass
 class RuntimeEvent:
     """A discrete runtime occurrence (ladder transition, guard violation,
-    guard restore, admission backpressure); this slice records none."""
+    guard restore, admission backpressure)."""
     kind: str
     chunk_index: int
     detail: dict = dataclasses.field(default_factory=dict)

@@ -494,3 +494,122 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# The ladder's PM trim over lanes and SIGKILL recovery on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L", [1, 3, 128])
+def test_histogram_lanes_kernel_equals_plain(cuda, L):
+    """The lane instance of the histogram kernel (grid y = lane) equals
+    its plain version and, row by row, the one-lane kernel; NaN counts
+    nowhere; one launch per call."""
+    rng = np.random.default_rng(L)
+    n, nbins = 768, 128
+    u = rng.random((L, n)).astype(np.float32)
+    u[rng.random((L, n)) < 0.3] = np.nan
+    u = torch.from_numpy(u).to(cuda)
+    lo = torch.nan_to_num(u, nan=2.0).amin(1)
+    hi = torch.nan_to_num(u, nan=-1.0).amax(1)
+    edges = shd.bucket_edges(lo, torch.where(hi > lo, hi, lo + 1.0), nbins)
+    before = ks.utility_histogram_lanes.launches
+    got = ks.utility_histogram_lanes(u, edges)
+    assert ks.utility_histogram_lanes.launches == before + 1
+    want = ks.utility_histogram_lanes_plain(u, edges)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in (0, L - 1):
+        assert torch.equal(got[k], ks.utility_histogram_edges(u[k],
+                                                              edges[k]))
+
+
+@pytest.mark.parametrize("shedder", ["pspice", "pmbl"])
+def test_trim_store_lanes_on_card_equals_cpu(cuda, shedder):
+    """The ladder's trim over 16 lanes on the card (one lookup launch over
+    the L·P pattern rows, one lane-histogram launch per level) equals the
+    plain versions on the CPU, bit for bit."""
+    from repro_torch.runtime import guard as GD
+    sc = streams.get_scenario("stock")
+    cp = pat.compile_patterns(sc.specs())
+    cfg = runner.default_config(cp, max_pms=256, shedder=shedder,
+                                backend="cuda_block", **COST)
+    P, N, M, L = cfg.num_patterns, cfg.max_pms, cfg.max_states, 16
+    rng = np.random.default_rng(5)
+    tables = torch.from_numpy(rng.random((L, P, 9, M)).astype(np.float32))
+    model = engine.make_model(cp, cfg, device="cpu")
+    mL = engine.tree_map(lambda x: x[None].expand(
+        (L,) + tuple(x.shape)).contiguous(), model)._replace(
+            ut_tables=tables, ut_bins=torch.full((L, P), 60,
+                                                 dtype=torch.int32))
+    cL = engine.tree_map(lambda *xs: torch.stack(xs), *[
+        engine.init_carry(cfg, seed=k, device="cpu") for k in range(L)])
+    cL = cL._replace(pms=cL.pms._replace(
+        active=torch.from_numpy(rng.random((L, P, N)) < 0.5),
+        state=torch.from_numpy(rng.integers(1, M, (L, P, N)).astype(
+            np.int32)),
+        open_idx=torch.from_numpy(rng.integers(0, 2000, (L, P, N)).astype(
+            np.int32))))
+    want = GD.trim_store_lanes(cfg, mL, cL, 2500, 0.3)
+    to = lambda t: engine.tree_map(lambda x: x.to(cuda), t)  # noqa: E731
+    kops.reset_launch_counts()
+    got = GD.trim_store_lanes(cfg, to(mL), to(cL), 2500, 0.3)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    if shedder == "pspice":
+        assert counts["utility_lookup"] == 1
+        assert counts["utility_histogram_lanes"] == 3
+    for a, b in zip(convert.tree_to_numpy(want).values(),
+                    convert.tree_to_numpy(got).values()):
+        if isinstance(a, dict):
+            for x, y in zip(a.values(), b.values()):
+                np.testing.assert_array_equal(x, y)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_sigkill_recovery_on_card(cuda, tmp_path):
+    """A child on the card (cuda_block) is SIGKILLed mid-chunk, relaunched,
+    recovers from its snapshot + WAL and ends with the report of the
+    uninterrupted run on the card, bit for bit."""
+    from repro_torch.runtime import supervisor as SV
+    spec = {"backend": "cuda_block", "shedder": "pspice", "n": 4096,
+            "push": 512, "chunk": 256, "max_pms": 256, "block_events": 32,
+            "rate_mult": 1.0, "refresh_every": 4, "snapshot_every": 4,
+            "min_observations": 64.0}
+    clean = SV.run_service(spec)     # builds the kernels before any child
+    res = SV.Supervisor(str(tmp_path)).run(spec, kill="chunk:6")
+    assert res["killed"] and res["recovered"]
+    rep = res["report"]
+    for k in ("carry_sha", "counters", "matches", "events_processed"):
+        assert rep[k] == clean[k], k
+
+
+@pytest.mark.parametrize("poison", ["sim_time", "ema_gap", "tables"])
+def test_block_kernel_equals_plain_on_poisoned_state(cuda, poison):
+    """A NaN clock, EMA or utility table (what the fault injector's
+    lane_poison / table_corrupt plant) flows through the kernel as through
+    its plain version: NaN where the plain version has NaN, every other
+    bit equal — the kernel's max/min propagate NaN as torch's do."""
+    cfg, model, carry, blk, i0 = _block_case("stock", 256, "pspice", cuda)
+    nan = torch.tensor(float("nan"), device=cuda)
+    if poison == "tables":
+        model = model._replace(ut_tables=torch.where(
+            torch.rand_like(model.ut_tables) < 0.3, nan, model.ut_tables))
+    else:
+        carry = carry._replace(**{poison: nan.clone()})
+    W = cfg.block_events
+    got = {}
+    for label, fn in (("kernel", kblock.block_step),
+                      ("plain", kblock.block_step_plain)):
+        c = convert.carry_from_numpy(convert.tree_to_numpy(carry), cuda)
+        rows = kblock.new_rows(cfg, W, cuda)
+        c, rows, status = fn(cfg, model, c, blk, i0, 0, W, rows)
+        torch.cuda.synchronize()
+        got[label] = convert.tree_to_numpy((c, rows, status))
+    a, b = dict(_flat(got["kernel"])), dict(_flat(got["plain"]))
+    bad = [k for k in a if not np.array_equal(a[k], b[k], equal_nan=(
+        a[k].dtype.kind == "f"))]
+    assert not bad, bad
+    if poison != "tables":
+        assert np.isnan(b[f"[0].{poison}"]), "the poison must stay in"

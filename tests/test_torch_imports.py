@@ -51,11 +51,16 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert res["n"] >= 20 and res["bad"] == [], res
 
 
-# The streaming runtime's modules, likewise.
+# The streaming runtime's modules, likewise (its resilience layer and
+# durable persistence among them).
 RUNTIME_MODULES = ("repro_torch.runtime", "repro_torch.runtime.chunker",
                    "repro_torch.runtime.lanes", "repro_torch.runtime.refresh",
                    "repro_torch.runtime.service",
-                   "repro_torch.runtime.telemetry")
+                   "repro_torch.runtime.telemetry",
+                   "repro_torch.runtime.faults", "repro_torch.runtime.guard",
+                   "repro_torch.runtime.ingest",
+                   "repro_torch.runtime.persist",
+                   "repro_torch.runtime.supervisor")
 
 
 def test_quality_modules_are_scanned():

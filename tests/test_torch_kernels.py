@@ -151,8 +151,9 @@ def test_cpu_wrappers_never_count_launches():
     kops.reset_launch_counts()
     test_nfa_advance_equals_pallas(*SHAPES[0])
     assert kops.launch_counts() == {"nfa_advance": 0, "utility_lookup": 0,
-                                    "utility_histogram": 0, "block_step": 0,
-                                    "block_step_lanes": 0}
+                                    "utility_histogram": 0,
+                                    "utility_histogram_lanes": 0,
+                                    "block_step": 0, "block_step_lanes": 0}
 
 
 def test_tiling_matches_reference():

@@ -615,13 +615,31 @@ def test_refresh_requires_gather_stats_and_specs():
 
 
 # ---------------------------------------------------------------------------
-# What this slice refuses, and devices
+# What the runtime refuses, and devices
 # ---------------------------------------------------------------------------
+
+_BAD_KNOB = {
+    "ingest": ("IngestConfig", dict(max_queue_events=8, high_watermark=16)),
+    "ladder": ("LadderConfig", dict(trim_frac=1.5)),
+    "guard": ("GuardConfig", dict(check_every_chunks=0)),
+    "persist": ("PersistConfig", dict(dir="")),
+}
+
 
 @pytest.mark.parametrize("knob", ["ingest", "ladder", "guard", "persist"])
 def test_resilience_and_persistence_knobs_are_refused(knob):
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        TRT.RuntimeConfig(**{knob: object()})
+    """An invalid setting of each resilience/persistence knob is refused
+    with the reference's message; a ladder that needs admission without
+    an ingest front-end is refused by RuntimeConfig, as in the
+    reference."""
+    cls, kw = _BAD_KNOB[knob]
+    with pytest.raises(ValueError) as want:
+        getattr(RT, cls)(**kw)
+    with pytest.raises(ValueError) as got:
+        getattr(TRT, cls)(**kw)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="ingest front-end"):
+        TRT.RuntimeConfig(ladder=TRT.LadderConfig())
 
 
 def test_mesh_is_refused():

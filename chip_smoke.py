@@ -84,6 +84,24 @@ Phases (one line each; any failure raises and exits non-zero):
            recovered in process, every lane equal to the uninterrupted
            run, with snapshot bytes, write and recovery times, WAL
            records replayed and WAL append time per push
+  dist     the scale-out (repro_torch.dist): a world of one rank over
+           NCCL in process — stock's run_experiment with the PM store
+           sharded on "cuda_block" (pspice, pmbl, ebl) and "cuda"
+           (pspice) equal to the serial "cuda_block" run in FN, fires
+           and compliance,
+           and the runtime phase's 128 stock lanes through
+           MultiTenantRuntime(mesh) equal to the meshless runtime lane by
+           lane; then gloo worlds of ranks sharing the one card: soccer's
+           8 patterns in 2 and 4 pattern shards (block kernel, every
+           shedder; the per-event kernels at 2 ranks for pspice), every
+           rank's global carry and StepOut equal to merge_shards_plain
+           over the per-slice runs in this process (pspice's on the
+           kernels' plain versions on the CPU), and 8 soccer lanes
+           on a (data 2, model 2) mesh through MultiTenantRuntime(mesh)
+           equal to the plain emulation chunk by chunk (the first chunk
+           also on the plain versions on the CPU); walls, launches
+           per rank and collective ms and bytes (ranks sharing one card
+           measure no scale-out)
   profile  torch.profiler over one stock pspice run per path: device
            busy time by kernel and the device's idle share; on the block
            path also the host's time per launch (the enqueue alone)
@@ -119,7 +137,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "kernels", "parity", "main", "quality", "runtime",
-          "resilience", "recovery", "profile", "model")
+          "resilience", "recovery", "dist", "profile", "model")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -1693,6 +1711,441 @@ def recovery_lanes(torch, work) -> None:
         "lane equals the uninterrupted run in every carry leaf")
 
 
+# ---------------------------------------------------------------------------
+# The scale-out: pattern and lane shards over torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT = 120.0       # seconds: each spawned world, each collective
+DIST_STOCK = 30000         # stock events of the world of one
+DIST_SOCCER = 12000        # soccer events (30 % warm-up, the rest run)
+DIST_LANES = 8             # soccer lanes on the (data 2, model 2) mesh
+DIST_PLAIN_CHUNKS = 1      # lane chunks also run on the plain versions
+DIST_BACKEND = "nccl"      # the world of one's (its rank owns the card)
+
+
+def tree_digests(tree, path: str = "") -> dict:
+    """{leaf path: sha256 of its bytes, dtype and shape} of a tree of
+    tensors (NamedTuples), read to the host."""
+    import hashlib
+    if hasattr(tree, "_fields"):
+        out = {}
+        for k, v in zip(tree._fields, tree):
+            out.update(tree_digests(v, f"{path}.{k}"))
+        return out
+    a = tree.detach().cpu().contiguous().numpy()
+    h = hashlib.sha256(a.tobytes())
+    h.update(f"{a.dtype}{a.shape}".encode())
+    return {path: h.hexdigest()}
+
+
+def phase_dist(torch, np) -> dict:
+    """repro_torch.dist on the card: a world of one rank over NCCL in
+    this process (stock's run_experiment with the PM store sharded, and
+    the 128-lane runtime on a one-rank mesh), then gloo worlds of ranks
+    that share the one card: soccer's eight patterns in 2 and 4 pattern
+    shards, and 8 soccer lanes on a (data 2, model 2) mesh.  Ranks on one
+    card share its SMs: the walls here measure no scale-out.  Returns
+    each kernel's launches in the phase's driven runs (every rank's)."""
+    from repro_torch.kernels import _build
+
+    _build.load()          # the ranks open the library this build made
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    dist_world_of_one(torch, np, add)
+    dist_soccer_shards(torch, np, add)
+    dist_soccer_lanes(torch, np, add)
+    return {k: {"dist_launches": v} for k, v in launches.items() if v}
+
+
+def dist_world_of_one(torch, np, add) -> None:
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+    from repro_torch import dist as D
+    from repro_torch import runtime as RT
+    from repro_torch.cep import runner
+    from repro_torch.data import streams
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device(DEV)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)          # the world's one rank, its card
+    store = tempfile.mkdtemp(prefix="smoke-store-", dir=ROOT / "build")
+    mesh = D.init_mesh((1,), ("data",), backend=DIST_BACKEND,
+                       init_method=f"file://{store}/store", rank=0,
+                       timeout=DIST_TIMEOUT)
+    try:
+        sc = streams.get_scenario("stock")
+        raw = sc.raw(n=DIST_STOCK)
+        kw = dict(rate_multiplier=1.2, max_pms=sc.max_pms,
+                  bin_size=sc.bin_size, latency_bound=sc.latency_bound,
+                  seed=sc.seed, block_events=W_BLOCK, device=DEV,
+                  **paper_cost())
+        # One serial run, on the block path: the main and quality phases
+        # hold "cuda" to "cuda_block" in FN, fires and compliance exactly.
+        serial = runner.run_experiment(sc.specs(), raw,
+                                       shedders=("pspice", "pmbl", "ebl"),
+                                       backend="cuda_block", **kw)
+        for backend, shedders in (("cuda_block", ("pspice", "pmbl", "ebl")),
+                                  ("cuda", ("pspice",))):
+            sync(torch, dev)
+            kops.reset_launch_counts()
+            D.stats.reset()
+            t0 = time.perf_counter()
+            par = runner.run_experiment(sc.specs(), raw, shedders=shedders,
+                                        backend=backend, pattern_parallel=True,
+                                        mesh=mesh, **kw)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            counts = kops.launch_counts()
+            add(counts)
+            for k in (k for k, b in KERNEL_PATH.items() if b == backend):
+                if counts[k] <= 0:
+                    raise AssertionError(f"dist: kernel {k} never launched "
+                                         f"on the sharded {backend} path")
+            for sh in shedders:
+                a, b = serial[sh], par[sh]
+                want = (a.fn, a.fn_match, a.result.shed_calls,
+                        a.lb_compliance)
+                got = (b.fn, b.fn_match, b.result.shed_calls,
+                       b.lb_compliance)
+                if got != want:
+                    raise AssertionError(f"dist stock {backend}/{sh}: "
+                                         f"pattern-parallel {got} != serial "
+                                         f"{want}")
+            log("dist", f"{DIST_BACKEND} world of one, stock {DIST_STOCK} "
+                f"events x1.2, "
+                f"{backend}: run_experiment(pattern_parallel=True) == the "
+                "serial cuda_block run in FN, fires and compliance for "
+                f"{', '.join(shedders)}; "
+                f"wall {wall:.2f} s; launches {counts}; collectives "
+                f"{D.stats.calls} calls, {D.stats.bytes_out} B, "
+                f"{D.stats.seconds * 1e3:.2f} ms")
+
+        specs, cfg, model, evs, _ = stock_setup(torch, dev, "cuda_block",
+                                                RT_EVENTS, lanes=RT_LANES,
+                                                rates=(1.2, 1.4))
+        mL, evL = RT.broadcast_model(model, RT_LANES), RT.stack(evs)
+        rt = RT.RuntimeConfig(chunk_size=RT_CHUNK)
+        total = RT_LANES * RT_EVENTS
+        walls, runs = {}, {}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            mt = RT.MultiTenantRuntime(cfg, mL, RT_LANES, rt=rt, mesh=m,
+                                       device=dev)
+            sync(torch, dev)
+            kops.reset_launch_counts()
+            D.stats.reset()
+            t0 = time.perf_counter()
+            mt.push(evL, flush=True)
+            sync(torch, dev)
+            walls[name] = time.perf_counter() - t0
+            runs[name] = (mt, kops.launch_counts(), D.stats.seconds,
+                          D.stats.bytes_out, D.stats.calls)
+        add(runs["mesh"][1])
+        if runs["mesh"][1]["block_step_lanes"] <= 0:
+            raise AssertionError("dist: the lane grid never launched on the "
+                                 "one-rank mesh")
+        a, b = runs["meshless"][0].carry, runs["mesh"][0].carry
+        if not all(same(torch, x, y) for x, y in zip(carry_leaves(a),
+                                                      carry_leaves(b))):
+            raise AssertionError("dist: the 128 lanes on a one-rank mesh "
+                                 "differ from the meshless runtime")
+        _, counts, secs, nbytes, calls = runs["mesh"]
+        log("dist", f"{DIST_BACKEND} world of one, {RT_LANES} stock lanes x "
+            f"{RT_EVENTS} events: MultiTenantRuntime(mesh) == meshless in "
+            f"every lane's carry, bitwise; mesh {walls['mesh']:.4f} s = "
+            f"{total / walls['mesh']:.1f} events/s (chunk at a time, "
+            f"{counts['block_step_lanes']} lane-grid launches; collectives "
+            f"{calls} calls, {nbytes} B, {secs * 1e3:.2f} ms), meshless "
+            f"{walls['meshless']:.4f} s = {total / walls['meshless']:.1f} "
+            "events/s")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def soccer_setup(torch, dev, lanes: int = 1, rates=(1.2, 1.2),
+                 emit: bool = True, shedder: str = "none"):
+    """Soccer (8 x Q3, N = 256, W = 32) with the paper's costs: the model
+    built on lane 0's first 30 % (run_experiment's warm-up), lane l's
+    stream (seed 7 + l, the rest of its events) at max_rate x (rates[0]
+    + (rates[1] - rates[0]) l / (lanes - 1)).  Returns (cfg, model,
+    [events per lane])."""
+    from repro_torch.cep import engine as eng, patterns as pat, runner
+    from repro_torch.data import streams
+
+    sc = streams.get_scenario("soccer")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(
+        cp, max_pms=sc.max_pms, latency_bound=sc.latency_bound,
+        backend="cuda_block", block_events=W_BLOCK, emit_matches=emit,
+        shedder=shedder, **paper_cost())
+    n_warm = int(DIST_SOCCER * 0.3)
+    raws = [sc.raw(n=DIST_SOCCER, seed=sc.seed + k) for k in range(lanes)]
+    warm = streams.classify(specs, _cut(raws[0], 0, n_warm), rate=1.0,
+                            seed=sc.seed, device=dev)
+    built = runner.build_model(specs, cfg, warm, bin_size=sc.bin_size,
+                               seed=sc.seed, device=dev)
+    mult = [rates[0] + (rates[1] - rates[0]) * k / max(lanes - 1, 1)
+            for k in range(lanes)]
+    evs = [streams.classify(specs, _cut(raws[k], n_warm, DIST_SOCCER),
+                            rate=built.max_rate * mult[k], seed=sc.seed + k,
+                            device=dev) for k in range(lanes)]
+    model = eng.make_model(
+        cp, cfg, ut_tables=built.ut_stacked, ut_bins=built.ut_bins,
+        f_model=built.f_model, g_model=built.g_model,
+        ebl_raw_mean=float(evs[0].ebl_raw.mean()), device=dev)
+    return cfg, model, evs
+
+
+def dist_rank_shards(device, shape, cases, model, events, carry) -> dict:
+    """One rank of a soccer pattern-shard world: each (name, cfg) case
+    through run_engine_sharded on the card; per case the digests of the
+    global carry and StepOut, the wall, this rank's launches and its
+    collectives."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch.cep import convert
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)          # every rank on the one card
+    mesh = D.init_mesh(shape, ("data",))
+    model = convert.model_from_numpy(model, dev)
+    events = convert.events_from_numpy(events, dev)
+    carry = convert.carry_from_numpy(carry, dev)
+    out = {}
+    for name, cfg in cases:
+        sync(torch, dev)
+        kops.reset_launch_counts()
+        D.stats.reset()
+        t0 = time.perf_counter()
+        c, o = D.run_engine_sharded(cfg, model, events, carry, mesh=mesh,
+                                    device=dev)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            digests={**tree_digests(c, "carry"), **tree_digests(o, "outs")},
+            wall=wall, launches=kops.launch_counts(),
+            coll_ms=D.stats.seconds * 1e3, coll_bytes=D.stats.bytes_out,
+            coll_calls=D.stats.calls, shed_calls=float(c.shed_calls),
+            ebl_dropped=float(c.ebl_dropped),
+            completions=float(c.complex_count.sum()))
+    return out
+
+
+def dist_soccer_shards(torch, np, add) -> None:
+    import dataclasses
+
+    from repro_torch import dist as D
+    from repro_torch.cep import convert, engine as eng
+
+    dev = torch.device(DEV)
+    t0 = time.perf_counter()
+    cfg, model, (events,) = soccer_setup(torch, dev)
+    carry = eng.init_carry(cfg, seed=7, device=dev)
+    npy = [convert.tree_to_numpy(x) for x in (model, events, carry)]
+    n_run = events.ev_class.shape[0]
+    cpu = [f(x, "cpu") for f, x in zip((convert.model_from_numpy,
+                                        convert.events_from_numpy,
+                                        convert.carry_from_numpy), npy)]
+    log("dist", f"soccer: 8 x Q3, N={cfg.max_pms}, {n_run} events at 1.2 x "
+        f"max_rate, match tiles on; set-up {time.perf_counter() - t0:.2f} s")
+    for n in (2, 4):
+        cases = [(f"cuda_block/{sh}", dataclasses.replace(
+            cfg, shedder=sh)) for sh in ("none", "pspice", "pmbl", "ebl")]
+        if n == 2:
+            cases.append(("cuda/pspice", dataclasses.replace(
+                cfg, shedder="pspice", backend="cuda")))
+        t0 = time.perf_counter()
+        ranks = D.spawn(dist_rank_shards, n, args=(DEV, (n,), cases, *npy),
+                        timeout=DIST_TIMEOUT, workdir=str(ROOT / "build"))
+        world_wall = time.perf_counter() - t0
+        # The kernels' plain versions at this path's shapes: pspice's
+        # per-slice runs on "torch" on the CPU, merged in process; every
+        # rank's sharded pspice run (the block kernel, and at 2 ranks the
+        # per-event kernels) is held to it.  The other shedders' ranks
+        # are held to the per-slice runs of the same kernels.
+        t0 = time.perf_counter()
+        c, o = D.run_engine_shards_plain(
+            dataclasses.replace(cfg, shedder="pspice", backend="torch"),
+            *cpu, mesh=D.abstract_mesh((n,), ("data",)), device="cpu")
+        plain = {**tree_digests(c, "carry"), **tree_digests(o, "outs")}
+        cpu_wall = time.perf_counter() - t0
+        for name, ccfg in cases:
+            if name.endswith("/pspice"):
+                want, plain_wall = plain, cpu_wall
+                how = "the kernels' plain versions (\"torch\" on the CPU)"
+            else:                         # the same kernels, in process
+                t0 = time.perf_counter()
+                c, o = D.run_engine_shards_plain(
+                    ccfg, model, events, carry,
+                    mesh=D.abstract_mesh((n,), ("data",)), device=dev)
+                sync(torch, dev)
+                plain_wall = time.perf_counter() - t0
+                want = {**tree_digests(c, "carry"),
+                        **tree_digests(o, "outs")}
+                how = "the same kernels in process"
+            for r, res in enumerate(ranks):
+                bad = [k for k in want if res[name]["digests"].get(k)
+                       != want[k]]
+                if bad:
+                    raise AssertionError(f"dist soccer {n} ranks {name}: "
+                                         f"rank {r} != merge_shards_plain "
+                                         f"over {how} in {bad}")
+                add(res[name]["launches"])
+            if ccfg.backend == "cuda_block":
+                per = -(-n_run // W_BLOCK)
+                got = [res[name]["launches"]["block_step"] for res in ranks]
+                if got != [per] * n:
+                    raise AssertionError(f"dist soccer {name}: block "
+                                         f"launches per rank {got}, "
+                                         f"expected {per} each")
+            r0 = ranks[0][name]
+            log("dist", f"soccer {n} ranks (gloo, one card) {name}: every "
+                "rank's global carry and StepOut == merge_shards_plain over "
+                f"the per-slice runs on {how}, bitwise; fires "
+                f"{r0['shed_calls']:g}, E-BL drops "
+                f"{r0['ebl_dropped']:g}, completions {r0['completions']:g}; "
+                "wall per rank " + ", ".join(
+                    f"{res[name]['wall']:.3f}" for res in ranks) +
+                " s; block launches per rank " + ", ".join(
+                    str(res[name]["launches"]["block_step"])
+                    for res in ranks) + "; kernel launches rank 0 "
+                f"{r0['launches']}; collectives per rank {r0['coll_calls']} "
+                f"calls, {r0['coll_bytes']} B, " + ", ".join(
+                    f"{res[name]['coll_ms']:.2f}" for res in ranks) +
+                f" ms; per-slice runs {plain_wall:.3f} s")
+        log("dist", f"soccer {n} ranks: world wall {world_wall:.2f} s (rank "
+            "start included)")
+
+
+def dist_rank_lanes(device, shape, names, cfg, model, events, chunk,
+                    seed) -> dict:
+    """One rank of the lanes x patterns world: MultiTenantRuntime on the
+    mesh, fed a chunk at a time; the carry's digests after every chunk,
+    the wall, this rank's launches and its collectives."""
+    import torch
+    from repro_torch import dist as D
+    from repro_torch import runtime as RT
+    from repro_torch.cep import convert
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)          # every rank on the one card
+    mesh = D.init_mesh(shape, names)
+    model = convert.model_from_numpy(model, dev)
+    events = convert.events_from_numpy(events, dev)
+    n = events.ev_class.shape[1]
+    mt = RT.MultiTenantRuntime(cfg, model, events.ev_class.shape[0],
+                               rt=RT.RuntimeConfig(chunk_size=chunk),
+                               seed=seed, mesh=mesh, device=dev)
+    sync(torch, dev)
+    kops.reset_launch_counts()
+    D.stats.reset()
+    digests, wall = [], 0.0
+    for s in range(0, n, chunk):
+        t0 = time.perf_counter()
+        mt.push(RT.slice_events(events, s, min(s + chunk, n), 1),
+                flush=s + chunk >= n)
+        sync(torch, dev)
+        wall += time.perf_counter() - t0
+        digests.append(tree_digests(mt.carry, "carry"))
+    return dict(digests=digests, wall=wall, launches=kops.launch_counts(),
+                coll_ms=D.stats.seconds * 1e3, coll_bytes=D.stats.bytes_out,
+                coll_calls=D.stats.calls, chunks=len(mt.telemetry.rows()))
+
+
+def dist_soccer_lanes(torch, np, add) -> None:
+    import dataclasses
+
+    from repro_torch import dist as D
+    from repro_torch import runtime as RT
+    from repro_torch.cep import convert
+
+    dev = torch.device(DEV)
+    shape, names, seed = (2, 2), ("data", "model"), 7
+    cfg, model, evs = soccer_setup(torch, dev, lanes=DIST_LANES,
+                                   rates=(1.2, 1.4), emit=False,
+                                   shedder="pspice")
+    mL, evL = RT.broadcast_model(model, DIST_LANES), RT.stack(evs)
+    n = evL.ev_class.shape[1]
+    mesh = D.abstract_mesh(shape, names)
+
+    t0 = time.perf_counter()
+    ranks = D.spawn(dist_rank_lanes, 4, args=(
+        DEV, shape, names, cfg, convert.tree_to_numpy(mL),
+        convert.tree_to_numpy(evL), RT_CHUNK, seed),
+        timeout=DIST_TIMEOUT, workdir=str(ROOT / "build"))
+    world_wall = time.perf_counter() - t0
+    carry = RT.init_lane_carries(cfg, DIST_LANES, seed=seed, device=dev)
+    t0 = time.perf_counter()
+    want = []
+    for s in range(0, n, RT_CHUNK):
+        piece = RT.slice_events(evL, s, min(s + RT_CHUNK, n), 1)
+        carry, _ = D.run_chunk_lanes_plain(cfg, mL, piece, carry, s,
+                                           mesh=mesh, device=dev)
+        want.append(tree_digests(carry, "carry"))
+    sync(torch, dev)
+    plain_wall = time.perf_counter() - t0
+    # The kernels' plain versions: the first DIST_PLAIN_CHUNKS chunks on
+    # "torch" on the CPU, merged in process after every chunk.
+    t0 = time.perf_counter()
+    cpu_cfg = dataclasses.replace(cfg, backend="torch")
+    mC, evC = (f(convert.tree_to_numpy(x), "cpu") for f, x in (
+        (convert.model_from_numpy, mL), (convert.events_from_numpy, evL)))
+    carry = RT.init_lane_carries(cfg, DIST_LANES, seed=seed, device="cpu")
+    for k, s in enumerate(range(0, DIST_PLAIN_CHUNKS * RT_CHUNK, RT_CHUNK)):
+        piece = RT.slice_events(evC, s, min(s + RT_CHUNK, n), 1)
+        carry, _ = D.run_chunk_lanes_plain(cpu_cfg, mC, piece, carry, s,
+                                           mesh=mesh, device="cpu")
+        exp = tree_digests(carry, "carry")
+        for r, res in enumerate(ranks):
+            bad = [key for key in exp if res["digests"][k].get(key)
+                   != exp[key]]
+            if bad:
+                raise AssertionError(f"dist lanes: rank {r} chunk {k} != the "
+                                     "plain versions' emulation on the CPU "
+                                     f"in {bad}")
+    cpu_wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        if len(res["digests"]) != len(want):
+            raise AssertionError(f"dist lanes: rank {r} ran "
+                                 f"{len(res['digests'])} chunks, the "
+                                 f"emulation {len(want)}")
+        for k, (got, exp) in enumerate(zip(res["digests"], want)):
+            bad = [key for key in exp if got.get(key) != exp[key]]
+            if bad:
+                raise AssertionError(f"dist lanes: rank {r} chunk {k} != "
+                                     f"the plain emulation in {bad}")
+        if res["launches"]["block_step_lanes"] <= 0:
+            raise AssertionError(f"dist lanes: rank {r} never launched the "
+                                 "lane grid")
+        add(res["launches"])
+    log("dist", f"{DIST_LANES} soccer lanes x {n} events on a (data 2, "
+        f"model 2) mesh, gloo, 4 ranks on one card, chunk {RT_CHUNK}: "
+        f"MultiTenantRuntime(mesh) == the plain emulation (per-chunk merge)"
+        f" after each of {len(want)} chunks, every rank, bitwise; wall per "
+        "rank " + ", ".join(f"{res['wall']:.3f}" for res in ranks) +
+        " s; lane-grid launches per rank " + ", ".join(
+            str(res["launches"]["block_step_lanes"]) for res in ranks) +
+        f"; collectives per rank {ranks[0]['coll_calls']} calls, "
+        f"{ranks[0]['coll_bytes']} B, " + ", ".join(
+            f"{res['coll_ms']:.2f}" for res in ranks) + " ms; emulation "
+        f"in process {plain_wall:.3f} s; the first {DIST_PLAIN_CHUNKS} "
+        "chunk(s) == the emulation on \"torch\" on the CPU (the kernels' "
+        f"plain versions), bitwise, {cpu_wall:.2f} s; world wall "
+        f"{world_wall:.2f} s")
+
+
 def block_original_layout(torch) -> float:
     """The block kernel in jax's original threefry layout (the committed
     quality results'), bit for bit against its plain version on the
@@ -2904,6 +3357,7 @@ def main() -> int:
                       ("runtime", lambda: phase_runtime(torch, np)),
                       ("resilience", lambda: phase_resilience(torch, np)),
                       ("recovery", lambda: phase_recovery(torch, np)),
+                      ("dist", lambda: phase_dist(torch, np)),
                       ("profile", lambda: [phase_profile(torch, b) for b in
                                            ("cuda", "cuda_block")]),
                       ("model", lambda: phase_model(torch, np))):
@@ -2915,7 +3369,7 @@ def main() -> int:
         log(phase, f"phase done in {timings[phase]:.2f} s")
         if phase == "kernels":
             record = out
-        if phase in ("main", "runtime", "resilience", "model"):
+        if phase in ("main", "runtime", "resilience", "dist", "model"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -2942,7 +3396,7 @@ def main() -> int:
                       "lanes_ms", "lanes_plain_ms", "lanes_bound_ms",
                       "lanes_device_us",
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
-                      "trim_lane_by_lane_launches"):
+                      "trim_lane_by_lane_launches", "dist_launches"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

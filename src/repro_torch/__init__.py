@@ -12,7 +12,7 @@ when no card is present; the CPU is used only when a caller passes
 """
 import importlib
 
-__all__ = ["cep", "configs", "core", "data", "device", "eval", "fp",
+__all__ = ["cep", "configs", "core", "data", "device", "dist", "eval", "fp",
            "kernels", "launch", "models", "prng", "runtime", "serving"]
 
 

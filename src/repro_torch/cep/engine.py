@@ -807,7 +807,7 @@ def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
         sheds = []
         for k, h in enumerate(hs):
             arr[k] = arrival[k, j]
-            h.sim_time = max(h.sim_time, arr[k])
+            h.sim_time = fp.nan_max32(h.sim_time, arr[k])
             l_q[k] = F32(h.sim_time - arr[k])
             if pm_shedder:
                 shed, rho, _ = ovl.detect_overload_host(
@@ -855,7 +855,8 @@ def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
             d_need = min(max(fp.fma32(l_q[k], bk_rate, d_ff), F32(0.0)),
                          one)
             decayed = F32(h.ebl_frac * F32(cfg.ebl_decay))
-            h.ebl_frac = max(decayed, d_need) if shed else decayed
+            h.ebl_frac = fp.nan_max32(decayed, d_need) if shed \
+                else decayed
             raw_eff = fp.fma32(F32(1.0 - cfg.ebl_floor), ebl_raw[k, j],
                                cfg.ebl_floor)
             p_drop = min(max(F32(F32(raw_eff * h.ebl_frac) /

@@ -125,12 +125,11 @@ def run_with_shedder(specs: Sequence[pat.PatternSpec],
                      cfg: eng.EngineConfig, built: BuiltModel,
                      raw: streams.RawStream, rate: float, shedder: str,
                      seed: int = 0, pattern_parallel: bool = False,
-                     device=None) -> eng.RunResult:
-    if pattern_parallel:
-        raise NotImplementedError(
-            "pattern_parallel=True (the PM store sharded across devices) "
-            "belongs to the port's later 'dist' slice; this slice runs one "
-            "device")
+                     mesh=None, device=None) -> eng.RunResult:
+    """One overload run of ``shedder`` at ``rate``.  With
+    ``pattern_parallel`` the PM store is sharded on its pattern axis over
+    ``mesh`` (default: the world of ranks, one rank without a process
+    group; ``repro_torch.dist.run_engine_sharded``)."""
     dev = resolve_device(device)
     cp = pat.compile_patterns(specs)
     run_cfg = dataclasses.replace(cfg, gather_stats=False, shedder=shedder)
@@ -142,7 +141,15 @@ def run_with_shedder(specs: Sequence[pat.PatternSpec],
                                events.ebl_raw.cpu().numpy().mean()),
                            device=dev)
     carry = eng.init_carry(run_cfg, seed=seed, device=dev)
-    carry, outs = eng.run_engine(run_cfg, model, events, carry, device=dev)
+    if pattern_parallel:
+        # Pattern-parallel scale-out: shard the (P, N) PM store over the
+        # mesh (repro_torch.dist.sharding.pm_specs).
+        from repro_torch.dist import sharding as SH
+        carry, outs = SH.run_engine_sharded(run_cfg, model, events, carry,
+                                            mesh=mesh, device=dev)
+    else:
+        carry, outs = eng.run_engine(run_cfg, model, events, carry,
+                                     device=dev)
     return eng.summarize(carry, outs)
 
 
@@ -185,17 +192,16 @@ def run_experiment(specs: Sequence[pat.PatternSpec], raw: streams.RawStream,
                    bin_size: int = 64, max_pms: int = 2048,
                    use_remaining_time: bool = True,
                    seed: int = 0, pattern_parallel: bool = False,
-                   emit_matches: bool = True, device=None,
+                   emit_matches: bool = True, mesh=None, device=None,
                    **cfg_kw) -> dict[str, ExperimentResult]:
     """The full paper methodology on one stream; per-shedder results with
     count-based ``fn`` and (``emit_matches``) match-set recall/fn_match.
     ``cfg_kw`` reaches ``default_config``: e.g. ``backend="cuda_block"``
     with ``block_events=32`` runs the warm-up, the ground truth and every
-    shedder run through the block kernel."""
-    if pattern_parallel:
-        raise NotImplementedError(
-            "pattern_parallel=True belongs to the port's later 'dist' "
-            "slice; this slice runs one device")
+    shedder run through the block kernel.  With ``pattern_parallel`` the
+    ground truth and every shedder run shard the PM store over ``mesh``
+    (see ``run_with_shedder``); the warm-up and the model build stay
+    unsharded."""
     dev = resolve_device(device)
     cp = pat.compile_patterns(specs)
     cfg = default_config(cp, latency_bound=latency_bound, max_pms=max_pms,
@@ -216,23 +222,27 @@ def run_experiment(specs: Sequence[pat.PatternSpec], raw: streams.RawStream,
                         device=dev)
     return run_shedders(specs, cfg, built, raw_run, shedders,
                         rate=built.max_rate * rate_multiplier, seed=seed,
-                        latency_bound=latency_bound, device=dev)
+                        latency_bound=latency_bound,
+                        pattern_parallel=pattern_parallel, mesh=mesh,
+                        device=dev)
 
 
 def run_shedders(specs, cfg: eng.EngineConfig, built: BuiltModel,
                  raw_run: streams.RawStream, shedders: Sequence[str],
                  rate: float, seed: int, latency_bound: float,
+                 pattern_parallel: bool = False, mesh=None,
                  device=None) -> dict[str, ExperimentResult]:
     """Steps 3-4 of ``run_experiment`` on a given model: the ground-truth
     run, then one run per shedder, each compared with it."""
+    par = dict(pattern_parallel=pattern_parallel, mesh=mesh, device=device)
     gt = run_with_shedder(specs, cfg, built, raw_run, rate=rate,
-                          shedder=eng.SHED_NONE, seed=seed, device=device)
+                          shedder=eng.SHED_NONE, seed=seed, **par)
     weights = np.array([s.weight for s in specs])
     out = {}
     for sh in shedders:
         t0 = time.perf_counter()
         res = run_with_shedder(specs, cfg, built, raw_run, rate=rate,
-                               shedder=sh, seed=seed, device=device)
+                               shedder=sh, seed=seed, **par)
         seconds = time.perf_counter() - t0     # summarize synced the device
         er = ExperimentResult(
             shedder=sh, fn=res.false_negatives(gt, weights),

@@ -1,0 +1,254 @@
+"""Device meshes and rank worlds for the port's scale-out.
+
+Counterpart of ``jax.make_mesh`` and ``repro.dist.compat.use_mesh``.  The
+reference is one process that drives many devices (``shard_map``); the
+port is SPMD: one process per rank, every rank handed the same global
+inputs.  A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
+named dims ("data", "model"); :class:`AbstractMesh` is a mesh's shape and
+names with no process group behind it — the counterpart of jax's
+``AbstractMesh`` for the specs, and the world of one rank when
+``torch.distributed`` is not initialized.
+
+Backends: NCCL where each rank has a GPU of its own; gloo on the CPU and
+for several ranks that share one GPU (NCCL refuses two ranks on one
+device).  ``repro.dist.compat`` (jax API shims) has no counterpart.
+
+:func:`spawn` runs a function on a world of rank processes (the tests'
+and ``chip_smoke.py``'s worlds): ``torch.multiprocessing``'s spawn
+context, a ``file://`` store, a timeout on ``init_process_group`` and on
+the whole world, and the traceback of a rank that failed re-raised in
+the parent after every rank has been stopped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import math
+import os
+import pathlib
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape and dim names, with no process group behind it."""
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return math.prod(self.shape) if mesh_dim is None \
+            else self.shape[mesh_dim]
+
+
+def abstract_mesh(shape, names) -> AbstractMesh:
+    shape, names = tuple(int(s) for s in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         "length")
+    return AbstractMesh(shape, names)
+
+
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, (AbstractMesh, DeviceMesh)):
+        raise TypeError(f"expected a DeviceMesh or an AbstractMesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def dim_names(mesh) -> tuple[str, ...]:
+    _check_mesh(mesh)
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def _dim(mesh, name: str) -> int:
+    names = dim_names(mesh)
+    if name not in names:
+        raise ValueError(f"mesh has no dim {name!r}; its dims: {names}")
+    return names.index(name)
+
+
+def axis_size(mesh, name: str) -> int:
+    """Ranks along the mesh dim ``name``."""
+    return int(mesh.size(_dim(mesh, name)))
+
+
+def axis_rank(mesh, name: str) -> int:
+    """This rank's coordinate along ``name`` (0 on an AbstractMesh)."""
+    d = _dim(mesh, name)
+    return 0 if isinstance(mesh, AbstractMesh) else \
+        int(mesh.get_local_rank(d))
+
+
+def axis_group(mesh, name: str):
+    """The process group of this rank's ranks along ``name`` (None on an
+    AbstractMesh, which runs only where that dim has one rank)."""
+    d = _dim(mesh, name)
+    if isinstance(mesh, AbstractMesh):
+        if mesh.shape[d] != 1:
+            raise ValueError(f"an AbstractMesh has no process group: dim "
+                             f"{name!r} of {mesh.shape} cannot run")
+        return None
+    return mesh.get_group(d)
+
+
+def mesh_rank(mesh) -> int:
+    """This process's rank in the world (0 on an AbstractMesh)."""
+    _check_mesh(mesh)
+    if isinstance(mesh, AbstractMesh) or not dist.is_initialized():
+        return 0
+    return dist.get_rank()
+
+
+def _device_type() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def init_mesh(shape, names, backend: str | None = None,
+              init_method: str | None = None, rank: int | None = None,
+              timeout: float = 60.0):
+    """The process group (unless one exists) and a ``DeviceMesh`` of
+    ``shape`` with dims ``names`` over it: the counterpart of
+    ``jax.make_mesh``.  Every rank calls it with the same shape.
+
+    Without a process group, one is made: ``backend`` (default NCCL with
+    a card, gloo without), ``rank`` (default ``$RANK`` or 0) of
+    ``prod(shape)`` ranks, from ``init_method`` (a ``file://`` or
+    ``tcp://`` address every rank is given; a world of one may omit it)
+    with a ``timeout`` in seconds on its collectives."""
+    shape, names = abstract_mesh(shape, names).shape, tuple(names)
+    world = math.prod(shape)
+    if not dist.is_initialized():
+        if backend is None:
+            backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if rank is None:
+            rank = int(os.environ.get("RANK", 0))
+        if init_method is None:
+            if world != 1:
+                raise ValueError("a world of several ranks needs the "
+                                 "address of its store (init_method)")
+            init_method = "file://" + os.path.join(
+                tempfile.mkdtemp(prefix="repro-torch-store-"), "store")
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout))
+    if dist.get_world_size() != world:
+        raise ValueError(f"a mesh of {shape} needs {world} ranks; the "
+                         f"process group has {dist.get_world_size()}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(_device_type(), shape, mesh_dim_names=names)
+
+
+_world_meshes: dict = {}
+
+
+def world_mesh(axis: str):
+    """The default mesh: every rank of the world on one dim ``axis`` —
+    with no process group, the world of one rank (an AbstractMesh)."""
+    if not dist.is_initialized():
+        return AbstractMesh((1,), (axis,))
+    key = (axis, id(dist.group.WORLD), dist.get_world_size())
+    if key not in _world_meshes:
+        from torch.distributed.device_mesh import init_device_mesh
+        _world_meshes[key] = init_device_mesh(
+            _device_type(), (dist.get_world_size(),), mesh_dim_names=(axis,))
+    return _world_meshes[key]
+
+
+# ---------------------------------------------------------------------------
+# Rank worlds
+# ---------------------------------------------------------------------------
+
+class RankError(RuntimeError):
+    """A rank of a spawned world failed; the message holds its
+    traceback."""
+
+
+def _rank_main(fn, rank: int, world: int, backend: str, tmp: str,
+               timeout: float, args: tuple) -> None:
+    torch.set_num_threads(1)
+    d = pathlib.Path(tmp)
+    try:
+        dist.init_process_group(
+            backend, init_method=f"file://{d / 'store'}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+        out = fn(*args)
+    except BaseException:
+        # Written before the group goes down: the peers' failures follow.
+        part = d / f"error-{rank}.part"
+        part.write_text(f"rank {rank} of {world}:\n{traceback.format_exc()}")
+        os.replace(part, d / f"error-{rank}.txt")
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    part = d / f"result-{rank}.part"
+    part.write_bytes(pickle.dumps(out))
+    os.replace(part, d / f"result-{rank}.pkl")
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    for p in procs:
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+
+
+def spawn(fn, world: int, args: tuple = (), backend: str = "gloo",
+          timeout: float = 60.0, workdir: str | None = None) -> list:
+    """``fn(*args)`` on ``world`` rank processes; returns each rank's
+    result, in rank order.
+
+    Each rank joins a ``backend`` process group through a ``file://``
+    store in a fresh directory (under ``workdir``, default the system's
+    temporary directory) with ``timeout`` seconds on its collectives,
+    runs ``fn`` and leaves the group.  ``fn`` and ``args`` must pickle
+    (a module-level function).  When a rank raises, every rank is stopped
+    and its traceback raised here as :class:`RankError`; when the world
+    has not finished within ``timeout`` seconds, every rank is stopped and
+    ``TimeoutError`` raised.  A rank that builds nothing: callers on the
+    card load the kernel library (``kernels._build.load``) before
+    spawning, so the ranks only open it."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro-torch-world-",
+                                        dir=workdir))
+    procs = [ctx.Process(target=_rank_main, args=(
+        fn, r, world, backend, str(tmp), timeout, tuple(args)))
+        for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while any(p.is_alive() for p in procs) \
+                and not any(tmp.glob("error-*.txt")) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        _stop(procs)
+        errors = list(tmp.glob("error-*.txt"))
+        if errors:
+            # The first failure is the cause: its peers fail after it.
+            first = min(errors, key=lambda p: p.stat().st_mtime_ns)
+            raise RankError(first.read_text())
+        if late:
+            raise TimeoutError(f"ranks {late} of a world of {world} did not "
+                               f"finish within {timeout} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RankError(f"rank exit codes {codes}")
+        return [pickle.loads((tmp / f"result-{r}.pkl").read_bytes())
+                for r in range(world)]
+    finally:
+        _stop(procs)
+        shutil.rmtree(tmp, ignore_errors=True)

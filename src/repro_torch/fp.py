@@ -36,6 +36,17 @@ def fma32(a, b, c) -> np.float32:
     return F32(s)
 
 
+def nan_max32(a, b) -> np.float32:
+    """``jnp.maximum`` of two host float32 scalars: a NaN in either
+    argument is the result (Python's ``max`` drops one in its second)."""
+    a, b = F32(a), F32(b)
+    if np.isnan(a):
+        return a
+    if np.isnan(b):
+        return b
+    return max(a, b)
+
+
 def to_int32_host(x) -> int:
     """:func:`to_int32` for a host scalar."""
     x = float(x)

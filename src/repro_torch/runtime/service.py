@@ -35,6 +35,7 @@ import torch
 from repro_torch.cep import engine as eng
 from repro_torch.cep import patterns as pat
 from repro_torch.device import check_on, resolve_device
+from repro_torch.dist import mesh as DM
 from repro_torch.runtime import chunker, faults as FT, guard as GD, \
     ingest as IG, lanes as LN, persist as PS, refresh as RF, \
     telemetry as TM
@@ -285,6 +286,9 @@ class StreamRuntime:
 
     def _trim_call(self, i: int, frac: float) -> eng.Carry:
         return GD.trim_store(self.cfg, self.model, self.carry, i, frac)
+
+    def _group_limit(self) -> int:
+        return self.rt.effective_group_chunks()
 
     # -- resilience layer (DESIGN.md §12) -----------------------------------
     def _init_resilience(self) -> None:
@@ -710,7 +714,7 @@ class StreamRuntime:
         stats: list[TM.ChunkStats] = []
         cs, j = self.rt.chunk_size, 0
         while j < n_chunks:
-            g = min(n_chunks - j, self.rt.effective_group_chunks(),
+            g = min(n_chunks - j, self._group_limit(),
                     self._chunks_to_boundary())
             # push_region owns the region, so groups are views of it.
             piece = eng.EventBatch(*(x.narrow(self._axis, j * cs, g * cs)
@@ -793,8 +797,15 @@ class MultiTenantRuntime(StreamRuntime):
     launch of the block kernel's lane instance, one CTA per lane.  With
     resilience on, admission runs one queue per lane, the guard checks
     and restores per lane, and the ladder's PM trim runs over all lanes
-    at once (``guard.trim_store_lanes``).  ``mesh`` (lanes spread over
-    devices) is not ported yet.
+    at once (``guard.trim_store_lanes``).
+
+    On a mesh (``repro_torch.dist``; every rank constructs the runtime
+    and pushes the same global events) each chunk runs through
+    ``dist.run_chunk_lanes_sharded``: lanes over the mesh's "data" dim,
+    each lane's patterns over "model", merged after every chunk, so every
+    rank holds the global carry and ingest, guard, ladder and refresh run
+    on it unchanged, chunk at a time.  With more than one rank only rank
+    0 writes snapshots and the WAL, and recovery from disk is refused.
     """
 
     _axis = 1
@@ -804,14 +815,35 @@ class MultiTenantRuntime(StreamRuntime):
                  specs: Sequence[pat.PatternSpec] | None = None,
                  carry: eng.Carry | None = None, seed: int = 0, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiTenantRuntime(mesh=...) spreads lanes over devices: "
-                "it belongs to the port's 'dist' slice (ROADMAP.md queue "
-                "1, item 4), not ported yet")
         self.num_lanes = num_lanes
+        self.mesh = mesh
+        rank = 0 if mesh is None else DM.mesh_rank(mesh)  # checks the mesh
+        self._ranks = 1 if mesh is None else mesh.size()
+        if rank != 0 and rt is not None and rt.persist is not None:
+            # Rank 0 alone writes snapshots and the WAL.
+            rt = dataclasses.replace(rt, persist=None)
         super().__init__(cfg, model, rt=rt, specs=specs, carry=carry,
                          seed=seed, device=device)
+
+    def _run(self, chunk: eng.EventBatch, start: int):
+        if self.mesh is None:
+            return super()._run(chunk, start)
+        from repro_torch.dist import sharding as SH
+        return SH.run_chunk_lanes_sharded(
+            self.cfg, self.model, chunk, self.carry,
+            eng.wrap_event_index(start), mesh=self.mesh, device=self.device)
+
+    def _group_limit(self) -> int:
+        # The sharded path has no grouped runner: chunk at a time.
+        return 1 if self.mesh is not None else super()._group_limit()
+
+    def recover_from_disk(self) -> dict:
+        if self._ranks > 1:
+            raise NotImplementedError(
+                "recovery of a runtime on a mesh of several ranks is not "
+                "ported (ROADMAP.md queue 1, item 4b): only rank 0 writes "
+                "snapshots and the WAL")
+        return super().recover_from_disk()
 
     def _init_carry(self, seed: int) -> eng.Carry:
         return LN.init_lane_carries(self.cfg, self.num_lanes, seed=seed,

@@ -1,0 +1,227 @@
+"""Rank functions of the port's dist tests (tests/test_torch_dist*.py).
+
+Each runs on every rank of a world that ``repro_torch.dist.spawn``
+starts, so this module imports torch and the port only (the ranks never
+load jax).  Inputs arrive as the NumPy trees of
+``repro_torch.cep.convert.tree_to_numpy``; results leave as flat
+``{path: array}`` dicts (``flat``), which the tests compare with the
+reference's, stored the same way.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from repro_torch.cep import convert
+from repro_torch.cep import engine as eng
+
+
+HERE = pathlib.Path(__file__).resolve().parent
+WORLD_TIMEOUT = 120.0      # seconds: every world and reference subprocess
+
+
+def reference_process(part: str, out: pathlib.Path) -> subprocess.Popen:
+    """The reference's truth in a subprocess (its device count must be
+    forced before jax starts)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(HERE.parent / "src"),
+                                           str(HERE)]))
+    return subprocess.Popen(
+        [sys.executable, str(HERE / "_dist_reference.py"), part, str(out)],
+        env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def reference_result(proc: subprocess.Popen, out: pathlib.Path) -> dict:
+    log, _ = proc.communicate(timeout=WORLD_TIMEOUT)
+    assert proc.returncode == 0, log[-4000:]
+    with np.load(out) as z:
+        return dict(z)
+
+
+def flat(tree, path=""):
+    """``{path: array}`` of a tree's leaves; a uint32 key as its int32
+    bits."""
+    out = {}
+
+    def walk(x, p):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{p}.{k}")
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                walk(v, f"{p}[{i}]")
+        else:
+            a = np.asarray(x)
+            out[p] = a.view(np.int32) if a.dtype == np.uint32 else a
+    walk(convert.tree_to_numpy(tree), path)
+    return out
+
+
+def result(carry, outs) -> dict:
+    return {**flat(carry, "carry"), **flat(outs, "outs")}
+
+
+def port_inputs(model, events, carry, device="cpu"):
+    return (convert.model_from_numpy(model, device),
+            convert.events_from_numpy(events, device),
+            convert.carry_from_numpy(carry, device))
+
+
+def world(jobs, device="cpu"):
+    """Every job on this rank: ``jobs`` holds (kind, mesh shape, dim
+    names, cases) with kind "engine", "lanes" or "runtime"; returns
+    {case name: result} of them all."""
+    from repro_torch import dist as D
+    out = {}
+    for kind, shape, names, cases in jobs:
+        mesh = D.init_mesh(shape, names)
+        out.update(KINDS[kind](mesh, cases, device))
+    return out
+
+
+def engine_cases(mesh, cases, device):
+    """``run_engine_sharded`` of each (name, port cfg, axis, model,
+    events, carry) with NumPy inputs."""
+    from repro_torch import dist as D
+    return {name: result(*D.run_engine_sharded(
+        cfg, *port_inputs(*inputs, device), mesh=mesh, axis=axis,
+        device=device)) for name, cfg, axis, *inputs in cases}
+
+
+def lanes_cases(mesh, cases, device):
+    """``run_chunk_lanes_sharded`` chunk by chunk: each case is (name,
+    port cfg, chunk, model, events, carry) with lane-stacked NumPy
+    inputs; every chunk's result is kept."""
+    from repro_torch import dist as D
+    out = {}
+    for name, cfg, chunk, *inputs in cases:
+        model, events, carry = port_inputs(*inputs, device)
+        n = events.ev_class.shape[1]
+        for k, s in enumerate(range(0, n, chunk)):
+            piece = eng.EventBatch(*(x[:, s:s + chunk] for x in events))
+            carry, o = D.run_chunk_lanes_sharded(cfg, model, piece, carry,
+                                                 s, mesh=mesh, device=device)
+            out[f"{name}/chunk{k}"] = result(carry, o)
+    return out
+
+
+def runtime_cases(mesh, cases, device):
+    """``MultiTenantRuntime(mesh)``: each case is (name, port cfg, chunk,
+    push, seed, model, events) with lane-stacked NumPy inputs; the events
+    are pushed ``push`` at a time, then flushed.  Keeps the final carry
+    and the per-chunk telemetry (``TELEMETRY``)."""
+    from repro_torch import runtime as RT
+    out = {}
+    for name, cfg, chunk, push, seed, model, events in cases:
+        model = convert.model_from_numpy(model, device)
+        events = convert.events_from_numpy(events, device)
+        srt = RT.MultiTenantRuntime(
+            cfg, model, events.ev_class.shape[0],
+            rt=RT.RuntimeConfig(chunk_size=chunk), seed=seed, mesh=mesh,
+            device=device)
+        n = events.ev_class.shape[1]
+        for s in range(0, n, push):
+            srt.push(RT.slice_events(events, s, min(s + push, n), 1))
+        srt.flush()
+        rows = srt.telemetry.rows()
+        out[name] = {**flat(srt.carry, "carry"),
+                     **{f"telemetry.{k}": np.array([r[k] for r in rows])
+                        for k in TELEMETRY}}
+    return out
+
+
+def persist_cases(mesh, cases, device):
+    """A mesh runtime with persistence: each case is (name, port cfg,
+    chunk, directory, model, events); one chunk runs, then the writer
+    takes a snapshot.  Keeps whether this rank writes (its runtime's
+    config keeps persistence) and what it wrote."""
+    from repro_torch import runtime as RT
+    out = {}
+    for name, cfg, chunk, d, model, events in cases:
+        model = convert.model_from_numpy(model, device)
+        events = convert.events_from_numpy(events, device)
+        srt = RT.MultiTenantRuntime(
+            cfg, model, events.ev_class.shape[0],
+            rt=RT.RuntimeConfig(chunk_size=chunk,
+                                persist=RT.PersistConfig(dir=d)),
+            mesh=mesh, device=device)
+        srt.push(RT.slice_events(events, 0, chunk, 1))
+        writer = srt.persist is not None
+        out[name] = {"writer": writer, "rt_persist": srt.rt.persist is not None,
+                     "snapshot": srt.snapshot_now() if writer else None}
+    return out
+
+
+def chunk_runtime_cases(mesh, cases, device):
+    """``MultiTenantRuntime(mesh)`` fed one chunk a push: each case is
+    (name, port cfg, chunk, seed, model, events) with lane-stacked NumPy
+    inputs.  Keeps the carry (a NumPy tree) before the first chunk and
+    after every chunk, and the telemetry's per-chunk counter deltas."""
+    from repro_torch import runtime as RT
+    out = {}
+    for name, cfg, chunk, seed, model, events in cases:
+        model = convert.model_from_numpy(model, device)
+        events = convert.events_from_numpy(events, device)
+        srt = RT.MultiTenantRuntime(
+            cfg, model, events.ev_class.shape[0],
+            rt=RT.RuntimeConfig(chunk_size=chunk), seed=seed, mesh=mesh,
+            device=device)
+        carries = [convert.tree_to_numpy(srt.carry)]
+        for s in range(0, events.ev_class.shape[1], chunk):
+            srt.push(RT.slice_events(events, s, s + chunk, 1))
+            carries.append(convert.tree_to_numpy(srt.carry))
+        rows = srt.telemetry.rows()
+        out[name] = {"carries": carries, "telemetry": {
+            k: np.array([r[k] for r in rows]) for k in COUNTERS}}
+    return out
+
+
+KINDS = {"engine": engine_cases, "lanes": lanes_cases,
+         "runtime": runtime_cases, "persist": persist_cases,
+         "chunks": chunk_runtime_cases}
+
+# The carry's float32 counters, which the merge sums over pattern shards.
+COUNTERS = ("pms_shed", "shed_calls", "overflow", "ebl_dropped")
+
+
+# Per-chunk telemetry the mesh runtime must report as the reference's.
+TELEMETRY = ("n_events", "l_e_max", "n_pm_end", "shed_events",
+             "dropped_events", "completions")
+
+
+def failing_world(bad_rank: int, delay: float):
+    """Rank ``bad_rank`` raises; every other rank waits in a collective
+    that can never complete."""
+    import torch
+    import torch.distributed as dist
+    if dist.get_rank() == bad_rank:
+        time.sleep(delay)
+        raise ValueError(f"rank {bad_rank} fails on purpose")
+    dist.all_reduce(torch.zeros(1))
+    return dist.get_rank()
+
+
+def hanging_world(sleep: float):
+    """Rank 0 waits in a collective while rank 1 sleeps ``sleep`` s."""
+    import torch
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        time.sleep(sleep)
+    dist.all_reduce(torch.zeros(1))
+    return dist.get_rank()
+
+
+def stats_world(shape, names, cfg, model, events, carry):
+    """The collective counts of one ``run_engine_sharded``."""
+    import dataclasses
+
+    from repro_torch import dist as D
+    mesh = D.init_mesh(shape, names)
+    D.stats.reset()
+    D.run_engine_sharded(cfg, *port_inputs(model, events, carry), mesh=mesh,
+                         device="cpu")
+    return dataclasses.asdict(D.stats)

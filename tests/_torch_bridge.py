@@ -35,14 +35,19 @@ def leaves(tree, path=""):
         yield path, (a.view(np.int32) if a.dtype == np.uint32 else a)
 
 
-def assert_trees_equal(ref, port, what=""):
+def assert_trees_equal(ref, port, what="", equal_nan=False):
     """Bitwise equality of two trees (the reference's uint32 key is
-    compared as the int32 bits the port keeps)."""
+    compared as the int32 bits the port keeps); with ``equal_nan`` a NaN
+    equals a NaN."""
     a = dict(leaves(convert.tree_to_numpy(ref)))
     b = dict(leaves(convert.tree_to_numpy(port)))
     assert a.keys() == b.keys(), (what, sorted(a.keys() ^ b.keys()))
+
+    def same(x, y):
+        nan = equal_nan and x.dtype.kind == "f"
+        return np.array_equal(x, y, equal_nan=nan)
     bad = [k for k in a if a[k].shape != b[k].shape or
-           a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+           a[k].dtype != b[k].dtype or not same(a[k], b[k])]
     assert not bad, f"{what}: differs in {bad}"
 
 

@@ -613,3 +613,59 @@ def test_block_kernel_equals_plain_on_poisoned_state(cuda, poison):
     assert not bad, bad
     if poison != "tables":
         assert np.isnan(b[f"[0].{poison}"]), "the poison must stay in"
+
+
+# ---------------------------------------------------------------------------
+# The scale-out: the block kernel on pattern shards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shedder", ["pspice", "ebl"])
+def test_pattern_sharded_block_equals_plain(cuda, shedder):
+    """A world of one on the card: ``run_engine_sharded`` on "cuda_block"
+    equals ``merge_shards_plain`` over the per-slice runs (one slice here),
+    and the per-slice runs of two and four shards (soccer's eight
+    patterns, the block kernel on each shard's store) merged by
+    ``merge_shards_plain`` on the card equal the same on the CPU (the
+    kernel's plain version), bit for bit."""
+    from repro_torch import dist as D
+    sc = streams.get_scenario("soccer")
+    specs = sc.specs()
+    cp = pat.compile_patterns(specs)
+    cfg = runner.default_config(cp, max_pms=32, latency_bound=0.005,
+                                shedder=shedder, emit_matches=True,
+                                backend="cuda_block", block_events=32,
+                                **COST)
+    raw = sc.raw(n=400)
+    rate = 4.0 / (cfg.c_base + cfg.c_match * 30)   # sheds at every width
+
+    def run(dev, n, sharded=False):
+        ev = streams.classify(specs, raw, rate=rate, seed=1, device=dev)
+        model = engine.make_model(cp, cfg, device=dev)
+        carry = engine.init_carry(cfg, seed=1, device=dev)
+        mesh = D.abstract_mesh((n,), ("data",))
+        fn = D.run_engine_sharded if sharded else D.run_engine_shards_plain
+        return convert.tree_to_numpy(fn(cfg, model, ev, carry, mesh=mesh,
+                                        device=dev))
+
+    def flat(tree, path=""):
+        if isinstance(tree, (dict, list)):
+            items = tree.items() if isinstance(tree, dict) else \
+                enumerate(tree)
+            for k, v in items:
+                yield from flat(v, f"{path}.{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    kops.reset_launch_counts()
+    runs = {"card 1 sharded": run("cuda", 1, sharded=True)}
+    assert kops.launch_counts()["block_step"] > 0
+    for n in (1, 2, 4):
+        runs[f"card {n}"] = run("cuda", n)
+        runs[f"cpu {n}"] = run("cpu", n)
+    assert float(runs["cpu 4"][0]["shed_calls"]) + \
+        float(runs["cpu 4"][0]["ebl_dropped"]) > 0
+    for a, b in (("card 1 sharded", "cpu 1"), ("card 1", "cpu 1"),
+                 ("card 2", "cpu 2"), ("card 4", "cpu 4")):
+        x, y = dict(flat(runs[a])), dict(flat(runs[b]))
+        bad = [k for k in x if not np.array_equal(x[k], y[k])]
+        assert not bad, (a, b, bad)

@@ -67,6 +67,15 @@ def test_quality_modules_are_scanned():
     assert set(QUALITY_MODULES) <= set(_modules())
 
 
+# The scale-out's modules, likewise.
+DIST_MODULES = ("repro_torch.dist", "repro_torch.dist.mesh",
+                "repro_torch.dist.sharding")
+
+
+def test_dist_modules_are_scanned():
+    assert set(DIST_MODULES) <= set(_modules())
+
+
 def test_runtime_modules_are_scanned():
     assert set(RUNTIME_MODULES) <= set(_modules())
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}
@@ -140,6 +149,12 @@ def test_entry_points_raise_without_cuda(no_cuda):
     calls["run_chunk_lanes"] = lambda: runtime.run_chunk_lanes(
         cfg, runtime.broadcast_model(model, 1), runtime.stack([ev]),
         runtime.stack([carry]), 0)
+    from repro_torch import dist
+    calls["run_engine_sharded"] = lambda: dist.run_engine_sharded(
+        cfg, model, ev, carry)
+    calls["run_chunk_lanes_sharded"] = lambda: dist.run_chunk_lanes_sharded(
+        cfg, runtime.broadcast_model(model, 1), runtime.stack([ev]),
+        runtime.stack([carry]), 0)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -161,12 +176,14 @@ def test_inputs_on_another_device_are_refused():
 
 
 def test_pattern_parallel_is_a_later_slice():
+    """The 'dist' slice has landed: pattern_parallel=True runs, and with
+    no process group (a world of one rank) it equals the serial run."""
     from repro_torch.cep import runner
     sc, specs, cp, cfg = _stock()
-    with pytest.raises(NotImplementedError, match="dist"):
-        runner.run_experiment(specs, sc.raw(n=60), pattern_parallel=True,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
-        runner.run_with_shedder(specs, cfg, None, sc.raw(n=60), rate=1.0,
-                                shedder="none", pattern_parallel=True,
-                                device="cpu")
+    kw = dict(shedders=("pspice",), max_pms=16, device="cpu")
+    serial = runner.run_experiment(specs, sc.raw(n=300), **kw)
+    par = runner.run_experiment(specs, sc.raw(n=300), pattern_parallel=True,
+                                **kw)
+    assert par["pspice"].fn == serial["pspice"].fn
+    assert par["pspice"].fn_match == serial["pspice"].fn_match
+    assert (par["pspice"].result.l_e == serial["pspice"].result.l_e).all()

@@ -642,11 +642,20 @@ def test_resilience_and_persistence_knobs_are_refused(knob):
         TRT.RuntimeConfig(ladder=TRT.LadderConfig())
 
 
-def test_mesh_is_refused():
+def test_mesh_is_refused(tmp_path):
+    """What a mesh runtime refuses: a mesh that is no mesh, and recovery
+    from disk on a mesh of several ranks (only rank 0 writes)."""
+    from repro_torch import dist as D
     cfg, m, _, _ = _port()
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TRT.MultiTenantRuntime(cfg, TRT.broadcast_model(m, 2), 2,
                                mesh=object(), device="cpu")
+    rt = TRT.RuntimeConfig(persist=TRT.PersistConfig(dir=str(tmp_path)))
+    mrt = TRT.MultiTenantRuntime(cfg, TRT.broadcast_model(m, 2), 2, rt=rt,
+                                 mesh=D.abstract_mesh((2,), ("data",)),
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        mrt.recover_from_disk()
 
 
 def test_runtimes_run_on_cuda_unless_asked_for_the_cpu():

@@ -7,6 +7,16 @@
 Phases (one line each; any failure raises and exits non-zero):
   card     the GPU's name and power limit, torch/CUDA versions; TF32 off
   build    compiles repro_torch/csrc with nvcc (sm_90a) and loads it
+  analysis the contract checker (repro_torch.analysis.check_all) on the
+           card: the small grid (every backend x shedder on the fired
+           workload, the fired-heavy block cells, chunks, two lanes, the
+           rebuild and recovery sweeps), stock's main path at full width
+           on "cuda_block" for each shedder and one donated chunk of 128
+           stock lanes, each cell's rules (no sort, no sync — under
+           set_sync_debug_mode("error") where the budget is none — no
+           float64, launches per block, in place, temp and gather bytes,
+           coverage) and the kernels' (registers, spills, SASS, shared
+           memory, the lane grid); any FAIL fails the phase
   kernels  each per-event CUDA kernel against its plain PyTorch version,
            bitwise, at the stock shapes (P=3, N=256), at N=2048 and at a
            ragged N=1000, plus an all-inactive and a NaN-laden case; the
@@ -136,8 +146,8 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("card", "build", "kernels", "parity", "main", "quality", "runtime",
-          "resilience", "recovery", "dist", "profile", "model")
+PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
+          "runtime", "resilience", "recovery", "dist", "profile", "model")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -2869,27 +2879,6 @@ def windows_ms(torch, fns: dict, order, windows: int, calls: int) -> dict:
     return out
 
 
-def ptxas_report(log_text: str, kernel: str) -> list:
-    """(mangled name, registers, spill stores, spill loads, static smem
-    bytes) of every entry function whose name contains ``kernel``, read
-    from the nvcc/ptxas log of the build."""
-    import re
-    rows = []
-    for block in log_text.split("Compiling entry function '")[1:]:
-        name = block.split("'", 1)[0]
-        if kernel not in name:
-            continue
-
-        def num(pattern):
-            m = re.search(pattern, block)
-            return int(m.group(1)) if m else 0
-        rows.append((name, num(r"Used (\d+) registers"),
-                     num(r"(\d+) bytes spill stores"),
-                     num(r"(\d+) bytes spill loads"),
-                     num(r"(\d+) bytes smem")))
-    return rows
-
-
 # The probe's bar: C = A·Bᵀ sums 128 products of N(0, 1) bf16 values
 # (|C| up to ~50) and E = bf16(C)·V sums 64 of about 11 (|E| up to
 # ~400), both in float32 in another order than torch.matmul, which moves
@@ -3280,12 +3269,64 @@ def phase_model(torch, np) -> dict:
     return {"flash_attention": launches}
 
 
+def phase_analysis() -> None:
+    """The contract checker over the whole grid and the full-width cells
+    on the card; logs each rule's pass count, the full-width cells'
+    host reads per event, block launches per block, temp and gather bytes
+    against their budgets, and each kernel's registers, spills and shared
+    memory.  A FAIL raises."""
+    from repro_torch.analysis.driver import check_all
+    res = check_all(quick=False, device="cuda",
+                    out=str(ROOT / "build" / "analysis_port.json"))
+    by_rule: dict = {}
+    for row in res["rows"]:
+        ok, n = by_rule.get(row["rule"], (0, 0))
+        by_rule[row["rule"]] = (ok + (row["status"] == "pass"), n + 1)
+    log("analysis", f"{res['cells']} cells, {len(res['rows'])} findings, "
+        f"{res['n_fail']} failures; passes by rule: " + ", ".join(
+            f"{k} {ok}/{n}" for k, (ok, n) in sorted(by_rule.items())))
+
+    def of(budget) -> str:
+        return "(no budget)" if budget is None else f"of {budget} B"
+
+    for name, s in res["summary"].items():
+        if "stock" not in name:
+            continue
+        log("analysis", f"{name}: {s['events']} events, "
+            f"{s['syncs_per_event']:.4f} host reads/event, "
+            f"{s['block_launches_per_block']:.4f} block launches/block, "
+            f"temp {s['temp_bytes']} B {of(s['temp_budget'])}, largest "
+            f"gather {s['gather_bytes']} B {of(s['gather_budget'])}")
+    for row in res["rows"]:
+        if row["rule"] in ("kernel-regs", "kernel-smem", "kernel-grid",
+                           "kernel-sass") and ("stock" in row["cell"] or
+                                               row["cell"] == "kernels[build]"):
+            log("analysis", f"{row['rule']} {row['cell']}: "
+                f"{row['evidence'][:220]}")
+    launches: dict = {}
+    for s in res["summary"].values():
+        for k, n in s["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    log("analysis", f"kernel launches over the sweep: {launches}")
+    bad = [r for r in res["rows"] if r["status"] != "pass"]
+    for r in bad:
+        log("analysis", f"FAIL {r['rule']} {r['cell']}: {r['evidence']}")
+    if bad:
+        raise AssertionError(f"contract checker: {len(bad)} failures")
+    idle = [k for k in ("nfa_advance", "utility_lookup", "utility_histogram",
+                        "block_step", "block_step_lanes") if not launches[k]]
+    if idle:
+        raise AssertionError(f"the sweep launched no {idle}: its rules "
+                             "judged no launch of them")
+
+
 def phase_build_report(_build, build_log: str) -> None:
     """ptxas's registers, spills and static shared memory of the block
     kernel's two instantiations (the store in shared or in device
     memory), of the bf16 flash kernel's instances and of the probe, and
     any ptxas advisory about the flash kernel.  A spill in the flash
     kernel fails the phase."""
+    from repro_torch.analysis.kernel_rules import ptxas_report
     for name, regs, st, ld, smem in ptxas_report(build_log,
                                                  "block_step_kernel"):
         store = "shared" if "ILb1E" in name else "global"
@@ -3350,7 +3391,8 @@ def main() -> int:
 
     record = {}
     timings = {}
-    for phase, fn in (("kernels", lambda: phase_kernels(torch, np)),
+    for phase, fn in (("analysis", phase_analysis),
+                      ("kernels", lambda: phase_kernels(torch, np)),
                       ("parity", lambda: phase_parity(torch, np)),
                       ("main", lambda: phase_main(torch)),
                       ("quality", lambda: phase_quality(torch, np)),

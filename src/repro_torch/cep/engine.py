@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import fp, prng
+from repro_torch.analysis import contracts as ctr
 from repro_torch.cep import patterns as pat
 from repro_torch.core import overload as ovl
 from repro_torch.core import shedder as shd
@@ -760,8 +761,10 @@ def _scan_events_lanes(cfg: EngineConfig, model: EngineModel,
                             device=dev)
     ev_class_h = events.ev_class.cpu().numpy()
     ev_open_h = events.ev_open.cpu().numpy()
-    # The events by index, each row over the L·P pattern rows.
-    by_j = lambda x: x.transpose(0, 1).reshape(n, R)  # noqa: E731
+    # The events by index, each row over the L·P pattern rows (contiguous:
+    # at P = 1 the reshape is a view whose rows stride over the events,
+    # and the advance kernel takes contiguous rows only).
+    by_j = lambda x: x.transpose(0, 1).reshape(n, R).contiguous()  # noqa: E731
     ev_class_r, ev_bind_r, ev_open_r = (by_j(x) for x in (
         events.ev_class, events.ev_bind, events.ev_open))
     ev_id_r = events.ev_id.transpose(0, 1).repeat_interleave(P, dim=1)
@@ -1059,14 +1062,26 @@ def _scan_blocks(cfg: EngineConfig, model: EngineModel, events: EventBatch,
     return carry, StepOut(**{k: cut(v) for k, v in rows.items()})
 
 
+def _keep(carry: Carry, c: Carry, outs: StepOut,
+          own: bool) -> tuple[Carry, StepOut]:
+    """The per-event loop's result; with ``own`` written into the
+    caller's carry, which it then returns, so an owned carry keeps its
+    storage as it does under the block kernel."""
+    if own:
+        kblock.write_back(carry, c)
+        c = carry
+    return c, outs
+
+
 def _scan_events_backend(cfg: EngineConfig, model: EngineModel,
                          events: EventBatch, carry: Carry, start: int,
                          own: bool = False) -> tuple[Carry, StepOut]:
     """Backend dispatch of run_engine and run_engine_chunk (``own``: the
-    caller hands its carry over to the block kernel)."""
+    caller hands its carry over, to be updated in place)."""
     if cfg.backend == BACKEND_CUDA_BLOCK:
         return _scan_blocks(cfg, model, events, carry, start, None, own)
-    return _scan_events(cfg, model, events, carry, start)
+    return _keep(carry, *_scan_events(cfg, model, events, carry, start),
+                 own)
 
 
 def _scan_events_lanes_backend(cfg: EngineConfig, model: EngineModel,
@@ -1078,7 +1093,8 @@ def _scan_events_lanes_backend(cfg: EngineConfig, model: EngineModel,
     if cfg.backend == BACKEND_CUDA_BLOCK:
         return _scan_blocks(cfg, model, events, carry, start,
                             events.ev_class.shape[0], own)
-    return _scan_events_lanes(cfg, model, events, carry, start)
+    return _keep(carry, *_scan_events_lanes(cfg, model, events, carry,
+                                            start), own)
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1108,26 @@ def _check_inputs(dev, model: EngineModel, events: EventBatch,
              active=carry.pms.active, sim_time=carry.sim_time)
 
 
+# Aten ops per event outside the kernels: the largest cell of the
+# contract checker's sweep makes ~71 (two lanes of the per-event loop
+# under fire); ~2x headroom, as the reference calibrated its budgets.
+OPS_PER_EVENT = 160
+# The hot-path contract of the scan entry points (DESIGN.md §11; checked
+# by repro_torch.analysis): host syncs, launches and aten ops within
+# budget, no rebuild after warm-up, the reference's byte budgets.
+HOT_PATH = dict(max_syncs_per_event=ctr.hot_path_sync_budget,
+                max_launches_per_block=1, max_ops_per_event=OPS_PER_EVENT,
+                max_compiles=0, max_temp_bytes=ctr.hot_path_temp_budget,
+                max_gather_bytes=ctr.hot_path_gather_budget)
+# The entries that copy the caller's carry (the runtime's owned entries
+# take it over): the reference donates it there.
+NOT_OWNED = dict(donate=("carry",), waived=("in-place",),
+                 waiver_note="the entry copies the carry (the owned "
+                 "entries run_chunk_lanes_donated and _run_group_* take "
+                 "it over)")
+
+
+@ctr.contract("cep.run_engine", **HOT_PATH)
 def run_engine(cfg: EngineConfig, model: EngineModel, events: EventBatch,
                carry: Carry, device=None) -> tuple[Carry, StepOut]:
     """Run the operator over a whole event stream.  Every input must lie
@@ -1108,6 +1144,7 @@ def wrap_event_index(start) -> int:
     return _wrap32(int(start))
 
 
+@ctr.contract("cep.run_engine_chunk", **HOT_PATH, **NOT_OWNED)
 def run_engine_chunk(cfg: EngineConfig, model: EngineModel,
                      events: EventBatch, carry: Carry, start,
                      device=None) -> tuple[Carry, StepOut]:

@@ -112,6 +112,7 @@ def build() -> pathlib.Path:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     build_seconds = time.perf_counter() - t0
+    build.compiles += 1
     return lib
 
 
@@ -124,7 +125,14 @@ def load() -> ctypes.CDLL:
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         _lib = lib
+        load.compiles += 1
     return _lib
+
+
+# Libraries compiled and opened by this process (the contract checker's
+# rebuild guard reads them: after warm-up both stay put).
+build.compiles = 0
+load.compiles = 0
 
 
 def check(code: int, what: str) -> None:

@@ -14,10 +14,11 @@ and "cuda" the per-event loop runs every lane in lockstep, its device
 half once over the L·P pattern rows (``cep.engine._scan_events_lanes``).
 
 Where the reference donates the carry to a jitted step, the port hands it
-over: ``run_chunk_lanes`` leaves the caller's carry as it was (the block
-kernel updates a copy), ``run_chunk_lanes_donated`` takes it over (the
-block kernel updates its contiguous tensors in place, and the caller
-must use only the returned carry).  Events are never written.
+over: ``run_chunk_lanes`` leaves the caller's carry as it was (the scan
+updates a copy), ``run_chunk_lanes_donated`` takes it over (the block
+kernel updates its contiguous tensors in place, the per-event loop
+writes its result into them, and the caller must use only the returned
+carry).  Events are never written.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.analysis import contracts as ctr
 from repro_torch.cep import engine as eng
 from repro_torch.device import resolve_device
 
@@ -79,6 +81,12 @@ def _run(cfg, model, events, carry, start, device, own: bool):
         cfg, model, events, carry, eng.wrap_event_index(start), own=own)
 
 
+# The lane entries keep the scan's budgets but the byte budgets, which
+# the reference states for one lane.
+_LANES = dict(eng.HOT_PATH, max_temp_bytes=None, max_gather_bytes=None)
+
+
+@ctr.contract("runtime.run_chunk_lanes", **_LANES, **eng.NOT_OWNED)
 def run_chunk_lanes(cfg: eng.EngineConfig, model: eng.EngineModel,
                     events: eng.EventBatch, carry: eng.Carry, start,
                     device=None) -> tuple[eng.Carry, eng.StepOut]:
@@ -91,10 +99,12 @@ def run_chunk_lanes(cfg: eng.EngineConfig, model: eng.EngineModel,
     return _run(cfg, model, events, carry, start, device, own=False)
 
 
+@ctr.contract("runtime.run_chunk_lanes_donated", donate=("carry",),
+              **_LANES)
 def run_chunk_lanes_donated(cfg: eng.EngineConfig, model: eng.EngineModel,
                             events: eng.EventBatch, carry: eng.Carry, start,
                             device=None) -> tuple[eng.Carry, eng.StepOut]:
-    """``run_chunk_lanes`` that takes the carry over: the block kernel
-    updates its tensors in place (the MultiTenantRuntime's steady-state
+    """``run_chunk_lanes`` that takes the carry over: its tensors are
+    updated in place and returned (the MultiTenantRuntime's steady-state
     loop, which keeps only the returned carry)."""
     return _run(cfg, model, events, carry, start, device, own=True)

@@ -26,12 +26,14 @@ results stay bitwise what they were.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Sequence
 
 import torch
 
+from repro_torch.analysis import contracts as ctr
 from repro_torch.cep import engine as eng
 from repro_torch.cep import patterns as pat
 from repro_torch.device import check_on, resolve_device
@@ -217,6 +219,21 @@ def _run_group(scan_fn, cfg: eng.EngineConfig, model: eng.EngineModel,
     return carry, torch.stack(vecs)
 
 
+# The group step over one stream and over lane-stacked streams: the
+# carry is handed over and updated in place (the reference donates it).
+# Each chunk's telemetry takes two quantiles of its latencies by a sort,
+# as the reference's jnp.quantile does.
+_GROUP = dict(eng.HOT_PATH, donate=("carry",), waived=("no-sort",),
+              waiver_note="the telemetry's per-chunk quantiles sort the "
+              "chunk's latencies (one sort per chunk, not per event)")
+_run_group_single = ctr.contract("runtime._run_group_single", **_GROUP)(
+    functools.partial(_run_group, eng._scan_events_backend, axis=0))
+_run_group_lanes = ctr.contract(
+    "runtime._run_group_lanes",
+    **dict(_GROUP, max_temp_bytes=None, max_gather_bytes=None))(
+    functools.partial(_run_group, eng._scan_events_lanes_backend, axis=1))
+
+
 class StreamRuntime:
     """Single-tenant chunked runtime over one event stream.
 
@@ -274,6 +291,8 @@ class StreamRuntime:
     def _scan(cfg, model, events, carry, start, own):
         return eng._scan_events_backend(cfg, model, events, carry, start,
                                         own=own)
+
+    _group = staticmethod(_run_group_single)
 
     def _n_lanes(self) -> int:
         return 1
@@ -732,9 +751,8 @@ class StreamRuntime:
         cs, n_lanes = self.rt.chunk_size, self._n_lanes()
         eng._check_inputs(self.device, self.model, piece, self.carry)
         t0 = time.perf_counter()
-        self.carry, vecs = _run_group(self._scan, self.cfg, self.model,
-                                      piece, self.carry, start, g,
-                                      self._axis)
+        self.carry, vecs = self._group(self.cfg, self.model, piece,
+                                       self.carry, start, g)
         vecs = vecs.cpu().numpy()              # ONE transfer for g chunks
         wall = time.perf_counter() - t0
         FT.kill_point("chunk")
@@ -856,6 +874,8 @@ class MultiTenantRuntime(StreamRuntime):
     def _scan(cfg, model, events, carry, start, own):
         return eng._scan_events_lanes_backend(cfg, model, events, carry,
                                               start, own=own)
+
+    _group = staticmethod(_run_group_lanes)
 
     def _n_lanes(self) -> int:
         return self.num_lanes

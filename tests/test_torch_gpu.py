@@ -669,3 +669,77 @@ def test_pattern_sharded_block_equals_plain(cuda, shedder):
         x, y = dict(flat(runs[a])), dict(flat(runs[b]))
         bad = [k for k in x if not np.array_equal(x[k], y[k])]
         assert not bad, (a, b, bad)
+
+
+# ---------------------------------------------------------------------------
+# The contract checker on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _fired_block(dev):
+    from repro_torch.analysis import driver as AD
+    cfg, model, ev = AD._workload_fired(device=dev)
+    return dataclasses.replace(cfg, backend="cuda_block"), model, ev
+
+
+def test_analysis_quick_sweep_green(cuda):
+    """The quick grid on the card, with the build's kernel rules: every
+    finding passes, and the card-only rules are among them."""
+    from repro_torch.analysis.driver import check_all
+    res = check_all(quick=True, device="cuda")
+    bad = [r for r in res["rows"] if r["status"] != "pass"]
+    assert res["ok"], bad
+    rules = {r["rule"] for r in res["rows"]}
+    assert {"no-sync", "kernel-regs", "kernel-sass", "kernel-smem",
+            "kernel-grid", "block-inplace", "coverage"} <= rules
+    temp = [r for r in res["rows"] if r["rule"] == "temp-bytes"
+            and "judged on the card" in r["evidence"]]
+    assert not temp, temp
+
+
+def test_analysis_status_read_trips_no_sync(cuda, monkeypatch):
+    """Reading the block kernel's status to the host inside the fused
+    scan is a sync that set_sync_debug_mode('error') catches."""
+    from repro_torch.analysis import contracts as C, rules as R
+    cfg, model, ev = _fired_block(cuda)
+    fn, ctr = C.registry()["cep.run_engine"]
+
+    def no_sync(name):
+        art = R.run_artifact(fn, cfg, model, ev,
+                             engine.init_carry(cfg, device=cuda), cuda,
+                             name=name, n_events=ev.ev_class.shape[0])
+        return [f for f in R.run_rules(art, ctr) if f.rule == "no-sync"]
+
+    assert all(f.ok for f in no_sync("clean"))
+    launch = kblock.BlockScan.launch
+
+    def reading_launch(self, *a):
+        status = launch(self, *a)
+        status.cpu()
+        return status
+
+    monkeypatch.setattr(kblock.BlockScan, "launch", reading_launch)
+    fs = no_sync("mut[status read]")
+    assert fs and not fs[0].ok and "set_sync_debug_mode" in fs[0].evidence
+
+
+def test_analysis_block_inplace_on_lane_instance(cuda):
+    """A donated lane chunk: the lane instance updates the caller's
+    store tensors in place, one CTA per lane."""
+    from repro_torch.analysis import contracts as C, kernel_rules as KR
+    from repro_torch.analysis import rules as R
+    from repro_torch.runtime import lanes as LN
+    cfg, model, ev = _fired_block(cuda)
+    L = 3
+    fn, ctr = C.registry()["runtime.run_chunk_lanes_donated"]
+    art = R.run_artifact(fn, cfg, LN.broadcast_model(model, L),
+                         LN.stack([ev] * L),
+                         LN.init_lane_carries(cfg, L, device=cuda), 0, cuda,
+                         name="lanes", n_events=ev.ev_class.shape[0],
+                         owned=True)
+    assert art.launches["block_step_lanes"] == 3
+    fs = KR.check_kernel_launches(art, KR.read_build()[0]) + \
+        R.run_rules(art, ctr)
+    for rule in ("block-inplace", "kernel-grid", "kernel-smem", "in-place",
+                 "no-sync"):
+        got = [f for f in fs if f.rule == rule]
+        assert got and all(f.ok for f in got), (rule, got)

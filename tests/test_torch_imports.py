@@ -76,6 +76,19 @@ def test_dist_modules_are_scanned():
     assert set(DIST_MODULES) <= set(_modules())
 
 
+# The contract checker's modules, likewise.
+ANALYSIS_MODULES = ("repro_torch.analysis", "repro_torch.analysis.contracts",
+                    "repro_torch.analysis.tracing",
+                    "repro_torch.analysis.rules",
+                    "repro_torch.analysis.kernel_rules",
+                    "repro_torch.analysis.driver",
+                    "repro_torch.analysis.__main__")
+
+
+def test_analysis_modules_are_scanned():
+    assert set(ANALYSIS_MODULES) <= set(_modules())
+
+
 def test_runtime_modules_are_scanned():
     assert set(RUNTIME_MODULES) <= set(_modules())
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}

@@ -55,8 +55,8 @@ Phases (one line each; any failure raises and exits non-zero):
            1.6} x 3 shedders at 30000 events) on "cuda_block", gated by
            check_headline, with stock at 1.2 exactly the committed file
            and every other cell within 0.05 of it; "cuda" == "cuda_block"
-           at the headline level on every dataset; the wall of stock's
-           run_experiment split by layer
+           at the headline level on stock and bus (QUALITY_CUDA_DATASETS);
+           the wall of stock's run_experiment split by layer
   runtime  the multi-tenant streaming runtime: 128 lanes of the stock
            configuration (30000 events each, rates 1.2..1.4 x max_rate,
            one model from lane 0's warm-up) through MultiTenantRuntime on
@@ -123,15 +123,33 @@ Phases (one line each; any failure raises and exits non-zero):
            that the float32 bound must catch; then the port's serve()
            with the reference CLI's defaults under each policy, all at
            the step cost the first run measures
+  moe      the MoE family at full width (bf16, random weights from a
+           seeded generator): deepseek-moe-16b at its full 28 layers and
+           deepseek-v3 at 2 of its 61 layers (MLA attention), each
+           prefilling 4 prompts of 2048 tokens (the flash kernel once per
+           layer: its (128, 128) instance for deepseek-moe-16b, the
+           (192, 128) instance for deepseek-v3) and taking greedy decode
+           steps (32 and 8); prefill logits of the kernel against the
+           plain flash, and decode against the full forward on a no-drop
+           copy of the config (capacity_factor = E / K), each with a
+           decode step one slot off that must read beyond the bound, in
+           bf16 (5e-2, with one run's MoE routing replayed in the other;
+           the unpinned readings and the routing choices that differ are
+           logged) and on a float32 cut (1e-4, unpinned: the first 4
+           layers of deepseek-moe-16b, 1 layer of deepseek-v3); serve()
+           once with the reference CLI's defaults (pspice); the phase's
+           seconds against its 180 s budget
 The build phase reports ptxas's registers and spills of the block
 kernel's two instantiations and of the bf16 flash kernel (a spill in the
 flash kernel fails it).  The kernels phase also runs the wgmma probe
 against torch.matmul, holds the flash kernels against their plain version
 (float32 on the SIMT kernel, bf16 on the wgmma/TMA kernel; GQA/MQA,
-ragged, Dv != D, decode-style, a fully masked KV tile; bf16 also row by
-row, scaled to the output, with planted faults that this bar must catch)
-and times the bf16 kernel at the prefill shape in turns with
-scaled_dot_product_attention.
+ragged, Dv != D, decode-style, a fully masked KV tile, and MLA's
+(D, Dv) = (192, 128) in the same kinds of case; bf16 also row by row,
+scaled to the output, with planted faults that this bar must catch)
+and times the bf16 kernel at internlm2's and deepseek-v3's prefill
+shapes in turns with scaled_dot_product_attention (where it takes the
+shape).
 The last lines are the kernels' JSON record, the nvidia-smi line and the
 contract line.  The script needs CUDA and the repository around it.
 """
@@ -147,7 +165,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
-          "runtime", "resilience", "recovery", "dist", "profile", "model")
+          "runtime", "resilience", "recovery", "dist", "profile", "model",
+          "moe")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -181,6 +200,9 @@ KERNEL_META = {
                          "src/repro/kernels/block_step.py:87"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:29"),
+    # The same kernel's (D, Dv) = (192, 128) instance: MLA's prefill.
+    "flash_attention_mla": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                            "src/repro/kernels/flash_attention.py:29"),
 }
 # The path whose run counts each kernel's launches: an engine backend of
 # the main phase, or the model phase's prefill and decode.
@@ -188,7 +210,7 @@ KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
                "utility_histogram": "cuda", "block_step": "cuda_block",
                "block_step_lanes": "runtime",
                "utility_histogram_lanes": "resilience",
-               "flash_attention": "model"}
+               "flash_attention": "model", "flash_attention_mla": "moe"}
 W_BLOCK = 32                       # block_events on the block path
 
 
@@ -447,7 +469,7 @@ def phase_kernels(torch, np) -> dict:
     record["nfa_advance"].update(launch_floor(torch))
     record["block_step"] = phase_block_kernel(torch, np)
     record["block_step_lanes"] = phase_block_lanes(torch, np)
-    record["flash_attention"] = phase_flash_kernel(torch, np)
+    record.update(phase_flash_kernel(torch, np))
     return record
 
 
@@ -2487,10 +2509,18 @@ def oracle_diff(np, eng, carry, outs, o) -> list:
     return bad
 
 
+# The datasets whose headline level runs again on the per-event path.
+# Soccer's (108 s of the script's 1 111 s in PR 21's first proof run) is
+# left out to keep the script within its time limit: the main phase
+# holds soccer's "cuda" run to "cuda_block" (12 000 events, FN, fires and
+# compliance), and the oracle cases hold "cuda" in this layout.
+QUALITY_CUDA_DATASETS = ("stock", "bus")
+
+
 def quality_grid(torch) -> dict:
     """run_quality_sweep on cuda_block (W=32) at n_default, held to the
-    committed grid; then cuda at the headline level on every dataset,
-    held to cuda_block.  Launch counts from 0 before each path."""
+    committed grid; then cuda at the headline level on
+    QUALITY_CUDA_DATASETS, held to cuda_block.  Launch counts from 0 before each path."""
     from repro_torch.cep import engine as eng
     from repro_torch.eval import sweep
     from repro_torch.kernels import ops as kops
@@ -2552,7 +2582,7 @@ def quality_grid(torch) -> dict:
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    for ds in sweep.DATASETS:
+    for ds in QUALITY_CUDA_DATASETS:
         t1 = time.perf_counter()
         grid = sweep.run_dataset(ds, levels=(level,), backend="cuda")
         cells = grid["levels"][f"{level:g}"]
@@ -2772,6 +2802,14 @@ def phase_profile(torch, backend: str, n: int = 6000,
 # q_offset 100 whose rows 0..27 meet a KV tile (keys 128..191) where every
 # key is masked.
 FLASH_PREFILL = ("prefill", 4, 2048, 2048, 16, 8, 128, 128, True, 0)
+# deepseek-v3's MLA prefill (the moe phase's): the bf16 kernel's (192, 128)
+# instance at 128 heads, q/k head dim 128 + 64, v head dim 128.
+FLASH_MLA_PREFILL = ("mla_prefill", 4, 2048, 2048, 128, 128, 192, 128, True,
+                     0)
+# The (DK, DV) instance each timed prefill shape runs, and its kernel name
+# in the JSON line.
+FLASH_TIMED = {"prefill": "flash_attention",
+               "mla_prefill": "flash_attention_mla"}
 FLASH_CASES = (
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, True, 0),
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, False, 0),
@@ -2787,6 +2825,15 @@ FLASH_CASES = (
     ("dv_ne_d", 2, 256, 256, 4, 2, 64, 128, True, 0),
     ("decode_style", 2, 200, 328, 4, 2, 128, 128, True, 128),
     ("masked_tile", 2, 64, 192, 4, 2, 32, 32, True, 100),
+    # MLA's (D, Dv) = (192, 128): G = 1 and G = 4, causal and not, ragged
+    # Sq/Sk, q_offset > 0, a fully masked KV tile.
+    ("mla", 1, 256, 256, 4, 4, 192, 128, True, 0),
+    ("mla", 1, 256, 256, 4, 4, 192, 128, False, 0),
+    ("mla", 2, 256, 256, 8, 2, 192, 128, True, 0),
+    ("mla_ragged", 2, 300, 300, 4, 2, 192, 128, True, 0),
+    ("mla_ragged", 1, 130, 383, 2, 2, 192, 128, False, 0),
+    ("mla_decode_style", 2, 200, 328, 4, 2, 192, 128, True, 128),
+    ("mla_masked_tile", 2, 64, 192, 4, 2, 192, 128, True, 100),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The bf16 kernel's second bar, scaled to the output: the largest
@@ -2804,6 +2851,13 @@ FLASH_FAULT_ROW0 = 1024
 # this order, each turn FLASH_WINDOWS windows of FLASH_CALLS calls.
 FLASH_ORDER = ("kernel", "sdpa", "sdpa", "kernel")
 FLASH_WINDOWS, FLASH_CALLS = 5, 20
+
+
+def _reset_flash_counts(kfa) -> None:
+    """Set the flash kernels' launch counts to 0 (before a counted run)."""
+    kfa.flash_attention.launches = 0
+    kfa.flash_attention.sm90_launches = 0
+    kfa.flash_attention.sm90_instances = dict.fromkeys(kfa.SM90_INSTANCES, 0)
 
 
 def flash_work(B, Sq, Sk, H, KVH, D, Dv, causal, q_offset, esize):
@@ -2913,36 +2967,50 @@ def phase_probe(torch, np) -> None:
 
 
 def phase_flash_kernel(torch, np) -> dict:
+    """The probe, then every flash case in both dtypes against the plain
+    version; the planted faults and the timing at each prefill shape of
+    FLASH_TIMED.  Returns the records of flash_attention (the (64, 64) and
+    (128, 128) instances) and flash_attention_mla (the (192, 128)
+    instance), each with its max |kernel - plain| over its cases."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
 
     dev = torch.device("cuda")
     phase_probe(torch, np)
-    errs = dict.fromkeys(FLASH_TOL, 0.0)
+    errs = {name: dict.fromkeys(FLASH_TOL, 0.0)
+            for name in FLASH_TIMED.values()}
     row_max = 0.0
     record = {}
-    for case in (FLASH_PREFILL,) + FLASH_CASES:
+    for case in (FLASH_PREFILL, FLASH_MLA_PREFILL) + FLASH_CASES:
         label, B, Sq, Sk, H, KVH, D, Dv, causal, q_off = case
-        rng = np.random.default_rng(B * Sq + H * D + Dv + q_off)
-        host = [rng.standard_normal(s).astype(np.float32) for s in
+        name = ("flash_attention_mla" if kfa.sm90_instance(D, Dv) ==
+                (192, 128) else "flash_attention")
+        # Inputs drawn on the card (the MLA prefill's are 0.5 G values).
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(B * Sq + H * D + Dv + q_off)
+        base = [torch.randn(s, generator=gen, device=dev) for s in
                 ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, Dv))]
         for dt in FLASH_TOL:
-            q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dt))
-                       for a in host)
+            q, k, v = (a.to(getattr(torch, dt)) for a in base)
             n0 = kfa.flash_attention.launches
             n0_tc = kfa.flash_attention.sm90_launches
+            inst = kfa.sm90_instance(D, Dv)
+            n0_inst = kfa.flash_attention.sm90_instances[inst]
             got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_off)
             want = kfa.flash_attention_plain(q, k, v, causal=causal,
                                              q_offset=q_off)
             torch.cuda.synchronize()
             tc = int(dt == "bfloat16")
             if (kfa.flash_attention.launches != n0 + 1 or
-                    kfa.flash_attention.sm90_launches != n0_tc + tc):
+                    kfa.flash_attention.sm90_launches != n0_tc + tc or
+                    kfa.flash_attention.sm90_instances[inst] !=
+                    n0_inst + tc):
                 raise AssertionError(f"flash_attention {dt} did not count "
-                                     "its launch on its own kernel")
+                                     "its launch on its own kernel and "
+                                     f"instance {inst}")
             err = max_abs_err(torch, got, want)
-            errs[dt] = max(errs[dt], err)
+            errs[name][dt] = max(errs[name][dt], err)
             row = row_rel_err(torch, got, want) if tc else 0.0
             row_max = max(row_max, row)
             if (not bool(torch.isfinite(got).all()) or err > FLASH_TOL[dt]
@@ -2953,18 +3021,22 @@ def phase_flash_kernel(torch, np) -> dict:
                                      f"{row!r} beyond {FLASH_ROW_TOL}")
             row_txt = (f"; row-relative {row:.3e} (bar {FLASH_ROW_TOL})"
                        if tc else "")
+            kind = f"wgmma <{inst[0]}, {inst[1]}>" if tc else "SIMT"
             log("kernels", f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} "
                 f"H={H} KVH={KVH} D={D} Dv={Dv} causal={causal} "
-                f"q_offset={q_off} {dt} ({'wgmma' if tc else 'SIMT'} "
-                f"kernel): max |kernel - plain| {err:.3e} (tol "
-                f"{FLASH_TOL[dt]}){row_txt}")
-            if label != "prefill" or dt != "bfloat16":
+                f"q_offset={q_off} {dt} ({kind} kernel): max |kernel - "
+                f"plain| {err:.3e} (tol {FLASH_TOL[dt]}){row_txt}")
+            if label not in FLASH_TIMED or dt != "bfloat16":
                 continue
             flash_faults(torch, kfa, q, k, v, want)
-            record = flash_timing(torch, F, kfa, q, k, v, got, case)
-    record["max_abs_err"] = max(errs.values())
-    log("kernels", f"flash_attention: max |kernel - plain| {errs} over "
-        f"every case; bf16 row-relative {row_max:.3e} (bar {FLASH_ROW_TOL})")
+            record[name] = flash_timing(torch, F, kfa, q, k, v, got, case)
+            del q, k, v, got, want
+        del base
+    for name, e in errs.items():
+        record[name]["max_abs_err"] = max(e.values())
+        log("kernels", f"{name}: max |kernel - plain| {e} over its cases")
+    log("kernels", f"flash_attention: bf16 row-relative {row_max:.3e} over "
+        f"every case (bar {FLASH_ROW_TOL})")
     return record
 
 
@@ -2984,8 +3056,14 @@ def flash_timing(torch, F, kfa, q, k, v, got, case) -> dict:
         qt, kt, vt, is_causal=causal, enable_gqa=True)
     kernel = lambda: kfa.flash_attention(  # noqa: E731
         q, k, v, causal=causal, q_offset=q_off)
-    lib_err = max_abs_err(torch, sdpa().transpose(1, 2), got)
-    times = windows_ms(torch, {"kernel": kernel, "sdpa": sdpa}, FLASH_ORDER,
+    fns = {"kernel": kernel, "sdpa": sdpa}
+    try:
+        lib_err = max_abs_err(torch, sdpa().transpose(1, 2), got)
+    except RuntimeError as e:   # the yardstick refuses this shape
+        log("kernels", f"flash_attention {label}: scaled_dot_product_"
+            f"attention refuses (D, Dv) = ({D}, {Dv}): {str(e)[:160]}")
+        fns.pop("sdpa")
+    times = windows_ms(torch, fns, [n for n in FLASH_ORDER if n in fns],
                        FLASH_WINDOWS, FLASH_CALLS)
     med = {n: statistics.median(t) for n, t in times.items()}
     spread = {n: (min(t), max(t)) for n, t in times.items()}
@@ -3001,22 +3079,27 @@ def flash_timing(torch, F, kfa, q, k, v, got, case) -> dict:
     torch.cuda.synchronize()
     p_ms = cuda_ms(torch, lambda: kfa.flash_attention_plain(
         q, k, v, causal=causal, q_offset=q_off), iters=5)
-    k_ms, lib_ms = med["kernel"], med["sdpa"]
+    k_ms, lib_ms = med["kernel"], med.get("sdpa")
     d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
-    log("kernels", f"flash_attention prefill shape bfloat16, in turns "
-        f"{'/'.join(FLASH_ORDER)} ({FLASH_WINDOWS} windows of "
-        f"{FLASH_CALLS} calls per turn): kernel median {k_ms:.6f} ms per "
-        f"call (windows {spread['kernel'][0]:.6f}-{spread['kernel'][1]:.6f}"
-        f"; device-only {d_txt}), scaled_dot_product_attention (enable_gqa"
-        f"; max |sdpa - kernel| {lib_err:.3e}) median {lib_ms:.6f} ms "
-        f"(windows {spread['sdpa'][0]:.6f}-{spread['sdpa'][1]:.6f}); "
-        f"kernel / sdpa {k_ms / lib_ms:.3f}")
-    log("kernels", f"flash_attention prefill shape bfloat16: plain "
-        f"{p_ms:.6f} ms; bound {bound:.6f} ms by {by} ({nbytes} B at 3.35 "
-        f"TB/s = {t_bytes:.6f} ms; {ops} operations at 989e12/s = "
-        f"{t_ops:.6f} ms); kernel {ops / k_ms / 1e9:.1f} TFLOP/s, "
-        f"{k_ms / bound:.2f}x its bound ({bound / k_ms:.1%} of it); sdpa "
-        f"{ops / lib_ms / 1e9:.1f} TFLOP/s; host time per kernel call "
+    what = (f"flash_attention {label} shape (B={B} S={Sq} H={H} KVH={KVH} "
+            f"D={D} Dv={Dv}) bfloat16")
+    lib_txt = ("scaled_dot_product_attention: none (it refused the shape)"
+               if lib_ms is None else
+               f"scaled_dot_product_attention (enable_gqa; max |sdpa - "
+               f"kernel| {lib_err:.3e}) median {lib_ms:.6f} ms (windows "
+               f"{spread['sdpa'][0]:.6f}-{spread['sdpa'][1]:.6f}); kernel / "
+               f"sdpa {k_ms / lib_ms:.3f}")
+    log("kernels", f"{what}, in turns {'/'.join(FLASH_ORDER)} "
+        f"({FLASH_WINDOWS} windows of {FLASH_CALLS} calls per turn): kernel "
+        f"median {k_ms:.6f} ms per call (windows {spread['kernel'][0]:.6f}-"
+        f"{spread['kernel'][1]:.6f}; device-only {d_txt}), {lib_txt}")
+    sdpa_rate = ("" if lib_ms is None else
+                 f"; sdpa {ops / lib_ms / 1e9:.1f} TFLOP/s")
+    log("kernels", f"{what}: plain {p_ms:.6f} ms; bound {bound:.6f} ms by "
+        f"{by} ({nbytes} B at 3.35 TB/s = {t_bytes:.6f} ms; {ops} "
+        f"operations at 989e12/s = {t_ops:.6f} ms); kernel "
+        f"{ops / k_ms / 1e9:.1f} TFLOP/s, {k_ms / bound:.2f}x its bound "
+        f"({bound / k_ms:.1%} of it){sdpa_rate}; host time per kernel call "
         f"{host_us:.3f} us (wrapper, tensor-map encodes, launch)")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, device_us=d_us,
@@ -3060,7 +3143,7 @@ def _tensors(tree):
         yield tree
 
 
-def _answer(torch, cfg, params, toks, flash):
+def _answer(torch, cfg, params, toks, flash, max_len=MODEL_MAX_LEN):
     """prefill -> greedy first token -> one decode step, the full forward
     over S + 1 tokens, and the same decode step on a cache one slot off
     (a planted fault); ``flash`` is the attention prefill uses."""
@@ -3071,25 +3154,34 @@ def _answer(torch, cfg, params, toks, flash):
     kernel_flash = L.flash_attention
     L.flash_attention = flash
     try:
-        cache, logits = D.prefill(cfg, params, {"tokens": toks},
-                                  MODEL_MAX_LEN)
+        cache, logits = D.prefill(cfg, params, {"tokens": toks}, max_len)
         tok = logits.argmax(-1).to(torch.int32)
         step, _ = D.decode_step(cfg, params, cache, tok)
         bad, _ = D.decode_step(cfg, params, dict(cache, pos=cache["pos"] + 1),
                                tok)
         del cache
-        full = torch.cat([toks, tok[:, None]], dim=1)
-        h, _ = T.backbone(cfg, params, T.embed_inputs(cfg, params,
-                                                      {"tokens": full}))
-        h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-        want = T.lm_head_logits(cfg, params, h[:, -1:, :])[:, 0]
+        want = _full_logits(torch, cfg, params, toks, tok)
     finally:
         L.flash_attention = kernel_flash
     return logits, step, want, bad
 
 
-def _profile(torch, fn, label: str) -> None:
-    """Device busy share of ``fn`` and its heaviest kernels."""
+def _full_logits(torch, cfg, params, toks, tok):
+    """The full forward over toks (B, S) and tok (B,): the logits of the
+    last position."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    full = torch.cat([toks, tok[:, None]], dim=1)
+    h, _ = T.backbone(cfg, params, T.embed_inputs(cfg, params,
+                                                  {"tokens": full}))
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return T.lm_head_logits(cfg, params, h[:, -1:, :])[:, 0]
+
+
+def _profile(torch, fn, label: str, phase: str = "model") -> dict:
+    """Device busy share of ``fn`` and its heaviest kernels; returns the
+    wall and device busy seconds (empty if the profiler saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3101,17 +3193,18 @@ def _profile(torch, fn, label: str) -> None:
     wall = time.perf_counter() - t0
     rows = device_rows(prof)
     if not rows:
-        log("model", f"{label}: device time not measured (the profiler saw "
+        log(phase, f"{label}: device time not measured (the profiler saw "
             "no CUDA activity)")
-        return
+        return {}
     busy = sum(r[0] for r in rows) / 1e6
-    log("model", f"{label} under the profiler: wall {wall * 1e3:.2f} ms, "
+    log(phase, f"{label} under the profiler: wall {wall * 1e3:.2f} ms, "
         f"device busy {busy * 1e3:.2f} ms ({busy / wall:.2%}; idle "
         f"{1 - busy / wall:.2%})")
     for dev_us, count, key in rows[:6]:
         share = dev_us / 1e6 / busy
-        log("model", f"  {dev_us / 1e3:.3f} ms device ({share:.1%} of busy),"
+        log(phase, f"  {dev_us / 1e3:.3f} ms device ({share:.1%} of busy),"
             f" {count} calls: {key[:80]}")
+    return {"wall": wall, "busy": busy}
 
 
 def phase_model(torch, np) -> dict:
@@ -3145,8 +3238,7 @@ def phase_model(torch, np) -> dict:
 
     # The path's run: prefill + greedy decode, launch count from 0.
     torch.cuda.synchronize()
-    kfa.flash_attention.launches = 0
-    kfa.flash_attention.sm90_launches = 0
+    _reset_flash_counts(kfa)
     t0 = time.perf_counter()
     cache, logits = D.prefill(cfg, params, {"tokens": toks}, MODEL_MAX_LEN)
     torch.cuda.synchronize()
@@ -3267,6 +3359,357 @@ def phase_model(torch, np) -> dict:
             raise AssertionError(f"serve {policy}: {out['finished']} of 64 "
                                  "requests finished")
     return {"flash_attention": launches}
+
+
+# ---------------------------------------------------------------------------
+# The MoE family at full width: deepseek-moe-16b, and deepseek-v3 with MLA
+# ---------------------------------------------------------------------------
+
+# (arch, layers kept (None: all), greedy decode steps, layers of the
+# float32 cut).  deepseek-v3 keeps 2 of its 61 layers at full width: one
+# layer is 11.50 B parameters (23.0 GB in bf16), so 2 layers and the
+# embeddings (49.7 GB) fit the card's 80 GB beside the activations and 61
+# would not.  The float32 cuts: deepseek-moe-16b's first 4 layers, a copy
+# of its bf16 weights (9.4 GB + the embeddings' 1.7 GB); deepseek-v3 1
+# layer drawn anew after the bf16 weights are freed (53 GB).
+MOE_RUNS = (("deepseek-moe-16b", None, 32, 4),
+            ("deepseek-v3-671b", 2, 8, 1))
+MOE_B, MOE_S, MOE_MAX_LEN = 4, 2048, 2112
+# The prompt (B, S) of decode against the full forward, made on a no-drop
+# copy of the config (capacity_factor = E / K, so C = Sr): at the
+# reference's capacity a decode step, whose batch is one dispatch row,
+# drops other tokens than the full forward's rows, so the two differ by
+# design.  deepseek-v3's full-capacity dispatch at 1 x 512 is (256, 512,
+# 7168) bf16, 1.9 GB.
+MOE_NODROP_PROMPT = {"deepseek-moe-16b": (4, 2048),
+                     "deepseek-v3-671b": (1, 512)}
+MOE_BUDGET_S = 180.0
+
+
+def _prefill_logits(cfg, params, toks, flash):
+    """The last position's logits of a prefill whose attention is
+    ``flash``."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    kernel_flash = L.flash_attention
+    L.flash_attention = flash
+    try:
+        return D.prefill(cfg, params, {"tokens": toks}, MOE_MAX_LEN)[1]
+    finally:
+        L.flash_attention = kernel_flash
+
+
+def _no_drop(cfg):
+    import dataclasses
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+
+
+class _Routing:
+    """Records the MoE routing decisions of one run (each moe_route call's
+    topk_idx and gidx), or replays recorded decisions in another run with
+    that run's own probabilities as the gates, through layers.moe_route.
+
+    In bf16 two correct paths round the hidden state apart, and where two
+    experts' probabilities (or two tokens' gates at an expert's capacity)
+    lie closer than that rounding, top-k picks differently: the output
+    then jumps by a gate times the difference of two experts' outputs.
+    Replaying one run's decisions in the other compares the paths under
+    test (the flash kernel, the cache) without that discontinuity; the
+    routing itself is held exactly in float32 (the float32 cut here, the
+    CPU tests against the reference)."""
+
+    def __init__(self, L):
+        self.L, self.orig = L, L.moe_route
+
+    def record(self, fn):
+        calls = []
+
+        def route(p, xr, cfg):
+            out = self.orig(p, xr, cfg)
+            calls.append((out[1], out[4]))
+            return out
+        return self._run(route, fn), calls
+
+    def replay(self, calls, fn):
+        """``calls``: (topk_idx, gidx or None) per moe_route call; None
+        recomputes each expert's tokens from the gates (no-drop)."""
+        it = iter(calls)
+
+        def route(p, xr, cfg):
+            probs = self.orig(p, xr, cfg)[0]
+            topk_idx, gidx = next(it)
+            gate = probs.new_zeros(probs.shape).scatter_(
+                -1, topk_idx, probs.gather(-1, topk_idx))
+            if gidx is None:
+                gval, gidx = self.L.top_k(gate.transpose(1, 2),
+                                          self.L.moe_capacity(
+                                              cfg, xr.shape[1]))
+            else:
+                gval = gate.transpose(1, 2).gather(-1, gidx)
+            return probs, topk_idx, gate, gval, gidx
+        out = self._run(route, fn)
+        if next(it, None) is not None:
+            raise AssertionError("the replay left recorded calls unused")
+        return out
+
+    def _run(self, route, fn):
+        self.L.moe_route = route
+        try:
+            return fn()
+        finally:
+            self.L.moe_route = self.orig
+
+
+def _flips(a_calls, b_calls, last_only: bool) -> tuple:
+    """(token decisions whose top-k expert sets differ, decisions) between
+    two runs' recorded routes; with ``last_only`` the first run is a
+    decode step (one row of the batch's tokens) and the second the full
+    forward, compared at its last position."""
+    n = tot = 0
+    for (a, _), (b, _) in zip(a_calls, b_calls):
+        if last_only:
+            a, b = a[0], b[:, -1]
+        d = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        n, tot = n + int(d.sum()), tot + d.numel()
+    return n, tot
+
+
+def phase_moe(torch, np) -> dict:
+    """The MoE family's serving path at full width (MOE_RUNS).  Returns
+    the flash kernel's launches per instance of each config's counted
+    run."""
+    t0 = time.perf_counter()
+    out = {}
+    for run in MOE_RUNS:
+        for name, rec in moe_config(torch, np, *run).items():
+            out.setdefault(name, {}).update(rec)
+    secs = time.perf_counter() - t0
+    log("moe", f"the phase took {secs:.2f} s of its {MOE_BUDGET_S:.0f} s "
+        f"budget ({'within' if secs <= MOE_BUDGET_S else 'OVER'} it)")
+    return out
+
+
+def moe_config(torch, np, arch, layers, n_dec, f32_layers) -> dict:
+    """One MoE config on the card: random bf16 weights from a seeded
+    generator, prefill of MOE_B prompts of MOE_S tokens (the bf16 flash
+    kernel once per layer, on the config's instance) and ``n_dec`` greedy
+    decode steps (the path's counted run); prefill tokens/s, ms per decode
+    step, peak memory and a profile; kernel against plain on the prefill
+    logits and decode against the full forward on the no-drop copy, each
+    with a planted fault, in bf16 and on the float32 cut; serve() once
+    with the reference CLI's defaults (pspice)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    t_cfg = time.perf_counter()
+    dev = torch.device("cuda")
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    n_layers = cfg.num_layers
+    dv = cfg.v_head_dim if cfg.use_mla else cfg.head_dim
+    inst = kfa.sm90_instance(cfg.qk_head_dim, dv)
+    name = ("flash_attention_mla" if inst == (192, 128) else
+            "flash_attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _tensors(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    attn = (f"MLA (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, "
+            f"q/k head dim {cfg.qk_head_dim}, v head dim {dv})"
+            if cfg.use_mla else f"GQA head_dim {cfg.head_dim}")
+    cut = ("" if n_layers == full.num_layers else
+           f" (depth cut from {full.num_layers}; full width)")
+    log("moe", f"{cfg.name}: {n_layers} layers{cut}, d_model {cfg.d_model}"
+        f", {cfg.num_heads} heads, {attn}, {cfg.num_experts} experts top-"
+        f"{cfg.moe_top_k} + {cfg.num_shared_experts} shared, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; {n_par} "
+        f"parameters ({n_bytes} B) drawn in {t_init:.2f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (MOE_B, MOE_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    # The path's run: prefill + greedy decode, launch counts from 0.
+    torch.cuda.synchronize()
+    _reset_flash_counts(kfa)
+    t0 = time.perf_counter()
+    cache, logits = D.prefill(cfg, params, {"tokens": toks}, MOE_MAX_LEN)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    n_prefill = kfa.flash_attention.sm90_instances[inst]
+    tok = logits.argmax(-1).to(torch.int32)
+    step_logits = []
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        lg, cache = D.decode_step(cfg, params, cache, tok)
+        step_logits.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = dict(kfa.flash_attention.sm90_instances)
+    total = kfa.flash_attention.launches
+    if (n_prefill != n_layers or counts[inst] != n_layers or
+            total != n_layers):
+        raise AssertionError(f"{cfg.name} flash launches: {n_prefill} on "
+                             f"{inst} in prefill, {counts} by instance and "
+                             f"{total} in all after decode; expected "
+                             f"{n_layers}, all on {inst}")
+    if not (bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if int(cache["pos"]) != MOE_S + n_dec:
+        raise AssertionError(f"{cfg.name}: cache pos {int(cache['pos'])}")
+    peak = torch.cuda.max_memory_allocated()
+    del step_logits
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D.prefill(cfg, params, {"tokens": toks}, MOE_MAX_LEN)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    log("moe", f"{cfg.name} prefill B={MOE_B} S={MOE_S}: {t_pre * 1e3:.2f} "
+        f"ms warm ({MOE_B * MOE_S / t_pre:.1f} tokens/s; first call "
+        f"{t_first * 1e3:.2f} ms), flash launches {n_prefill} per prefill, "
+        f"all on the bf16 wgmma kernel's <{inst[0]}, {inst[1]}> instance "
+        f"({counts}); {n_dec} greedy decode steps {t_dec * 1e3:.2f} ms "
+        f"({t_dec / n_dec * 1e3:.3f} ms per step, "
+        f"{MOE_B * n_dec / t_dec:.1f} tokens/s); every logit finite, pos "
+        f"{int(cache['pos'])}; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.3f} GiB)")
+    _profile(torch, lambda: D.prefill(cfg, params, {"tokens": toks},
+                                      MOE_MAX_LEN),
+             f"{cfg.name} one prefill", "moe")
+
+    def steps():
+        c, t = cache, tok
+        for _ in range(8):
+            _, c = D.decode_step(cfg, params, c, t)
+    _profile(torch, steps, f"{cfg.name} 8 decode steps", "moe")
+    del cache
+
+    # bf16: the kernel against the plain flash on the prefill logits, and
+    # decode against the full forward on the no-drop copy, with a decode
+    # step written one slot off that must read beyond the bound.
+    nb, ns = MOE_NODROP_PROMPT[arch]
+    ptoks = toks[:nb, :ns].contiguous()
+    errs = {}
+
+    def report(label, c, tol, pinned=""):
+        e = errs[label]
+        log("moe", f"{cfg.name} {label} ({c.num_layers} layers) logits "
+            f"max|d|/max|logits|{pinned}: kernel vs plain (prefill {MOE_B} "
+            f"x {MOE_S}) {e['kernel_vs_plain']:.3e}, no-drop decode vs full "
+            f"forward ({nb} x {ns} + 1) {e['decode_vs_full']:.3e}, planted "
+            f"fault (decode one slot off) {e['fault_decode']:.3e}; bound "
+            f"{tol}")
+
+    def check_exact(label, c, p, tol):
+        plain = _prefill_logits(c, p, toks, kfa.flash_attention_plain)
+        kern = _prefill_logits(c, p, toks, kfa.flash_attention)
+        _, step, want, bad = _answer(torch, _no_drop(c), p, ptoks,
+                                     kfa.flash_attention, ns + 8)
+        errs[label] = dict(kernel_vs_plain=rel_err(torch, kern, plain),
+                           decode_vs_full=rel_err(torch, step, want),
+                           fault_decode=rel_err(torch, bad, want), tol=tol)
+        report(label, c, tol)
+
+    def check_noise(label, c, p, tol):
+        """bf16: both comparisons with one run's routing replayed in the
+        other (_Routing); the unpinned readings and the decisions that
+        differ are logged beside them."""
+        from repro_torch.models import layers as L
+        rt = _Routing(L)
+        plain, r_plain = rt.record(lambda: _prefill_logits(
+            c, p, toks, kfa.flash_attention_plain))
+        kern, r_kern = rt.record(lambda: _prefill_logits(
+            c, p, toks, kfa.flash_attention))
+        pinned = rt.replay(r_plain, lambda: _prefill_logits(
+            c, p, toks, kfa.flash_attention))
+        nd = _no_drop(c)
+        cache, lg = D.prefill(nd, p, {"tokens": ptoks}, ns + 8)
+        tok = lg.argmax(-1).to(torch.int32)
+        step, r_dec = rt.record(
+            lambda: D.decode_step(nd, p, cache, tok)[0])
+        want, r_full = rt.record(
+            lambda: _full_logits(torch, nd, p, ptoks, tok))
+        pins = [(ti[:, -1][None], None) for ti, _ in r_full]
+        step_p = rt.replay(pins, lambda: D.decode_step(nd, p, cache, tok)[0])
+        bad_p = rt.replay(pins, lambda: D.decode_step(
+            nd, p, dict(cache, pos=cache["pos"] + 1), tok)[0])
+        del cache
+        errs[label] = dict(kernel_vs_plain=rel_err(torch, pinned, plain),
+                           decode_vs_full=rel_err(torch, step_p, want),
+                           fault_decode=rel_err(torch, bad_p, want), tol=tol)
+        report(label, c, tol, " with the routing replayed")
+        kf, kt = _flips(r_kern, r_plain, last_only=False)
+        df, dt = _flips(r_dec, r_full, last_only=True)
+        log("moe", f"{cfg.name} {label} unpinned (each run routes by its own"
+            f" probabilities): kernel vs plain "
+            f"{rel_err(torch, kern, plain):.3e} with {kf} of {kt} "
+            f"(layer, token) top-{c.moe_top_k} choices differing; no-drop "
+            f"decode vs full {rel_err(torch, step, want):.3e} with {df} of "
+            f"{dt} choices of the decoded tokens differing")
+
+    check_noise("bf16", cfg, params, NOISE_TOL)
+
+    # The port's serve() with the reference CLI's defaults.
+    t0 = time.perf_counter()
+    out = srv.serve(cfg, params, requests=64, rate=50.0, policy="pspice",
+                    slots=16, slo=1.0, max_len=96, device=dev,
+                    log=lambda s: log("moe", f"{cfg.name} {s}"))
+    m = out["metrics"]
+    log("moe", f"{cfg.name} serve pspice: decode_step "
+        f"{out['step_cost'] * 1e3:.3f} ms at B=16, {out['decode_steps']} "
+        f"real decode steps, metrics {m}, wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    if out["finished"] != 64 or m["completed"] + m["evicted"] != 64:
+        raise AssertionError(f"{cfg.name} serve: {out['finished']} of 64 "
+                             "requests finished")
+
+    # The float32 cut (TF32 is off): deepseek-moe-16b's first layers as a
+    # float32 copy, deepseek-v3 drawn anew once its bf16 weights are gone.
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers)
+    if arch == "deepseek-moe-16b":
+        p32 = {k: v.to(torch.float32, copy=True)
+               for k, v in params.items() if k != "layers"}
+        p32["layers"] = _tree_map(lambda t: t[:f32_layers].to(
+            torch.float32, copy=True), params["layers"])
+        del params
+    else:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        p32 = T.init_params(cfg32, seed=0, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_exact("f32", cfg32, p32, EXACT_TOL)
+    del p32
+    bad = [f"{label} {k} {v!r}" for label, e in errs.items()
+           for k, v in e.items() if k in ("kernel_vs_plain", "decode_vs_full")
+           and not v <= e["tol"]]
+    bad += [f"{label}: the planted fault passed the bound "
+            f"({e['fault_decode']!r})" for label, e in errs.items()
+            if not e["fault_decode"] > e["tol"]]
+    if bad:
+        raise AssertionError(f"{cfg.name} logits beyond bounds: {bad}")
+    log("moe", f"{cfg.name}: bf16 within {NOISE_TOL}, float32 within "
+        f"{EXACT_TOL}, each planted fault beyond its bound; the config took "
+        f"{time.perf_counter() - t_cfg:.2f} s")
+    key = "launches" if name == "flash_attention_mla" else "moe_launches"
+    return {name: {key: counts[inst]}}
 
 
 def phase_analysis() -> None:
@@ -3402,7 +3845,8 @@ def main() -> int:
                       ("dist", lambda: phase_dist(torch, np)),
                       ("profile", lambda: [phase_profile(torch, b) for b in
                                            ("cuda", "cuda_block")]),
-                      ("model", lambda: phase_model(torch, np))):
+                      ("model", lambda: phase_model(torch, np)),
+                      ("moe", lambda: phase_moe(torch, np))):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -3411,7 +3855,8 @@ def main() -> int:
         log(phase, f"phase done in {timings[phase]:.2f} s")
         if phase == "kernels":
             record = out
-        if phase in ("main", "runtime", "resilience", "dist", "model"):
+        if phase in ("main", "runtime", "resilience", "dist", "model",
+                     "moe"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -3438,7 +3883,8 @@ def main() -> int:
                       "lanes_ms", "lanes_plain_ms", "lanes_bound_ms",
                       "lanes_device_us",
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
-                      "trim_lane_by_lane_launches", "dist_launches"):
+                      "trim_lane_by_lane_launches", "dist_launches",
+                      "moe_launches", "tflops"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

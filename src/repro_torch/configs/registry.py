@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``).  The config modules beside it are copies of
 the reference's, which are data.  ``input_specs`` waits for the dry-run
-slice (ROADMAP queue 1 item 11)."""
+slice (ROADMAP queue 1 item 6f)."""
 from __future__ import annotations
 
 import importlib

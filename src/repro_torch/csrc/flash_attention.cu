@@ -21,9 +21,12 @@
 // Design.  One CTA of 256 threads per (batch·head, q tile of 64 rows); the
 // CTA loops over key tiles of 64 in place of the TPU's sequential grid axis,
 // and stops at the causal diagonal (the tiles above it are never visited).
-// Shared memory (dynamic, ~83 KB at D = 128, so two CTAs fit an SM): the
-// q tile, one buffer that holds the K tile and then the V tile, and the
-// (64 x 64) probability tile, all float32.  Thread (ty, tx) of the 16 x 16
+// Shared memory (dynamic): the q tile, one buffer that holds the K tile
+// and then the V tile, and the (64 x 64) probability tile, all float32;
+// 84 992 B at D = Dv = 128 (two CTAs fit an SM), 117 760 B at MLA's
+// (D, Dv) = (192, 128) (one CTA an SM).  D goes up to 192, Dv up to 128:
+// a thread's output columns 4 tx + 64 e (e < 2) cover 128, while the
+// score loop walks D in steps of 4 at any width.  Thread (ty, tx) of the 16 x 16
 // CTA owns rows ty + 16 i (i < 4) of the tile: for the scores the key
 // columns tx + 16 j (j < 4), for the output the dims 4 tx + 64 e .. +3
 // (e < 2), so m, l and the rescale of the accumulator stay in that
@@ -44,7 +47,8 @@ namespace {
 
 constexpr int kTile = 64;        // query rows per CTA and keys per KV tile
 constexpr int kThreads = 256;    // 16 x 16
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 192;      // q/k head dim (MLA's 128 + 64)
+constexpr int kMaxDv = 128;     // v head dim: 2 x 64 output columns
 constexpr int kPStride = kTile + 4;
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -282,15 +286,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Returns the cudaError_t of the launch (0 on success).  The wrapper
 // (repro_torch/kernels/flash_attention.py) has checked the shapes: D and Dv
-// multiples of 8 and at most 128, H a multiple of KVH, B*H at most 65535,
-// 16-byte aligned contiguous float32 tensors on one device.
+// multiples of 8, D at most 192 and Dv at most 128, H a multiple of KVH,
+// B*H at most 65535, 16-byte aligned contiguous float32 tensors on one
+// device.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int KVH, int D, int Dv,
                                       int causal, int q_offset, float scale,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxD || KVH <= 0 ||
+  if (D <= 0 || D > kMaxD || Dv <= 0 || Dv > kMaxDv || KVH <= 0 ||
       H % KVH != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,10 +33,17 @@
 //                rounded to bf16 pairs, is already the A fragment of the
 //                second product, and V is read key-major as a transposed B.
 // The epilogue scales O by 1 / max(l, 1e-30), rounds to bf16 and stores
-// rows below Sq and columns below Dv from the registers.  D and Dv (multiples
-// of 8 up to 128) pad with zeros to 64 or 128: TMA fills the columns past
-// D and Dv, and the rows past Sq and Sk, with zeros, which change no
-// product.  The tensor maps are encoded on the host for every call through
+// rows below Sq and columns below Dv from the registers.  D and Dv
+// (multiples of 8) pad with zeros to one of three instances (DK, DV):
+// (64, 64), (128, 128), and (192, 128) for MLA's prefill (q/k head dim
+// 128 + 64 of decoupled RoPE, v head dim 128; deepseek-v3).  TMA fills the
+// columns past D and Dv, and the rows past Sq and Sk, with zeros, which
+// change no product.  The instances differ only in DK / 64 boxes per Q
+// tile and K stage and DK / 16 k steps of S = Q·Kᵀ (12 at DK = 192, over
+// three swizzled boxes); S and O stay 64 x 128 fragments, so the
+// registers do not grow with DK.  Shared memory at (192, 128): Q 48 KB,
+// the K ring 2 x 48 KB, the V ring 2 x 32 KB, 214 088 B with the barriers
+// and the alignment slack, of the 232 448 B a CTA may take.  The tensor maps are encoded on the host for every call through
 // the driver's entry point (cudaGetDriverEntryPoint), so the library links
 // without -lcuda.  The build passes -fmad=false for the bit-exact CEP
 // kernels; the softmax writes its one FMA per score as fmaf.
@@ -513,6 +520,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const int col0 = 2 * (lane % 4);
     // Descriptors are built per tile from each operand's first k step; a
     // k step adds its offset in 16-byte units to the start-address field.
+    // This warpgroup's Q rows start 64 rows of 128 bytes into each of the
+    // tile's DK / 64 boxes; the k step's box offset is added per step.
     const uint32_t q_smem = sbase + L::q + wg * 64 * 128;
 
     float o[DV / 2];
@@ -713,9 +722,11 @@ extern "C" int wgmma_probe_launch(const void* a, const void* b, const void* v,
 // k (B, Sk, KVH, D), v (B, Sk, KVH, Dv), out (B, Sq, H, Dv), bf16,
 // contiguous, 16-byte aligned (the wrapper,
 // repro_torch/kernels/flash_attention.py, has checked them).  D and Dv
-// are multiples of 8 up to 128, padded with zeros to 64 or 128; scale > 0.
+// are multiples of 8, D up to 192 and Dv up to 128, padded with zeros to
+// an instance (DK, DV) of (64, 64), (128, 128) or (192, 128); scale > 0.
 // Returns 0, a cudaError_t, or the negated CUresult of a failed
-// tensor-map encode.
+// tensor-map encode.  The instance is chosen here and mirrored by the
+// wrapper's sm90_instance, which counts launches per instance.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int Sq, int Sk, int H, int KVH,
@@ -723,7 +734,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            int q_offset, float scale,
                                            void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (D <= 0 || D > 128 || D % 8 || Dv <= 0 || Dv > 128 || Dv % 8 ||
+  if (D <= 0 || D > 192 || D % 8 || Dv <= 0 || Dv > 128 || Dv % 8 ||
       KVH <= 0 || H % KVH || Sk <= 0 || q_offset < 0 || !(scale > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -732,6 +743,10 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
     return launch_sm90<64, 64>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv, causal,
                                q_offset, scale, s);
   }
-  return launch_sm90<128, 128>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv, causal,
+  if (D <= 128) {
+    return launch_sm90<128, 128>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv,
+                                 causal, q_offset, scale, s);
+  }
+  return launch_sm90<192, 128>(q, k, v, out, B, Sq, Sk, H, KVH, D, Dv, causal,
                                q_offset, scale, s);
 }

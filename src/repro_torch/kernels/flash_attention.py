@@ -13,6 +13,11 @@ the other.  Each dtype has one kernel:
 - float32: ``csrc/flash_attention.cu``, scalar float32 FMAs, the
   exactness path (TF32 tensor cores would not hold its 2e-5 bar).
 
+Both take D (q/k head dim) a multiple of 8 up to 192 and Dv up to 128:
+the dense models' head dims and MLA's (D, Dv) = (192, 128) (deepseek-v3's
+128 + 64 of decoupled RoPE).  The bf16 kernel pads them to one of the
+instances in ``SM90_INSTANCES`` and counts its launches per instance.
+
 The plain version transliterates ``layers.flash_attention``: the same
 ``_divisor_chunk`` chunking, the same ``causal_skip`` pair list and the
 same cast of the probabilities to v's type before the PV product, which
@@ -107,6 +112,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
+MAX_D, MAX_DV = 192, 128
+# The bf16 kernel's (DK, DV) instances (flash_attention_sm90.cu).
+SM90_INSTANCES = ((64, 64), (128, 128), (192, 128))
+
+
+def sm90_instance(D: int, Dv: int) -> tuple[int, int]:
+    """The (DK, DV) instance the bf16 kernel runs for head dims (D, Dv):
+    the smallest that holds both (the launcher's dispatch)."""
+    return next(i for i in SM90_INSTANCES if D <= i[0] and Dv <= i[1])
 
 
 def _check(q, k, v, q_offset, scale):
@@ -122,10 +136,11 @@ def _check(q, k, v, q_offset, scale):
     if KVH == 0 or H % KVH:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {KVH} KV heads")
-    for name, d in (("head_dim", D), ("v head_dim", Dv)):
-        if not (0 < d <= 128 and d % 8 == 0):
-            raise ValueError(f"flash_attention: the kernel takes a {name} "
-                             f"that is a multiple of 8 up to 128, got {d}")
+    for name, d, top in (("head_dim", D, MAX_D), ("v head_dim", Dv, MAX_DV)):
+        if not (0 < d <= top and d % 8 == 0):
+            raise ValueError(f"flash_attention: the kernels take a {name} "
+                             f"that is a multiple of 8 up to {top} (D up to "
+                             f"{MAX_D}, Dv up to {MAX_DV}), got {d}")
     if Sk == 0:
         raise ValueError("flash_attention: the kernel needs at least one key")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -156,9 +171,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv); returns
     (B, Sq, H, Dv) in q's type.  On CUDA tensors a kernel runs (D and
-    Dv multiples of 8 up to 128, contiguous): the tensor-core kernel for
-    bfloat16 (a positive scale), the SIMT kernel for float32.  On CPU
-    tensors the plain version runs with its default chunks.
+    Dv multiples of 8, D up to 192 and Dv up to 128, contiguous): the
+    tensor-core kernel for bfloat16 (a positive scale), the SIMT kernel
+    for float32.  On CPU tensors the plain version runs with its default
+    chunks.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -179,6 +195,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(lib.flash_attention_sm90_launch(*args),
                      "flash_attention (bf16)")
         flash_attention.sm90_launches += 1
+        flash_attention.sm90_instances[sm90_instance(D, Dv)] += 1
     else:
         _build.check(lib.flash_attention_launch(*args),
                      "flash_attention (float32)")
@@ -186,9 +203,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-# Launches of either kernel, and of the bf16 tensor-core kernel alone.
+# Launches of either kernel, of the bf16 tensor-core kernel alone, and of
+# the bf16 kernel by (DK, DV) instance.
 flash_attention.launches = 0
 flash_attention.sm90_launches = 0
+flash_attention.sm90_instances = dict.fromkeys(SM90_INSTANCES, 0)
 
 
 def wgmma_probe(a: torch.Tensor, b: torch.Tensor,

@@ -28,9 +28,15 @@ def _tensor(a, device, dtype):
     return t.to(device)
 
 
+# Leaves a model keeps in float32 whatever its type (the MoE router: the
+# reference draws it in float32 in a bf16 model and routes in float32).
+FLOAT32_LEAVES = ("router",)
+
+
 def _tree(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _tree(v, device, dtype) for k, v in tree.items()}
+        return {k: _tree(v, device, None if k in FLOAT32_LEAVES else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree(v, device, dtype) for v in tree)
     return _tensor(tree, device, dtype)
@@ -39,7 +45,8 @@ def _tree(tree, device, dtype):
 def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
     """A nested dict of arrays as the port's tensors: the reference's
     parameters, or its cache (``cache_from_numpy``); floating leaves cast
-    to ``dtype`` when it is given, integer ones (``pos``) kept."""
+    to ``dtype`` when it is given, integer ones (``pos``) and the
+    ``FLOAT32_LEAVES`` (the MoE router) kept as they are."""
     return _tree(tree, resolve_device(device), dtype)
 
 

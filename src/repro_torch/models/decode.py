@@ -1,17 +1,24 @@
 """Serving forward passes: prefill (cache build) and single-token decode
-(port of ``repro.models.decode``, the dense non-MLA path).
+(port of ``repro.models.decode``: the dense and MoE paths, GQA and MLA
+attention).
 
 Prefill runs the flash kernel in every layer; decode attends densely over
 the cache, one token's scores over the Smax cached positions in float32
-(``_gqa_cached_attn``), as the reference leaves it to XLA.
+(``_gqa_cached_attn``), as the reference leaves it to XLA.  MLA decode
+absorbs ``wk_b`` into the query and ``wv_b`` into the output and scores
+in the compressed kv_lora_rank space (``_mla_cached_attn``), so its cache
+holds only (c_kv, k_rope) per token.  An MoE layer decodes the whole
+batch as one dispatch row (``layers.moe_block``).
 
-The cache is ``{"pos": () int32, "k": (L, B, Smax, KVH, hd), "v": ...}``.
-Unlike the reference's immutable arrays, ``decode_step`` writes the new
-token's K/V into the cache tensors in place (a copy of the whole cache per
-step would cost more than the step) and returns a new dict that shares
-them, with ``pos`` advanced.  The write position is clamped into
-[0, Smax - 1] as ``jax.lax.dynamic_update_slice`` clamps it.  SSM, hybrid,
-MLA and encoder-decoder configs raise ``NotImplementedError``.
+The cache is ``{"pos": () int32, "k": (L, B, Smax, KVH, hd), "v": ...}``,
+or with MLA ``{"pos", "ckv": (L, B, Smax, rkv), "krope": (L, B, Smax,
+dr)}``.  Unlike the reference's immutable arrays, ``decode_step`` writes
+the new token's entries into the cache tensors in place (a copy of the
+whole cache per step would cost more than the step) and returns a new
+dict that shares them, with ``pos`` advanced.  The write position is
+clamped into [0, Smax - 1] as ``jax.lax.dynamic_update_slice`` clamps it.
+SSM, hybrid and encoder-decoder configs raise ``NotImplementedError``
+(ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -36,10 +43,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    lead = (cfg.num_layers, batch, max_len)
+    if cfg.use_mla:
+        cache["ckv"] = torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
+                                   device=dev)
+        cache["krope"] = torch.zeros(lead + (cfg.rope_head_dim,), dtype=dt,
+                                     device=dev)
+    else:
+        shape = lead + (cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
+
+
+def _cache_names(cfg: ModelConfig) -> tuple[str, str]:
+    """The two per-layer cache tensors of this config."""
+    return ("ckv", "krope") if cfg.use_mla else ("k", "v")
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +96,47 @@ def _gqa_cached_attn(p: dict, x: torch.Tensor, kc: torch.Tensor,
     return torch.einsum("bhk,hkd->bd", o, p["wo"]), kc, vc
 
 
+def _mla_cached_attn(p: dict, x: torch.Tensor, ckv: torch.Tensor,
+                     krope: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig):
+    """Absorbed MLA decode.  x: (B, d) one token; ckv (B, Smax, rkv) and
+    krope (B, Smax, dr), written in place at ``pos``.  The scores are taken
+    in the compressed space, in float32 as the reference computes them.
+    Returns (out (B, d), ckv, krope)."""
+    posv = pos.expand(x.shape[0], 1)
+    ckv_new, krope_new = L.mla_compress(p, x[:, None], cfg, posv)
+    at = pos.clamp(0, ckv.shape[1] - 1).reshape(1).long()
+    ckv.index_copy_(1, at, ckv_new.to(ckv.dtype))
+    krope.index_copy_(1, at, krope_new.to(krope.dtype))
+    q_nope, q_rope = L.mla_queries(p, x[:, None], cfg, posv)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]            # (B, H, ·)
+    # Absorb W_kb into the query: score in the compressed space.
+    q_t = torch.einsum("bhn,rhn->bhr", q_nope.float(), p["wk_b"].float())
+    s = torch.einsum("bhr,bsr->bhs", q_t, ckv.float()) + torch.einsum(
+        "bhr,bsr->bhs", q_rope.float(), krope.float())
+    s = s / math.sqrt(cfg.qk_head_dim)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = torch.where(valid[None, None, :], s,
+                    torch.full_like(s, float("-inf")))
+    w = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", w, ckv.float())
+    o = torch.einsum("bhr,rhv->bhv", ctx, p["wv_b"].float())
+    out = torch.einsum("bhv,hvd->bd", o.to(x.dtype), p["wo"])
+    return out, ckv, krope
+
+
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
+    """The layer's feed-forward half on h (B, S, d) or (B, d): MoE (a
+    decode batch is one dispatch row), the MLP, or nothing."""
+    if cfg.moe:
+        if h.dim() == 2:
+            return L.moe_block(lp["moe"], h[:, None], cfg)[0][:, 0]
+        return L.moe_block(lp["moe"], h, cfg)[0]
+    if cfg.d_ff:
+        return L.mlp_block(lp["mlp"], h)
+    return torch.zeros_like(h)
+
+
 # ---------------------------------------------------------------------------
 # Decode step (one token for the whole batch)
 # ---------------------------------------------------------------------------
@@ -83,22 +144,23 @@ def _gqa_cached_attn(p: dict, x: torch.Tensor, kc: torch.Tensor,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) int — the newest token per sequence.  Returns (logits
-    (B, V), the cache advanced by one position; its K/V tensors are the
-    input's, written in place)."""
+    (B, V), the cache advanced by one position; its K/V (or MLA's
+    ckv/krope) tensors are the input's, written in place)."""
     check_supported(cfg)
     pos = cache["pos"]
     x = params["embed"][tokens.long()]                 # (B, d)
+    attn = _mla_cached_attn if cfg.use_mla else _gqa_cached_attn
 
     def body(x, inp):
         lp, kc, vc = inp
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        h, _, _ = _gqa_cached_attn(lp["attn"], h, kc, vc, pos, cfg)
+        h, _, _ = attn(lp["attn"], h, kc, vc, pos, cfg)
         x = x + h
         h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        h = L.mlp_block(lp["mlp"], h) if cfg.d_ff else torch.zeros_like(x)
-        return x + h, None
+        return x + _ffn(cfg, lp, h), None
 
-    x = SET.scan(body, x, (params["layers"], cache["k"], cache["v"]))
+    a, b = _cache_names(cfg)
+    x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
     h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head_logits(cfg, params, h[:, None])[:, 0]
     new_cache = dict(cache)
@@ -125,16 +187,20 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     def body(x, inp):
         lp, kc, vc = inp
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = L.attention_qkv(lp["attn"], h, cfg, pos)
-        o = L.flash_attention(q, k, v, causal=True)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        if cfg.use_mla:
+            k, v = L.mla_compress(lp["attn"], h, cfg, pos)  # (ckv, krope)
+            x = x + L.mla_block(lp["attn"], h, cfg, compressed=(k, v))
+        else:
+            q, k, v = L.attention_qkv(lp["attn"], h, cfg, pos)
+            o = L.flash_attention(q, k, v, causal=True)
+            x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        h = L.mlp_block(lp["mlp"], h) if cfg.d_ff else torch.zeros_like(x)
         kc[:, :Sq] = k.to(kc.dtype)
         vc[:, :Sq] = v.to(vc.dtype)
-        return x + h, None
+        return x + _ffn(cfg, lp, h), None
 
-    x = SET.scan(body, x, (params["layers"], cache["k"], cache["v"]))
+    a, b = _cache_names(cfg)
+    x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
     h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head_logits(cfg, params, h[:, -1:, :])[:, 0]
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=x.device)

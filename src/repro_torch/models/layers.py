@@ -1,12 +1,13 @@
-"""Shared layers of the dense model zoo (port of ``repro.models.layers``):
-norms, RoPE, flash attention, GQA attention and the gated MLP.
+"""Shared layers of the model zoo (port of ``repro.models.layers``):
+norms, RoPE, flash attention, GQA attention, MLA attention (deepseek-v3's
+compressed KV with decoupled RoPE), the gated MLP and the capacity-based
+top-k MoE.
 
 Parameters are nested dicts of tensors with the reference's layouts
-(``wq`` (d, H, hd), ``wo`` (H, hd, d)), and every function is pure.
-``flash_attention`` is the kernel's wrapper: the hand-written CUDA kernel
-for CUDA tensors, its plain version for CPU tensors.  MLA
-(``layers.py:254-308``) and MoE (``:332-391``) wait for later slices
-(ROADMAP queue 1 item 11).
+(``wq`` (d, H, hd), ``wo`` (H, hd, d), expert stacks (E, d, ff)), and
+every function is pure.  ``flash_attention`` is the kernel's wrapper: the
+hand-written CUDA kernel for CUDA tensors, its plain version for CPU
+tensors; MLA's prefill runs it at (D, Dv) = (192, 128).
 """
 from __future__ import annotations
 
@@ -33,11 +34,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
                lead: tuple = ()) -> torch.Tensor:
-    """N(0, 1/d_in) weights of shape lead + (d_in, d_out), drawn in float32
-    from ``gen`` (on the device the weights go to) and cast to ``dtype``."""
-    w = torch.randn(lead + (d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+    """N(0, 1/d_in) weights of shape lead + (d_in, d_out), drawn from
+    ``gen`` (on the device the weights go to) in float32 one (d_in, d_out)
+    matrix at a time and cast to ``dtype``: a whole stack drawn in float32
+    at once (deepseek-moe-16b's 28 x 64 experts, 20.7 GB) would not fit
+    beside the weights already drawn."""
+    w = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    scale = 1.0 / math.sqrt(d_in)
+    for m in w.view(-1, d_in, d_out):
+        m.copy_(torch.randn((d_in, d_out), generator=gen,
+                            dtype=torch.float32, device=gen.device)
+                .mul_(scale))
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -125,3 +133,160 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, *,
 def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (deepseek-v3): low-rank compressed KV + decoupled RoPE
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, *,
+             lead: tuple = ()) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    dense = lambda a, b: init_dense(gen, a, b, dtype, lead=lead)  # noqa: E731
+    return {
+        "wq_a": dense(d, rq),                                    # q down
+        "wq_b": dense(rq, H * (dn + dr)).reshape(lead + (rq, H, dn + dr)),
+        "wkv_a": dense(d, rkv + dr),                             # kv down+rope
+        "wk_b": dense(rkv, H * dn).reshape(lead + (rkv, H, dn)),
+        "wv_b": dense(rkv, H * dv).reshape(lead + (rkv, H, dv)),
+        "wo": dense(H * dv, d).reshape(lead + (H, dv, d)),
+        "norm_kv": torch.ones(lead + (rkv,), dtype=dtype, device=gen.device),
+        "norm_q": torch.ones(lead + (rq,), dtype=dtype, device=gen.device),
+    }
+
+
+def mla_compress(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 pos: torch.Tensor):
+    """x -> (c_kv (B, S, rkv), k_rope (B, S, dr)): the compressed cache
+    entries."""
+    kv_a = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv = rmsnorm(kv_a[..., :cfg.kv_lora_rank], p["norm_kv"], cfg.norm_eps)
+    k_rope = kv_a[..., cfg.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_queries(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                pos: torch.Tensor):
+    """x -> (q_nope (B, S, H, dn), q_rope (B, S, H, dr))."""
+    dn = cfg.head_dim
+    q_a = rmsnorm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["norm_q"],
+                  cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_a, p["wq_b"])         # (B,S,H,dn+dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
+
+
+def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              compressed: tuple | None = None) -> torch.Tensor:
+    """MLA for prefill: expand the compressed KV per head and run the flash
+    kernel at (D, Dv) = (qk_head_dim, v_head_dim).  ``compressed`` takes
+    ``mla_compress``'s (c_kv, k_rope) where the caller has them already
+    (prefill stores them in the cache)."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    c_kv, k_rope = compressed or mla_compress(p, x, cfg, pos)
+    q_nope, q_rope = mla_queries(p, x, cfg, pos)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["wv_b"]).contiguous()
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    # The shared k_rope broadcast to every head; cat makes k contiguous,
+    # as the kernel requires.
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
+    out = flash_attention(q, k, v, causal=True,
+                          scale=1.0 / math.sqrt(cfg.qk_head_dim))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (shared + routed experts, capacity-based top-k dispatch)
+# ---------------------------------------------------------------------------
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest values and their
+    indices, largest first and, among equal values, the lower index first.
+    ``torch.topk`` promises no order among ties, and the MoE's second top-k
+    runs mostly over zeros, so ties decide which tokens an expert takes: a
+    stable descending sort keeps lax's order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, rows: int) -> int:
+    """Tokens an expert takes from a row of ``rows`` tokens:
+    C = min(Sr, max(1, int(Sr * K * capacity_factor / E)))."""
+    return min(rows, max(1, int(rows * cfg.moe_top_k * cfg.capacity_factor
+                                / cfg.num_experts)))
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, *,
+             lead: tuple = ()) -> dict:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {
+        # The router stays float32 in a bf16 model, as the reference's.
+        "router": init_dense(gen, d, E, torch.float32, lead=lead),
+        "wi": init_dense(gen, d, ff, dtype, lead=lead + (E,)),
+        "wg": init_dense(gen, d, ff, dtype, lead=lead + (E,)),
+        "wo": init_dense(gen, ff, d, dtype, lead=lead + (E,)),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, ff * cfg.num_shared_experts, dtype,
+                               lead=lead)
+    return p
+
+
+def moe_route(p: dict, xr: torch.Tensor, cfg: ModelConfig):
+    """The router and the dispatch over rows xr (R, Sr, d): (probs (R, Sr,
+    E), topk_idx (R, Sr, K), gate (R, Sr, E) — each token's top-k probs,
+    zero elsewhere —, gval and gidx (R, E, C) — each expert's C tokens of
+    the largest gate and their gates).  Logits in float32."""
+    logits = torch.einsum("rsd,de->rse", xr.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    topk_val, topk_idx = top_k(probs, cfg.moe_top_k)
+    gate = torch.zeros(probs.shape, dtype=torch.float32, device=xr.device)
+    gate.scatter_(-1, topk_idx, topk_val)
+    gval, gidx = top_k(gate.transpose(1, 2),
+                       moe_capacity(cfg, xr.shape[1]))
+    return probs, topk_idx, gate, gval, gidx
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Capacity-based top-k MoE.  Returns (out, aux_loss).
+
+    Dispatch is per row (a batch row for prefill; the whole decode batch
+    becomes one row when S == 1): each expert takes the C tokens of the
+    row with the largest gate, C = ``moe_capacity``, so a token routed to
+    an expert that is full is dropped there.  A decode step's output thus
+    depends on the rest of its batch, as the reference's does.  The
+    experts' tokens are gathered by index into an (E, R·C, d) batch, never
+    through a broadcast over every (row, expert, token) triple.  The
+    combine scales each expert's output by its gate in the activation
+    type and adds it into the (R, Sr, d) output in that type (in bf16
+    the sum rounds in bf16, as the reference's scatter-add).
+    """
+    B, S, d = x.shape
+    E = cfg.num_experts
+    xr = x.reshape(1, B, d) if S == 1 else x                 # (R, Sr, d)
+    R, Sr, _ = xr.shape
+    probs, _, gate, gval, gidx = moe_route(p, xr, cfg)
+    C = gidx.shape[-1]
+    rows = torch.arange(R, device=x.device)[None, :, None]
+    xe = xr[rows, gidx.transpose(0, 1)].reshape(E, R * C, d)  # (E, R·C, d)
+    h = torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(
+        xe, p["wi"])
+    ye = torch.bmm(h, p["wo"])                               # (E, R·C, d)
+    ye = ye * gval.transpose(0, 1).reshape(E, R * C, 1).to(ye.dtype)
+    dest = (rows * Sr + gidx.transpose(0, 1)).reshape(-1)    # e, r, c order
+    out = torch.zeros((R * Sr, d), dtype=ye.dtype, device=x.device)
+    out.index_add_(0, dest, ye.reshape(-1, d))
+    out = out.reshape(R, Sr, d)
+    # Load-balance aux loss (Switch-style).
+    me = probs.mean(dim=(0, 1))
+    ce = (gate > 0).float().mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    if cfg.num_shared_experts:
+        out = out + mlp_block(p["shared"], xr).to(out.dtype)
+    return out.reshape(B, S, d).to(x.dtype), aux

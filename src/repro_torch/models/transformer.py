@@ -1,14 +1,14 @@
-"""The dense decoder-LM of the model zoo (port of
-``repro.models.transformer``): init, embedding, the layer stack's forward
-and the LM head.
+"""The decoder-LM of the model zoo (port of ``repro.models.transformer``):
+init, embedding, the layer stack's forward and the LM head.
 
 Covers the dense families (starcoder2, qwen1.5 with QKV bias, internlm2,
-minitron) and the VLM's LM backbone (internvl2, patch embeddings
-prepended).  Layer parameters stay stacked along a leading L axis and
+minitron), the VLM's LM backbone (internvl2, patch embeddings
+prepended) and the MoE family (deepseek-moe-16b; deepseek-v3 with MLA
+attention).  Layer parameters stay stacked along a leading L axis and
 the layer loop is ``settings.scan`` (a Python loop); the forward is
 inference only, so the reference's ``remat`` has nothing to do here.
-MoE, MLA, SSM/hybrid and encoder-decoder configs raise
-``NotImplementedError`` naming the ROADMAP item that ports them;
+SSM/hybrid and encoder-decoder configs raise ``NotImplementedError``
+naming the ROADMAP item that ports them (queue 1 item 6);
 ``chunked_ce_loss`` and ``forward_train`` wait for the training slice.
 """
 from __future__ import annotations
@@ -22,19 +22,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
 from repro_torch.models.config import ModelConfig
 
-# What each unported family waits for (ROADMAP queue 1 item 11).
-_LATER = (("moe", "MoE layers"), ("use_mla", "MLA attention"),
-          ("ssm", "SSM and hybrid (mamba2/zamba2) layers"),
-          ("enc_dec", "the encoder-decoder (whisper)"))
+# What each unported family waits for (ROADMAP queue 1 item 6).
+_LATER = (("ssm", "6c", "SSM and hybrid (mamba2/zamba2) layers"),
+          ("enc_dec", "6d", "the encoder-decoder (whisper)"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config whose layers the port does not have yet."""
-    for flag, what in _LATER:
+    for flag, item, what in _LATER:
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet — ROADMAP queue 1 "
-                f"item 11 ({what}); the port serves the dense configs")
+                f"item 6 ({item}: {what}); the port serves the dense and "
+                "MoE configs")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -57,16 +57,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     embed = torch.randn((cfg.vocab_size, d), generator=gen,
                         dtype=torch.float32, device=dev)
     params: dict = {
-        "embed": (embed * (1.0 / math.sqrt(d))).to(dtype),
+        "embed": embed.mul_(1.0 / math.sqrt(d)).to(dtype),
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
     del embed
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense(gen, d, cfg.vocab_size, dtype)
+    init_attn = L.init_mla if cfg.use_mla else L.init_attention
     layers = {"norm1": torch.ones((Ln, d), dtype=dtype, device=dev),
-              "attn": L.init_attention(gen, cfg, dtype, lead=(Ln,)),
+              "attn": init_attn(gen, cfg, dtype, lead=(Ln,)),
               "norm2": torch.ones((Ln, d), dtype=dtype, device=dev)}
-    if cfg.d_ff:
+    if cfg.moe:
+        layers["moe"] = L.init_moe(gen, cfg, dtype, lead=(Ln,))
+    elif cfg.d_ff:
         layers["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, lead=(Ln,))
     params["layers"] = layers
     return params
@@ -80,10 +83,18 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor):
     """One backbone layer (no cache).  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    h = L.attention_block(lp["attn"], h, cfg)
+    if cfg.use_mla:
+        h = L.mla_block(lp["attn"], h, cfg)
+    else:
+        h = L.attention_block(lp["attn"], h, cfg)
     x = x + h
     h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    h = L.mlp_block(lp["mlp"], h) if cfg.d_ff else torch.zeros_like(x)
+    if cfg.moe:
+        h, aux = L.moe_block(lp["moe"], h, cfg)
+    elif cfg.d_ff:
+        h = L.mlp_block(lp["mlp"], h)
+    else:
+        h = torch.zeros_like(x)
     return x + h, aux
 
 

@@ -235,3 +235,80 @@ def test_bf16_kernel_takes_a_positive_scale(card):
                             scale=-0.5)
     kfa.flash_attention(q, q, q, scale=-0.5)
     assert [c[0] for c in card.calls] == ["simt"]
+
+
+# MLA's prefill attention (deepseek-v3): q/k head dim 128 + 64 = 192, v
+# head dim 128.
+MLA_SHAPES = [(1, 128, 128, 2, 2), (2, 256, 256, 4, 1)]   # (B, Sq, Sk, H, KVH)
+
+
+def _mla_qkv(B, Sq, Sk, H, KVH, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(s).astype(np.float32) for s in
+            ((B, Sq, H, 192), (B, Sk, KVH, 192), (B, Sk, KVH, 128)))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH", MLA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_at_192_128_equals_pallas_interpret(B, Sq, Sk, H, KVH, causal):
+    q, k, v = _mla_qkv(B, Sq, Sk, H, KVH, seed=Sq + H)
+    ref = flash_attention_pallas(_j(q), _j(k), _j(v), causal=causal,
+                                 interpret=True)
+    got = kfa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == (B, Sq, H, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("q_offset,Sq,Sk", [(0, 200, 200), (72, 128, 200),
+                                            (0, 96, 300)])
+def test_plain_at_192_128_equals_jnp_flash(q_offset, Sq, Sk):
+    """Ragged chunks, a query block at q_offset > 0 and MLA's explicit
+    scale 1/sqrt(192), against layers.flash_attention and the naive
+    oracle."""
+    q, k, v = _mla_qkv(2, Sq, Sk, 4, 2, seed=Sq + q_offset)
+    kw = dict(causal=True, q_offset=q_offset, q_chunk=64, kv_chunk=128,
+              scale=1 / np.sqrt(192))
+    ref = RL.flash_attention(_j(q), _j(k), _j(v), **kw)
+    got = kfa.flash_attention_plain(_t(q), _t(k), _t(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    oracle = tref.attention_ref(_t(q), _t(k), _t(v), causal=True,
+                                q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "simt")])
+def test_wrapper_takes_mla_widths(card, dtype, entry):
+    q = torch.zeros((2, 64, 4, 192), dtype=dtype)
+    k = torch.zeros((2, 64, 4, 192), dtype=dtype)
+    v = torch.zeros((2, 64, 4, 128), dtype=dtype)
+    inst = dict(kfa.flash_attention.sm90_instances)
+    out = kfa.flash_attention(q, k, v, scale=1 / np.sqrt(192))
+    assert [c[0] for c in card.calls] == [entry]
+    assert card.calls[0][1][9:11] == (192, 128)
+    assert out.shape == (2, 64, 4, 128)
+    # Launches counted per bf16 instance.
+    want = dict(inst)
+    if entry == "sm90":
+        want[(192, 128)] += 1
+    assert kfa.flash_attention.sm90_instances == want
+
+
+@pytest.mark.parametrize("D,Dv", [(200, 128), (192, 136), (192, 192),
+                                  (136, 256), (196, 128)])
+def test_wrapper_refuses_widths_past_the_instances(card, D, Dv):
+    q = torch.zeros((1, 16, 2, D), dtype=torch.bfloat16)
+    v = torch.zeros((1, 16, 2, Dv), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D up to 192, Dv up to 128"):
+        kfa.flash_attention(q, q, v)
+    assert card.calls == []
+
+
+@pytest.mark.parametrize("D,Dv,inst", [(8, 8, (64, 64)), (64, 64, (64, 64)),
+                                       (64, 128, (128, 128)),
+                                       (72, 64, (128, 128)),
+                                       (128, 128, (128, 128)),
+                                       (136, 8, (192, 128)),
+                                       (192, 128, (192, 128))])
+def test_sm90_instance_is_the_smallest_that_holds_both(D, Dv, inst):
+    assert kfa.sm90_instance(D, Dv) == inst

@@ -396,6 +396,13 @@ FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, Dv, causal, q_offset)
     (1, 1000, 1000, 4, 2, 16, 16, True, 0),
     (1, 1000, 1000, 4, 2, 64, 64, True, 0),
     (2, 256, 256, 4, 2, 64, 128, True, 0),     # Dv != D
+    # MLA's (D, Dv) = (192, 128), the bf16 kernel's third instance:
+    (1, 256, 256, 4, 4, 192, 128, True, 0),
+    (1, 256, 256, 4, 4, 192, 128, False, 0),
+    (2, 300, 300, 4, 2, 192, 128, True, 0),    # ragged, G > 1
+    (1, 130, 383, 2, 2, 192, 128, False, 0),
+    (2, 200, 328, 4, 2, 192, 128, True, 128),  # q_offset > 0
+    (2, 64, 192, 4, 2, 192, 128, True, 100),   # a fully masked KV tile
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # bf16 is also held row by row, scaled to the output: the largest
@@ -418,11 +425,16 @@ def test_flash_kernel_equals_plain(cuda, B, Sq, Sk, H, KVH, D, Dv, causal,
                                           (B, Sk, KVH, Dv)))
     before = kfa.flash_attention.launches
     before_tc = kfa.flash_attention.sm90_launches
+    inst = kfa.sm90_instance(D, Dv)
+    before_inst = kfa.flash_attention.sm90_instances[inst]
     got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_off)
     assert kfa.flash_attention.launches == before + 1
-    # bf16 takes the tensor-core kernel, float32 the SIMT kernel.
+    # bf16 takes the tensor-core kernel (counted on its instance), float32
+    # the SIMT kernel.
     assert kfa.flash_attention.sm90_launches == \
         before_tc + (dtype == torch.bfloat16)
+    assert kfa.flash_attention.sm90_instances[inst] == \
+        before_inst + (dtype == torch.bfloat16)
     want = kfa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_off)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
@@ -463,11 +475,12 @@ def test_flash_kernel_rejects_bad_input(cuda):
         kfa.flash_attention(q.half(), q.half(), q.half())
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen1.5-110b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen1.5-110b",
+                                  "deepseek-moe-16b", "deepseek-v3-671b"])
 def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
     """prefill and decode_step of a smoke config (float32) on the card
-    (the flash kernel in each layer) against the CPU (its plain
-    version)."""
+    (the flash kernel in each layer; MoE layers; MLA's compressed cache
+    and absorbed decode) against the CPU (its plain version)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import decode as D
@@ -485,7 +498,8 @@ def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
         if dev == "cuda":
             assert kfa.flash_attention.launches == before + cfg.num_layers
         lg2, cache = D.decode_step(cfg, p, cache, toks[:, 32].to(dev))
-        out[dev] = [x.cpu() for x in (lg, lg2, cache["k"], cache["v"])]
+        out[dev] = [x.cpu() for x in (lg, lg2) + tuple(
+            cache[n] for n in sorted(cache) if n != "pos")]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 

@@ -41,7 +41,7 @@ Phases (one line each; any failure raises and exits non-zero):
            card == backend "torch" on the card == backend "torch" on the
            CPU, whole carry and every StepOut, bitwise
   main     run_experiment on the stock scenario at its full 30000 events
-           and on soccer and bus at 12000, first through the per-event
+           and on soccer and bus at 6000, first through the per-event
            kernels (backend "cuda"), then through the block kernel
            (backend "cuda_block"), with the launch counts of each path's
            kernels; the headline FN ordering, stock's pspice and E-BL
@@ -55,7 +55,8 @@ Phases (one line each; any failure raises and exits non-zero):
            1.6} x 3 shedders at 30000 events) on "cuda_block", gated by
            check_headline, with stock at 1.2 exactly the committed file
            and every other cell within 0.05 of it; "cuda" == "cuda_block"
-           at the headline level on stock and bus (QUALITY_CUDA_DATASETS);
+           at the headline level on stock (30000 events) and bus (12000;
+           QUALITY_CUDA_DATASETS);
            the wall of stock's run_experiment split by layer
   runtime  the multi-tenant streaming runtime: 128 lanes of the stock
            configuration (30000 events each, rates 1.2..1.4 x max_rate,
@@ -85,7 +86,8 @@ Phases (one line each; any failure raises and exits non-zero):
            trims, lane by lane; its time against lane by lane)
   recovery durable recovery (bench_recovery's counterpart): the
            supervisor's children on the card (N = 256, W = 32, 30000
-           events, chunk 1024, snapshot every 4 chunks) SIGKILLed at the
+           events, 12000 on cuda, chunk 1024, snapshot every 4 chunks)
+           SIGKILLed at the
            reference grid's kill sites on cuda_block x {none, pspice,
            pmbl, ebl} and cuda/pspice, relaunched, and bitwise equal to
            the uninterrupted run (carry sha256, matches, counters,
@@ -139,17 +141,36 @@ Phases (one line each; any failure raises and exits non-zero):
            layers of deepseek-moe-16b, 1 layer of deepseek-v3); serve()
            once with the reference CLI's defaults (pspice); the phase's
            seconds against its 180 s budget
+  ssm      the SSM and hybrid families at full width and depth (bf16,
+           random weights from a seeded generator): mamba2-1.3b (48
+           Mamba2 layers) and zamba2-7b (81 layers, one shared attention
+           + MLP block at 13 points, head_dim 112), each prefilling 4
+           prompts of 2048 tokens (zamba2: the bf16 flash kernel once per
+           application, on its (128, 128) instance) and taking 32 greedy
+           decode steps, with a profile of one prefill and one decode
+           step; serve() once (pspice); on the first 12 layers zamba2's
+           prefill logits of the kernel against the plain flash in bf16
+           (5e-2) and, on a float32 copy (1e-4), the kernel against plain
+           and decode against the full forward, with a decode from a conv
+           window rolled by one token that must read beyond the bound
+           (also at full depth); at full depth each flash launch of the
+           prefill against plain on its own inputs, the same logits
+           readings logged beside the chunking floor (the full forward at
+           chunk 128 against 256), and mamba2's chunked SSD against its
+           recurrence on one layer (2e-4); the bf16 decode against the
+           full forward logged, not gated; the phase's seconds against
+           its 90 s budget
 The build phase reports ptxas's registers and spills of the block
 kernel's two instantiations and of the bf16 flash kernel (a spill in the
 flash kernel fails it).  The kernels phase also runs the wgmma probe
 against torch.matmul, holds the flash kernels against their plain version
 (float32 on the SIMT kernel, bf16 on the wgmma/TMA kernel; GQA/MQA,
 ragged, Dv != D, decode-style, a fully masked KV tile, and MLA's
-(D, Dv) = (192, 128) in the same kinds of case; bf16 also row by row,
-scaled to the output, with planted faults that this bar must catch)
-and times the bf16 kernel at internlm2's and deepseek-v3's prefill
-shapes in turns with scaled_dot_product_attention (where it takes the
-shape).
+(D, Dv) = (192, 128) and zamba2's head_dim 112 in the same kinds of
+case; bf16 also row by row, scaled to the output, with planted faults
+that this bar must catch) and times the bf16 kernel at internlm2's,
+deepseek-v3's and zamba2's prefill shapes in turns with
+scaled_dot_product_attention (where it takes the shape).
 The last lines are the kernels' JSON record, the nvidia-smi line and the
 contract line.  The script needs CUDA and the repository around it.
 """
@@ -166,7 +187,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
           "runtime", "resilience", "recovery", "dist", "profile", "model",
-          "moe")
+          "moe", "ssm")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -203,6 +224,10 @@ KERNEL_META = {
     # The same kernel's (D, Dv) = (192, 128) instance: MLA's prefill.
     "flash_attention_mla": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                             "src/repro/kernels/flash_attention.py:29"),
+    # The same kernel at head_dim 112 on its (128, 128) instance: zamba2's
+    # shared attention block in prefill.
+    "flash_attention_hd112": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                              "src/repro/kernels/flash_attention.py:29"),
 }
 # The path whose run counts each kernel's launches: an engine backend of
 # the main phase, or the model phase's prefill and decode.
@@ -210,7 +235,8 @@ KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
                "utility_histogram": "cuda", "block_step": "cuda_block",
                "block_step_lanes": "runtime",
                "utility_histogram_lanes": "resilience",
-               "flash_attention": "model", "flash_attention_mla": "moe"}
+               "flash_attention": "model", "flash_attention_mla": "moe",
+               "flash_attention_hd112": "ssm"}
 W_BLOCK = 32                       # block_events on the block path
 
 
@@ -1603,12 +1629,18 @@ REC_KILL_RANGES = {"chunk": (2, 10), "refresh": (1, 2), "snapshot": (2, 2)}
 REC_CELLS = (("cuda_block", "none", 8), ("cuda_block", "pspice", 9),
              ("cuda_block", "pmbl", 10), ("cuda_block", "ebl", 11),
              ("cuda", "pspice", 5))
+# The host-bound per-event path's cell runs 12 000 events (12 chunks: its
+# kill at the second snapshot, chunk 8, still falls inside), to keep the
+# script within its time (PERF.md §7).
+REC_CUDA_EVENTS = 12000
 
 
 def rec_spec(backend: str, shedder: str) -> dict:
     """The supervisor's workload at full width: N = 256, W = 32, 30 000
-    events, chunk 1 024, pushes of 4 096, snapshot every 4 chunks."""
-    return {"backend": backend, "shedder": shedder, "n": RES_EVENTS,
+    events (REC_CUDA_EVENTS on "cuda"), chunk 1 024, pushes of 4 096,
+    snapshot every 4 chunks."""
+    n = REC_CUDA_EVENTS if backend == "cuda" else RES_EVENTS
+    return {"backend": backend, "shedder": shedder, "n": n,
             "push": RES_PUSH, "chunk": RES_CHUNK, "max_pms": 256,
             "block_events": W_BLOCK, "rate_mult": 3.0, "refresh_every": 4,
             "snapshot_every": 4, "min_observations": 64.0, "device": DEV}
@@ -2358,11 +2390,18 @@ def run_scenario(torch, name: str, n: int, backend: str,
     return res, counts, wall, events
 
 
+# Soccer's and bus's events in the main phase (stock runs its full
+# 30 000): the per-event path is host-bound (~1 000-2 000 events/s), and
+# 6 000 keep the script within its time (PERF.md §7).
+MAIN_EVENTS = 6000
+
+
 def phase_main(torch) -> dict:
     """Both engine paths on every scenario.  Returns each kernel's
     launches from the run of its own path on the stock scenario."""
     launches = {}
-    for name, n in (("stock", 30000), ("soccer", 12000), ("bus", 12000)):
+    for name, n in (("stock", 30000), ("soccer", MAIN_EVENTS),
+                    ("bus", MAIN_EVENTS)):
         runs = {}
         for backend in ("cuda", "cuda_block"):
             res, counts, wall, events = run_scenario(torch, name, n, backend)
@@ -2514,7 +2553,12 @@ def oracle_diff(np, eng, carry, outs, o) -> list:
 # left out to keep the script within its time limit: the main phase
 # holds soccer's "cuda" run to "cuda_block" (12 000 events, FN, fires and
 # compliance), and the oracle cases hold "cuda" in this layout.
-QUALITY_CUDA_DATASETS = ("stock", "bus")
+# The datasets of the per-event path's check at the headline level, each
+# with its stream length: stock at its full 30 000 events (against the
+# grid's cuda_block cells), bus at its quick 12 000 (against a cuda_block
+# run of the same stream), to keep the script within its time (PERF.md
+# §7; the main phase holds bus on both paths too).
+QUALITY_CUDA_DATASETS = (("stock", False), ("bus", True))
 
 
 def quality_grid(torch) -> dict:
@@ -2579,22 +2623,29 @@ def quality_grid(torch) -> dict:
         f"equal in {total - exact - len(rate_diff)}")
     # The per-event kernels' path at the headline level.
     level = sweep.HEADLINE_LEVEL
+    blocks = {ds: sweep.run_dataset(ds, levels=(level,), quick=True,
+                                    backend="cuda_block",
+                                    block_events=W_BLOCK)
+              if quick else bench["datasets"][ds]
+              for ds, quick in QUALITY_CUDA_DATASETS}
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    for ds in QUALITY_CUDA_DATASETS:
+    for ds, quick in QUALITY_CUDA_DATASETS:
         t1 = time.perf_counter()
-        grid = sweep.run_dataset(ds, levels=(level,), backend="cuda")
+        grid = sweep.run_dataset(ds, levels=(level,), quick=quick,
+                                 backend="cuda")
         cells = grid["levels"][f"{level:g}"]
         for sh, cell in cells.items():
-            blk = bench["datasets"][ds]["levels"][f"{level:g}"][sh]
+            blk = blocks[ds]["levels"][f"{level:g}"][sh]
             keys = ("fn", "fn_count", "shed_calls", "lb_compliance")
             if any(cell[k] != blk[k] for k in keys):
                 raise AssertionError(f"{ds} {sh}: cuda "
                                      f"{[cell[k] for k in keys]} != "
                                      f"cuda_block {[blk[k] for k in keys]}")
-        log("quality", f"{ds} x{level:g} on cuda: == cuda_block in FN, "
-            f"count FN, fires and LB compliance for every shedder "
+        log("quality", f"{ds} x{level:g} on cuda ({grid['n_events']} "
+            f"events): == cuda_block in FN, count FN, fires and LB "
+            f"compliance for every shedder "
             f"({time.perf_counter() - t1:.2f} s)")
     torch.cuda.synchronize()
     cuda_counts = kops.launch_counts()
@@ -2710,7 +2761,7 @@ def layer_split(torch, np) -> None:
 # Where the time goes: one engine run under torch.profiler
 # ---------------------------------------------------------------------------
 
-def phase_profile(torch, backend: str, n: int = 6000,
+def phase_profile(torch, backend: str, n: int = 3000,
                   device: str = "cuda") -> None:
     import dataclasses
 
@@ -2806,10 +2857,15 @@ FLASH_PREFILL = ("prefill", 4, 2048, 2048, 16, 8, 128, 128, True, 0)
 # instance at 128 heads, q/k head dim 128 + 64, v head dim 128.
 FLASH_MLA_PREFILL = ("mla_prefill", 4, 2048, 2048, 128, 128, 192, 128, True,
                      0)
-# The (DK, DV) instance each timed prefill shape runs, and its kernel name
-# in the JSON line.
+# zamba2-7b's shared attention block in prefill (the ssm phase's): head_dim
+# 112 on the (128, 128) instance, whose second 64-column box of Q, K and V
+# holds 48 real columns and 16 that TMA fills with zeros.
+FLASH_ZAMBA_PREFILL = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, 112,
+                       True, 0)
+# Each timed prefill shape and its kernel name in the JSON line.
 FLASH_TIMED = {"prefill": "flash_attention",
-               "mla_prefill": "flash_attention_mla"}
+               "mla_prefill": "flash_attention_mla",
+               "zamba2_prefill": "flash_attention_hd112"}
 FLASH_CASES = (
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, True, 0),
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, False, 0),
@@ -2834,6 +2890,15 @@ FLASH_CASES = (
     ("mla_ragged", 1, 130, 383, 2, 2, 192, 128, False, 0),
     ("mla_decode_style", 2, 200, 328, 4, 2, 192, 128, True, 128),
     ("mla_masked_tile", 2, 64, 192, 4, 2, 192, 128, True, 100),
+    # zamba2's head_dim 112 (the (128, 128) instance, a partial second box):
+    # G = 1 causal and not, ragged Sq/Sk, q_offset > 0, a fully masked KV
+    # tile.
+    ("hd112", 1, 256, 256, 4, 4, 112, 112, True, 0),
+    ("hd112", 1, 256, 256, 4, 4, 112, 112, False, 0),
+    ("hd112_ragged", 2, 300, 300, 4, 2, 112, 112, True, 0),
+    ("hd112_ragged", 1, 130, 383, 2, 2, 112, 112, False, 0),
+    ("hd112_decode_style", 2, 200, 328, 4, 2, 112, 112, True, 128),
+    ("hd112_masked_tile", 2, 64, 192, 4, 2, 112, 112, True, 100),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The bf16 kernel's second bar, scaled to the output: the largest
@@ -2851,6 +2916,13 @@ FLASH_FAULT_ROW0 = 1024
 # this order, each turn FLASH_WINDOWS windows of FLASH_CALLS calls.
 FLASH_ORDER = ("kernel", "sdpa", "sdpa", "kernel")
 FLASH_WINDOWS, FLASH_CALLS = 5, 20
+
+
+def flash_name(kfa, D: int, Dv: int) -> str:
+    """The JSON line's name of the flash cases at head dims (D, Dv)."""
+    if kfa.sm90_instance(D, Dv) == (192, 128):
+        return "flash_attention_mla"
+    return "flash_attention_hd112" if D == 112 else "flash_attention"
 
 
 def _reset_flash_counts(kfa) -> None:
@@ -2970,8 +3042,9 @@ def phase_flash_kernel(torch, np) -> dict:
     """The probe, then every flash case in both dtypes against the plain
     version; the planted faults and the timing at each prefill shape of
     FLASH_TIMED.  Returns the records of flash_attention (the (64, 64) and
-    (128, 128) instances) and flash_attention_mla (the (192, 128)
-    instance), each with its max |kernel - plain| over its cases."""
+    (128, 128) instances), flash_attention_mla (the (192, 128) instance)
+    and flash_attention_hd112 (head_dim 112 on the (128, 128) instance),
+    each with its max |kernel - plain| over its cases."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -2982,10 +3055,10 @@ def phase_flash_kernel(torch, np) -> dict:
             for name in FLASH_TIMED.values()}
     row_max = 0.0
     record = {}
-    for case in (FLASH_PREFILL, FLASH_MLA_PREFILL) + FLASH_CASES:
+    for case in (FLASH_PREFILL, FLASH_MLA_PREFILL,
+                 FLASH_ZAMBA_PREFILL) + FLASH_CASES:
         label, B, Sq, Sk, H, KVH, D, Dv, causal, q_off = case
-        name = ("flash_attention_mla" if kfa.sm90_instance(D, Dv) ==
-                (192, 128) else "flash_attention")
+        name = flash_name(kfa, D, Dv)
         # Inputs drawn on the card (the MLA prefill's are 0.5 G values).
         gen = torch.Generator(device=dev)
         gen.manual_seed(B * Sq + H * D + Dv + q_off)
@@ -3143,23 +3216,31 @@ def _tensors(tree):
         yield tree
 
 
-def _answer(torch, cfg, params, toks, flash, max_len=MODEL_MAX_LEN):
-    """prefill -> greedy first token -> one decode step, the full forward
-    over S + 1 tokens, and the same decode step on a cache one slot off
-    (a planted fault); ``flash`` is the attention prefill uses."""
+def _one_slot_off(cache):
+    """The planted fault of a K/V cache: the decode step written one slot
+    off (the tensors shared)."""
+    return dict(cache, pos=cache["pos"] + 1)
+
+
+def _answer(torch, cfg, params, toks, flash, max_len=MODEL_MAX_LEN,
+            tok=None, fault=_one_slot_off):
+    """prefill -> one decode step of ``tok`` (None: the greedy first
+    token), the full forward over S + 1 tokens, and the same decode step
+    from ``fault`` of the prefill's cache (a planted fault); ``flash`` is
+    the attention prefill uses."""
     from repro_torch.models import decode as D
     from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
 
     kernel_flash = L.flash_attention
     L.flash_attention = flash
     try:
         cache, logits = D.prefill(cfg, params, {"tokens": toks}, max_len)
-        tok = logits.argmax(-1).to(torch.int32)
+        if tok is None:
+            tok = logits.argmax(-1).to(torch.int32)
+        faulty = fault(cache)        # before the step writes the cache
         step, _ = D.decode_step(cfg, params, cache, tok)
-        bad, _ = D.decode_step(cfg, params, dict(cache, pos=cache["pos"] + 1),
-                               tok)
-        del cache
+        bad, _ = D.decode_step(cfg, params, faulty, tok)
+        del cache, faulty
         want = _full_logits(torch, cfg, params, toks, tok)
     finally:
         L.flash_attention = kernel_flash
@@ -3386,7 +3467,7 @@ MOE_NODROP_PROMPT = {"deepseek-moe-16b": (4, 2048),
 MOE_BUDGET_S = 180.0
 
 
-def _prefill_logits(cfg, params, toks, flash):
+def _prefill_logits(cfg, params, toks, flash, max_len=MOE_MAX_LEN):
     """The last position's logits of a prefill whose attention is
     ``flash``."""
     from repro_torch.models import decode as D
@@ -3394,7 +3475,7 @@ def _prefill_logits(cfg, params, toks, flash):
     kernel_flash = L.flash_attention
     L.flash_attention = flash
     try:
-        return D.prefill(cfg, params, {"tokens": toks}, MOE_MAX_LEN)[1]
+        return D.prefill(cfg, params, {"tokens": toks}, max_len)[1]
     finally:
         L.flash_attention = kernel_flash
 
@@ -3712,6 +3793,328 @@ def moe_config(torch, np, arch, layers, n_dec, f32_layers) -> dict:
     return {name: {key: counts[inst]}}
 
 
+# ---------------------------------------------------------------------------
+# The SSM and hybrid families at full width and depth: mamba2, zamba2
+# ---------------------------------------------------------------------------
+
+# Both configs whole (no cut): mamba2-1.3b 1.45 B parameters, zamba2-7b
+# 6.75 B (13.5 GB in bf16, 27.0 GB as the float32 copy).
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-7b")
+SSM_B, SSM_S, SSM_MAX_LEN, SSM_DECODE = 4, 2048, 2112, 32
+# The exactness checks' prompt (B, S): 4 chunks of 256.
+SSM_EXACT_B, SSM_EXACT_S = 2, 1024
+# The reference's own bound for its chunked SSD against its recurrence
+# (tests/test_models.py:120-130), max |chunked - recurrent|.
+SSM_ORACLE_TOL = 2e-4
+# The gated logits checks' depth: the first 12 layers (zamba2: the shared
+# block at 2 points, as in its smoke config).  At full depth these
+# random-weight models amplify float32 rounding to ~1e-4 of max|logits|
+# (PERF.md, PR 22), so there the readings are logged beside the floor.
+SSM_CUT_LAYERS = 12
+# The chunk of the floor's second full forward (the configs' is 256).
+SSM_FLOOR_CHUNK = 128
+SSM_BUDGET_S = 90.0
+
+
+def phase_ssm(torch, np) -> dict:
+    """The SSM and hybrid families' serving path at full width and depth
+    (SSM_ARCHS).  Returns the flash kernel's launches at head_dim 112
+    (zamba2's counted run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    # The profiler's first use in a process starts its tracer (seconds,
+    # which would read as device idle time); start it here.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=torch.device("cuda")).add_(1)
+        torch.cuda.synchronize()
+    out = {}
+    for arch in SSM_ARCHS:
+        out.update(ssm_config(torch, np, arch))
+    secs = time.perf_counter() - t0
+    log("ssm", f"the phase took {secs:.2f} s of its {SSM_BUDGET_S:.0f} s "
+        f"budget ({'within' if secs <= SSM_BUDGET_S else 'OVER'} it)")
+    return out
+
+
+def _conv_rolled(cache):
+    """The planted fault of an SSM cache: each layer's conv window rolled
+    by one token (mamba2 has no position-indexed cache, so its fault must
+    touch the recurrent state); a copy, as decode writes the cache."""
+    faulty = {k: v.clone() for k, v in cache.items()}
+    faulty["conv"] = faulty["conv"].roll(1, dims=2)
+    return faulty
+
+
+def _flash_recorder(torch, kfa, errs: list):
+    """The flash kernel's wrapper, each call also held to the plain
+    version on the same inputs: appends (max |kernel - plain|,
+    row-relative error) to ``errs``."""
+    def flash(q, k, v, *, causal=True, q_offset=0, scale=None):
+        got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                  scale=scale)
+        want = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset, scale=scale)
+        errs.append((max_abs_err(torch, got, want),
+                     row_rel_err(torch, got, want)))
+        return got
+    return flash
+
+
+def ssm_oracle(torch, cfg, params, toks) -> None:
+    """ssd_forward (chunked) against ssd_reference (the token-by-token
+    recurrence) on layer 0 of ``params`` (float32) at full width, over
+    the embedded and normed prompt ``toks``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import settings as SET
+    from repro_torch.models import ssm as SSM
+
+    lp = SET.tree_index(params["layers"], 0)
+    x = L.rmsnorm(params["embed"][toks.long()], lp["norm1"], cfg.norm_eps)
+    t0 = time.perf_counter()
+    y, _ = SSM.ssd_forward(lp["mamba"], x, cfg)
+    want = SSM.ssd_reference(lp["mamba"], x, cfg)
+    torch.cuda.synchronize()
+    err = float((y - want).abs().max())
+    log("ssm", f"{cfg.name} layer 0 (float32, {tuple(x.shape)}): "
+        f"ssd_forward (chunk {cfg.ssm_chunk}) vs ssd_reference (the "
+        f"recurrence) max |d| {err:.3e} of max |y| "
+        f"{float(want.abs().max()):.3e} (bound {SSM_ORACLE_TOL}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not err <= SSM_ORACLE_TOL:
+        raise AssertionError(f"{cfg.name}: ssd_forward vs ssd_reference "
+                             f"{err!r} beyond {SSM_ORACLE_TOL}")
+
+
+def ssm_config(torch, np, arch) -> dict:
+    """One SSM or hybrid config on the card at full width and depth:
+    random bf16 weights from a seeded generator, prefill of SSM_B prompts
+    of SSM_S tokens (zamba2: the bf16 flash kernel at each of its 13
+    applications of the shared block) and SSM_DECODE greedy decode steps
+    (the path's counted run); prefill tokens/s, ms per decode step, peak
+    memory and a profile of each; serve() once with the reference CLI's
+    defaults (pspice); then the exactness checks, at full depth and on
+    the first SSM_CUT_LAYERS layers, in bf16 and on a float32 copy: the
+    kernel against plain (zamba2), decode against the full forward, a
+    planted fault and the chunking floor; each flash launch of the
+    full-depth prefill against plain; (mamba2) ssd_forward against
+    ssd_reference."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    t_cfg = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = registry.get_config(arch)
+    every = cfg.hybrid_attn_every
+    n_attn = cfg.num_layers // every if every else 0
+    inst = kfa.sm90_instance(cfg.head_dim, cfg.head_dim) if every else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = sum(t.numel() for t in _tensors(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    shared = (f"; one shared attention ({cfg.num_heads} x {cfg.head_dim}, "
+              f"KV {cfg.num_kv_heads}) + MLP ({cfg.d_ff}) block applied "
+              f"once every {every} layers ({n_attn} points)"
+              if every else "")
+    log("ssm", f"{cfg.name}: {cfg.num_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"conv {cfg.conv_width}{shared}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; {n_par} parameters ({n_bytes} B) drawn in "
+        f"{t_init:.2f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (SSM_B, SSM_S), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    # The path's run: prefill + greedy decode, launch counts from 0.
+    torch.cuda.synchronize()
+    _reset_flash_counts(kfa)
+    t0 = time.perf_counter()
+    cache, logits = D.prefill(cfg, params, {"tokens": toks}, SSM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    n_prefill = kfa.flash_attention.launches
+    tok = logits.argmax(-1).to(torch.int32)
+    step_logits = []
+    t0 = time.perf_counter()
+    for _ in range(SSM_DECODE):
+        lg, cache = D.decode_step(cfg, params, cache, tok)
+        step_logits.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    counts = dict(kfa.flash_attention.sm90_instances)
+    total = kfa.flash_attention.launches
+    on_inst = counts[inst] if every else 0
+    if (n_prefill != n_attn or total != n_attn or on_inst != n_attn or
+            kfa.flash_attention.sm90_launches != n_attn):
+        raise AssertionError(f"{cfg.name} flash launches: {n_prefill} in "
+                             f"prefill, {counts} by instance, {total} in all "
+                             f"after decode; expected {n_attn} on {inst}")
+    if not (bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if int(cache["pos"]) != SSM_S + SSM_DECODE:
+        raise AssertionError(f"{cfg.name}: cache pos {int(cache['pos'])}")
+    peak = torch.cuda.max_memory_allocated()
+    del step_logits
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D.prefill(cfg, params, {"tokens": toks}, SSM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    flash_txt = (f"flash launches {n_prefill} per prefill, all on the bf16 "
+                 f"wgmma kernel's <{inst[0]}, {inst[1]}> instance at "
+                 f"head_dim {cfg.head_dim}" if every else
+                 "no attention (no flash launch)")
+    log("ssm", f"{cfg.name} prefill B={SSM_B} S={SSM_S}: {t_pre * 1e3:.2f} "
+        f"ms warm ({SSM_B * SSM_S / t_pre:.1f} tokens/s; first call "
+        f"{t_first * 1e3:.2f} ms), {flash_txt}; {SSM_DECODE} greedy decode "
+        f"steps {t_dec * 1e3:.2f} ms ({t_dec / SSM_DECODE * 1e3:.3f} ms per "
+        f"step, {SSM_B * SSM_DECODE / t_dec:.1f} tokens/s); every logit "
+        f"finite, pos {int(cache['pos'])}; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.3f} GiB)")
+    _profile(torch, lambda: D.prefill(cfg, params, {"tokens": toks},
+                                      SSM_MAX_LEN),
+             f"{cfg.name} one prefill", "ssm")
+    _profile(torch, lambda: D.decode_step(cfg, params, cache, tok),
+             f"{cfg.name} one decode step", "ssm")
+    del cache
+
+    # The port's serve() with the reference CLI's defaults.
+    t0 = time.perf_counter()
+    out = srv.serve(cfg, params, requests=64, rate=50.0, policy="pspice",
+                    slots=16, slo=1.0, max_len=96, device=dev,
+                    log=lambda s: log("ssm", f"{cfg.name} {s}"))
+    m = out["metrics"]
+    log("ssm", f"{cfg.name} serve pspice: decode_step "
+        f"{out['step_cost'] * 1e3:.3f} ms at B=16, {out['decode_steps']} "
+        f"real decode steps, metrics {m}, wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    if out["finished"] != 64 or m["completed"] + m["evicted"] != 64:
+        raise AssertionError(f"{cfg.name} serve: {out['finished']} of 64 "
+                             "requests finished")
+
+    # Exactness.  These random-weight models amplify any perturbation with
+    # depth (each run's chunking floor reads it: the full forward with
+    # chunk SSM_FLOOR_CHUNK against chunk 256, the same function rounded
+    # otherwise), so the logits bars are held on the first SSM_CUT_LAYERS
+    # layers, and at full depth the same readings are logged beside that
+    # floor while each flash launch of the prefill is held to its plain
+    # version on the same inputs.  bf16 decode against the full forward
+    # is logged, not gated: the chunked prefill and the recurrent step
+    # round apart in bf16, more with depth.
+    ptoks = toks[:SSM_EXACT_B, :SSM_EXACT_S].contiguous()
+    readings, launch_errs, logits = {}, {}, {}
+    tok = None
+    for dt in ("bf16", "f32"):
+        if dt == "f32":   # the float32 copy (TF32 is off), bf16 freed
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            params = _tree_map(lambda t: t.float(), params)
+            gc.collect()
+            torch.cuda.empty_cache()
+        ktoks = toks if dt == "bf16" else ptoks
+        for depth in ("full", "cut"):
+            c, p = cfg, params
+            if depth == "cut":
+                c = dataclasses.replace(cfg, num_layers=SSM_CUT_LAYERS)
+                p = dict(params, layers=_tree_map(
+                    lambda t: t[:SSM_CUT_LAYERS], params["layers"]))
+            r = readings[f"{dt} {depth}"] = {}
+            if every:
+                flash = kfa.flash_attention
+                if depth == "full":
+                    flash = _flash_recorder(
+                        torch, kfa, launch_errs.setdefault(dt, []))
+                r["kernel_vs_plain"] = rel_err(
+                    torch, _prefill_logits(c, p, ktoks, flash, SSM_MAX_LEN),
+                    _prefill_logits(c, p, ktoks, kfa.flash_attention_plain,
+                                    SSM_MAX_LEN))
+            out = _answer(torch, c, p, ptoks, kfa.flash_attention,
+                          SSM_EXACT_S + 8, tok, _conv_rolled)
+            if tok is None:   # the bf16 run's greedy token, in every run
+                tok = out[0].argmax(-1).to(torch.int32)
+            r["decode_vs_full"] = rel_err(torch, out[1], out[2])
+            r["fault_decode"] = rel_err(torch, out[3], out[2])
+            r["chunking_floor"] = rel_err(torch, _full_logits(
+                torch, dataclasses.replace(c, ssm_chunk=SSM_FLOOR_CHUNK), p,
+                ptoks, tok), out[2])
+            logits[f"{dt} {depth}"] = out[:3]
+    if arch == "mamba2-1.3b":
+        ssm_oracle(torch, cfg, params, ptoks)
+    del params, p
+    # The bf16 path's own distance from the float32 forward (the same
+    # tokens: the bf16 run's greedy token decoded in both).
+    (b_pre, b_step, b_full), (f_pre, _, f_full) = (logits["bf16 full"],
+                                                   logits["f32 full"])
+    readings["bf16 vs f32, full"] = dict(
+        prefill=rel_err(torch, b_pre, f_pre),
+        decode=rel_err(torch, b_step, f_full),
+        full=rel_err(torch, b_full, f_full))
+    for label, e in readings.items():
+        log("ssm", f"{cfg.name} logits max|d|/max|logits|, {label}: " +
+            ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+    log("ssm", f"{cfg.name} (\"cut\": the first {SSM_CUT_LAYERS} of "
+        f"{cfg.num_layers} layers; prompts: bf16 kernel vs plain {SSM_B} x "
+        f"{SSM_S}, every other reading {SSM_EXACT_B} x {SSM_EXACT_S}, then "
+        "one decode step against the full forward over one token more; the "
+        "fault: that step from a conv window rolled by one token; the "
+        f"floor: the full forward at chunk {SSM_FLOOR_CHUNK} against "
+        f"{cfg.ssm_chunk})")
+    log("ssm", f"{cfg.name} bf16 decode vs full forward "
+        f"{readings['bf16 full']['decode_vs_full']:.3e} (full depth), "
+        f"{readings['bf16 cut']['decode_vs_full']:.3e} (cut): logged, not "
+        "gated (the chunked SSD of prefill and the recurrent step of decode "
+        "round apart in bf16, and the gap grows with depth; float32 holds "
+        "it)")
+    bad = []
+    for dt, errs in launch_errs.items():
+        abs_max = max(e[0] for e in errs)
+        row_max = max(e[1] for e in errs)
+        tol = FLASH_TOL["float32" if dt == "f32" else "bfloat16"]
+        log("ssm", f"{cfg.name} {dt} full-depth prefill: {len(errs)} flash "
+            f"launches each against the plain flash on its own inputs: max "
+            f"|kernel - plain| {abs_max:.3e} (tol {tol}), row-relative "
+            f"{row_max:.3e} (bar {FLASH_ROW_TOL}, bf16)")
+        if (len(errs) != n_attn or not abs_max <= tol or
+                (dt == "bf16" and not row_max <= FLASH_ROW_TOL)):
+            bad.append(f"{dt} per-launch flash {len(errs)} launches, "
+                       f"{abs_max!r}, rows {row_max!r}")
+    cut32 = readings["f32 cut"]
+    bad += [f"f32 cut {k} {cut32[k]!r}" for k in ("kernel_vs_plain",
+                                                  "decode_vs_full")
+            if k in cut32 and not cut32[k] <= EXACT_TOL]
+    bad += [f"the planted fault passed the float32 bound at {depth} depth "
+            f"({readings[f'f32 {depth}']['fault_decode']!r})"
+            for depth in ("full", "cut")
+            if not readings[f"f32 {depth}"]["fault_decode"] > EXACT_TOL]
+    if every and not readings["bf16 cut"]["kernel_vs_plain"] <= NOISE_TOL:
+        bad.append(f"bf16 cut kernel_vs_plain "
+                   f"{readings['bf16 cut']['kernel_vs_plain']!r}")
+    if bad:
+        raise AssertionError(f"{cfg.name} beyond bounds: {bad}")
+    gated = (f", bf16 kernel vs plain within {NOISE_TOL}; every flash "
+             "launch within its bar" if every else "")
+    log("ssm", f"{cfg.name}: on the cut float32 within {EXACT_TOL} (the "
+        f"planted fault beyond it at both depths){gated}; the config took "
+        f"{time.perf_counter() - t_cfg:.2f} s")
+    return {"flash_attention_hd112": {"launches": on_inst}} if every else {}
+
+
 def phase_analysis() -> None:
     """The contract checker over the whole grid and the full-width cells
     on the card; logs each rule's pass count, the full-width cells'
@@ -3846,7 +4249,8 @@ def main() -> int:
                       ("profile", lambda: [phase_profile(torch, b) for b in
                                            ("cuda", "cuda_block")]),
                       ("model", lambda: phase_model(torch, np)),
-                      ("moe", lambda: phase_moe(torch, np))):
+                      ("moe", lambda: phase_moe(torch, np)),
+                      ("ssm", lambda: phase_ssm(torch, np))):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -3856,7 +4260,7 @@ def main() -> int:
         if phase == "kernels":
             record = out
         if phase in ("main", "runtime", "resilience", "dist", "model",
-                     "moe"):
+                     "moe", "ssm"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)

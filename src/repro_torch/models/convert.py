@@ -28,9 +28,11 @@ def _tensor(a, device, dtype):
     return t.to(device)
 
 
-# Leaves a model keeps in float32 whatever its type (the MoE router: the
-# reference draws it in float32 in a bf16 model and routes in float32).
-FLOAT32_LEAVES = ("router",)
+# Leaves a model keeps in float32 whatever its type, as the reference
+# draws and computes them: the MoE router; a Mamba2 block's A_log, D and
+# dt_bias (a key named "D" exists only in a Mamba2 block); and the SSM
+# cache's recurrent "state" (no parameter bears that name).
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias", "state")
 
 
 def _tree(tree, device, dtype):
@@ -46,7 +48,8 @@ def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):
     """A nested dict of arrays as the port's tensors: the reference's
     parameters, or its cache (``cache_from_numpy``); floating leaves cast
     to ``dtype`` when it is given, integer ones (``pos``) and the
-    ``FLOAT32_LEAVES`` (the MoE router) kept as they are."""
+    ``FLOAT32_LEAVES`` (the MoE router, the SSM's A_log, D, dt_bias and
+    state) kept as they are."""
     return _tree(tree, resolve_device(device), dtype)
 
 

@@ -1,24 +1,30 @@
 """Serving forward passes: prefill (cache build) and single-token decode
 (port of ``repro.models.decode``: the dense and MoE paths, GQA and MLA
-attention).
+attention, the SSM and the hybrid).
 
-Prefill runs the flash kernel in every layer; decode attends densely over
-the cache, one token's scores over the Smax cached positions in float32
-(``_gqa_cached_attn``), as the reference leaves it to XLA.  MLA decode
-absorbs ``wk_b`` into the query and ``wv_b`` into the output and scores
-in the compressed kv_lora_rank space (``_mla_cached_attn``), so its cache
-holds only (c_kv, k_rope) per token.  An MoE layer decodes the whole
-batch as one dispatch row (``layers.moe_block``).
+Prefill runs the flash kernel in every attention layer; decode attends
+densely over the cache, one token's scores over the Smax cached positions
+in float32 (``_gqa_cached_attn``), as the reference leaves it to XLA.
+MLA decode absorbs ``wk_b`` into the query and ``wv_b`` into the output
+and scores in the compressed kv_lora_rank space (``_mla_cached_attn``),
+so its cache holds only (c_kv, k_rope) per token.  An MoE layer decodes
+the whole batch as one dispatch row (``layers.moe_block``).  A Mamba2
+layer decodes by its recurrent update (``ssm.ssd_decode_step``); the
+hybrid's shared attention block keeps one K/V cache per application.
 
 The cache is ``{"pos": () int32, "k": (L, B, Smax, KVH, hd), "v": ...}``,
-or with MLA ``{"pos", "ckv": (L, B, Smax, rkv), "krope": (L, B, Smax,
-dr)}``.  Unlike the reference's immutable arrays, ``decode_step`` writes
-the new token's entries into the cache tensors in place (a copy of the
-whole cache per step would cost more than the step) and returns a new
-dict that shares them, with ``pos`` advanced.  The write position is
-clamped into [0, Smax - 1] as ``jax.lax.dynamic_update_slice`` clamps it.
-SSM, hybrid and encoder-decoder configs raise ``NotImplementedError``
-(ROADMAP queue 1 item 6).
+with MLA ``{"pos", "ckv": (L, B, Smax, rkv), "krope": (L, B, Smax,
+dr)}``, and for the SSM ``{"pos", "conv": (L, B, W - 1, d_inner + 2
+state) in the activation type (the last W - 1 tokens' pre-conv inputs),
+"state": (L, B, heads, head_dim, state) float32}``, with the hybrid's
+``"sk"``/``"sv"``: (L // every, B, Smax, KVH, hd) beside them.  Unlike
+the reference's immutable arrays, ``decode_step`` writes the new token's
+entries (and each SSM layer's conv and state) into the cache tensors in
+place (a copy of the whole cache per step would cost more than the step)
+and returns a new dict that shares them, with ``pos`` advanced.  The
+write position is clamped into [0, Smax - 1] as
+``jax.lax.dynamic_update_slice`` clamps it.  Encoder-decoder configs
+raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -29,9 +35,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_dtype, check_supported,
-                                            embed_inputs, lm_head_logits)
+                                            embed_inputs, lm_head_logits,
+                                            shared_fwd_kv, shared_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +52,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
-    lead = (cfg.num_layers, batch, max_len)
+    Ln = cfg.num_layers
+    if cfg.ssm:
+        C = cfg.d_inner + 2 * cfg.ssm_state
+        cache["conv"] = torch.zeros((Ln, batch, cfg.conv_width - 1, C),
+                                    dtype=dt, device=dev)
+        cache["state"] = torch.zeros(
+            (Ln, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device=dev)
+        if cfg.hybrid_attn_every:
+            shape = (Ln // cfg.hybrid_attn_every, batch, max_len,
+                     cfg.num_kv_heads, cfg.head_dim)
+            cache["sk"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["sv"] = torch.zeros(shape, dtype=dt, device=dev)
+        return cache
+    lead = (Ln, batch, max_len)
     if cfg.use_mla:
         cache["ckv"] = torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
                                    device=dev)
@@ -149,6 +171,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     check_supported(cfg)
     pos = cache["pos"]
     x = params["embed"][tokens.long()]                 # (B, d)
+    if cfg.ssm:
+        x = _ssm_decode(cfg, params, cache, x)
+        return _last_logits(cfg, params, x[:, None]), dict(cache,
+                                                           pos=pos + 1)
     attn = _mla_cached_attn if cfg.use_mla else _gqa_cached_attn
 
     def body(x, inp):
@@ -161,11 +187,52 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     a, b = _cache_names(cfg)
     x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
-    h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_head_logits(cfg, params, h[:, None])[:, 0]
-    new_cache = dict(cache)
-    new_cache["pos"] = pos + 1
-    return logits, new_cache
+    return _last_logits(cfg, params, x[:, None]), dict(cache, pos=pos + 1)
+
+
+def _last_logits(cfg: ModelConfig, params: dict,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the LM head at the last position of x (B, S,
+    d): logits (B, V)."""
+    h = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return lm_head_logits(cfg, params, h)[:, 0]
+
+
+def _shared_cached(cfg: ModelConfig, sp: dict, x: torch.Tensor,
+                   kc: torch.Tensor, vc: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """The hybrid's shared block on one token x (B, d), attending over
+    its application's K/V cache (written in place at ``pos``)."""
+    h = L.rmsnorm(x, sp["norm1"], cfg.norm_eps)
+    x = x + _gqa_cached_attn(sp["attn"], h, kc, vc, pos, cfg)[0]
+    h = L.rmsnorm(x, sp["norm2"], cfg.norm_eps)
+    return x + L.mlp_block(sp["mlp"], h)
+
+
+def _ssm_decode(cfg: ModelConfig, params: dict, cache: dict,
+                x: torch.Tensor) -> torch.Tensor:
+    """The SSM / hybrid layers on one token x (B, d): each layer's conv
+    and state are written back into the cache in place, and the shared
+    block's K/V into its slot.  Returns the last hidden state (B, d)."""
+    def body(carry, inp):
+        x, idx = carry
+        lp, conv_l, state_l = inp
+        h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        h, conv, state = SSM.ssd_decode_step(lp["mamba"], h, conv_l,
+                                             state_l, cfg)
+        conv_l.copy_(conv)
+        state_l.copy_(state)
+        x = x + h
+        slot = shared_slot(cfg, idx)
+        if slot is not None:
+            x = _shared_cached(cfg, params["shared_attn"], x,
+                               cache["sk"][slot], cache["sv"][slot],
+                               cache["pos"])
+        return (x, idx + 1), None
+
+    x, _ = SET.scan(body, (x, 0), (params["layers"], cache["conv"],
+                                   cache["state"]))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -179,10 +246,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, Sq, _ = x.shape
-    if max_len < Sq:
+    if max_len < Sq and (not cfg.ssm or cfg.hybrid_attn_every):
         raise ValueError(f"prefill: max_len {max_len} < prompt length {Sq}")
-    pos = torch.arange(Sq, device=x.device)
     cache = init_cache(cfg, B, max_len, device=x.device)
+    if cfg.ssm:
+        x = _ssm_prefill(cfg, params, cache, x)
+        cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=x.device)
+        return cache, _last_logits(cfg, params, x)
+    pos = torch.arange(Sq, device=x.device)
 
     def body(x, inp):
         lp, kc, vc = inp
@@ -201,7 +272,46 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 
     a, b = _cache_names(cfg)
     x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
-    h = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_head_logits(cfg, params, h[:, -1:, :])[:, 0]
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=x.device)
-    return cache, logits
+    return cache, _last_logits(cfg, params, x)
+
+
+def _ssm_prefill(cfg: ModelConfig, params: dict, cache: dict,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The SSM / hybrid layers over the prompt x (B, S, d), writing each
+    layer's final state and conv tail into the cache, and at each
+    application point the shared block's K/V into its slot.  Returns the
+    hidden states (B, S, d)."""
+    W, Sq = cfg.conv_width, x.shape[1]
+    if Sq < W - 1:
+        raise ValueError(
+            f"prefill: a prompt of {Sq} tokens is shorter than the conv "
+            f"state's {W - 1} (conv_width - 1); the reference builds a conv "
+            "state of the wrong length there and its next decode fails")
+
+    def body(carry, inp):
+        x, idx = carry
+        lp, conv_l, state_l = inp
+        h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        y, state = SSM.ssd_forward(lp["mamba"], h, cfg)
+        conv_l.copy_(_conv_tail(lp["mamba"], h, cfg))
+        state_l.copy_(state)
+        x = x + y
+        slot = shared_slot(cfg, idx)
+        if slot is not None:
+            x, k, v = shared_fwd_kv(cfg, params["shared_attn"], x)
+            cache["sk"][slot, :, :Sq] = k.to(cache["sk"].dtype)
+            cache["sv"][slot, :, :Sq] = v.to(cache["sv"].dtype)
+        return (x, idx + 1), None
+
+    x, _ = SET.scan(body, (x, 0), (params["layers"], cache["conv"],
+                                   cache["state"]))
+    return x
+
+
+def _conv_tail(mp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The last (conv_width - 1) tokens' pre-conv inputs [x | B | C]: the
+    decode conv state.  Only those tokens are projected (the reference
+    projects all S and keeps the tail)."""
+    t = h[:, -(cfg.conv_width - 1):]
+    return torch.cat([t @ mp["wx"], t @ mp["wB"], t @ mp["wC"]], dim=-1)

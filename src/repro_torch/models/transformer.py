@@ -3,13 +3,16 @@ init, embedding, the layer stack's forward and the LM head.
 
 Covers the dense families (starcoder2, qwen1.5 with QKV bias, internlm2,
 minitron), the VLM's LM backbone (internvl2, patch embeddings
-prepended) and the MoE family (deepseek-moe-16b; deepseek-v3 with MLA
-attention).  Layer parameters stay stacked along a leading L axis and
-the layer loop is ``settings.scan`` (a Python loop); the forward is
-inference only, so the reference's ``remat`` has nothing to do here.
-SSM/hybrid and encoder-decoder configs raise ``NotImplementedError``
-naming the ROADMAP item that ports them (queue 1 item 6);
-``chunked_ce_loss`` and ``forward_train`` wait for the training slice.
+prepended), the MoE family (deepseek-moe-16b; deepseek-v3 with MLA
+attention), the SSM (mamba2: Mamba2 blocks only) and the hybrid (zamba2:
+a Mamba2 backbone and one shared attention + MLP block, applied after
+every ``hybrid_attn_every``-th layer with the same parameters).  Layer
+parameters stay stacked along a leading L axis and the layer loop is
+``settings.scan`` (a Python loop); the forward is inference only, so the
+reference's ``remat`` has nothing to do here.  Encoder-decoder configs
+raise ``NotImplementedError`` naming the ROADMAP item that ports them
+(queue 1 item 6); ``chunked_ce_loss`` and ``forward_train`` wait for the
+training slice.
 """
 from __future__ import annotations
 
@@ -20,11 +23,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 # What each unported family waits for (ROADMAP queue 1 item 6).
-_LATER = (("ssm", "6c", "SSM and hybrid (mamba2/zamba2) layers"),
-          ("enc_dec", "6d", "the encoder-decoder (whisper)"))
+_LATER = (("enc_dec", "6d", "the encoder-decoder (whisper)"),)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -39,6 +42,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def shared_slot(cfg: ModelConfig, idx: int) -> int | None:
+    """The hybrid's shared block runs after layer ``idx`` when (idx + 1)
+    is a multiple of ``hybrid_attn_every``; returns that application's
+    cache slot (idx // every), or None (also for every non-hybrid)."""
+    every = cfg.hybrid_attn_every
+    if every and (idx + 1) % every == 0:
+        return idx // every
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +76,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     del embed
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_dense(gen, d, cfg.vocab_size, dtype)
+    if cfg.ssm:
+        params["layers"] = {
+            "norm1": torch.ones((Ln, d), dtype=dtype, device=dev),
+            "mamba": SSM.init_mamba2(gen, cfg, dtype, lead=(Ln,))}
+        if cfg.hybrid_attn_every:
+            params["shared_attn"] = {
+                "norm1": torch.ones((d,), dtype=dtype, device=dev),
+                "attn": L.init_attention(gen, cfg, dtype),
+                "norm2": torch.ones((d,), dtype=dtype, device=dev),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype)}
+        return params
     init_attn = L.init_mla if cfg.use_mla else L.init_attention
     layers = {"norm1": torch.ones((Ln, d), dtype=dtype, device=dev),
               "attn": init_attn(gen, cfg, dtype, lead=(Ln,)),
@@ -83,6 +107,8 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor):
     """One backbone layer (no cache).  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    if cfg.ssm:
+        return x + SSM.ssd_forward(lp["mamba"], h, cfg)[0], aux
     if cfg.use_mla:
         h = L.mla_block(lp["attn"], h, cfg)
     else:
@@ -98,18 +124,35 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor):
     return x + h, aux
 
 
+def shared_fwd_kv(cfg: ModelConfig, sp: dict, x: torch.Tensor):
+    """The hybrid's shared attention + MLP block over x (B, S, d), its
+    attention on the flash kernel for CUDA tensors.  Returns (x, k, v),
+    the block's K and V (B, S, KVH, hd) for the prefill's cache."""
+    h = L.rmsnorm(x, sp["norm1"], cfg.norm_eps)
+    pos = torch.arange(x.shape[1], device=x.device)
+    q, k, v = L.attention_qkv(sp["attn"], h, cfg, pos)
+    o = L.flash_attention(q, k, v, causal=True)
+    x = x + torch.einsum("bshk,hkd->bsd", o, sp["attn"]["wo"])
+    h = L.rmsnorm(x, sp["norm2"], cfg.norm_eps)
+    return x + L.mlp_block(sp["mlp"], h), k, v
+
+
 def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """Run the stacked layers over x (B, S, d).  Returns (hidden,
+    """Run the stacked layers over x (B, S, d), the hybrid's shared block
+    after every ``hybrid_attn_every``-th.  Returns (hidden,
     total_aux_loss)."""
     check_supported(cfg)
 
     def body(carry, lp):
-        x, aux = carry
+        x, aux, idx = carry
         x, a = _layer_fwd(cfg, lp, x)
-        return (x, aux + a), None
+        if shared_slot(cfg, idx) is not None:
+            x = shared_fwd_kv(cfg, params["shared_attn"], x)[0]
+        return (x, aux + a, idx + 1), None
 
     aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
-    return SET.scan(body, (x, aux0), params["layers"])
+    x, aux, _ = SET.scan(body, (x, aux0, 0), params["layers"])
+    return x, aux
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:

@@ -403,6 +403,14 @@ FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, Dv, causal, q_offset)
     (1, 130, 383, 2, 2, 192, 128, False, 0),
     (2, 200, 328, 4, 2, 192, 128, True, 128),  # q_offset > 0
     (2, 64, 192, 4, 2, 192, 128, True, 100),   # a fully masked KV tile
+    # zamba2's head_dim 112 on the (128, 128) instance: the second
+    # 64-column box of Q, K and V is partial (48 real columns).
+    (1, 256, 256, 4, 4, 112, 112, True, 0),
+    (1, 256, 256, 4, 4, 112, 112, False, 0),
+    (2, 300, 300, 4, 2, 112, 112, True, 0),    # ragged, G > 1
+    (1, 130, 383, 2, 2, 112, 112, False, 0),
+    (2, 200, 328, 4, 2, 112, 112, True, 128),  # q_offset > 0
+    (2, 64, 192, 4, 2, 112, 112, True, 100),   # a fully masked KV tile
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # bf16 is also held row by row, scaled to the output: the largest
@@ -476,16 +484,25 @@ def test_flash_kernel_rejects_bad_input(cuda):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen1.5-110b",
-                                  "deepseek-moe-16b", "deepseek-v3-671b"])
+                                  "deepseek-moe-16b", "deepseek-v3-671b",
+                                  "mamba2-1.3b", "zamba2-7b"])
 def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
     """prefill and decode_step of a smoke config (float32) on the card
-    (the flash kernel in each layer; MoE layers; MLA's compressed cache
-    and absorbed decode) against the CPU (its plain version)."""
+    (the flash kernel in each attention layer; MoE layers; MLA's
+    compressed cache and absorbed decode; Mamba2 layers and the hybrid's
+    shared block at each application point) against the CPU (its plain
+    version)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     cfg = registry.get_smoke_config(arch)
+    # Flash launches of a prefill: one per attention layer, or one per
+    # application of the hybrid's shared block (none in mamba2).
+    n_attn = cfg.num_layers
+    if cfg.ssm:
+        every = cfg.hybrid_attn_every
+        n_attn = cfg.num_layers // every if every else 0
     params = T.init_params(cfg, seed=0, device="cpu")
     on_card = _to(params, cuda)
     rng = np.random.default_rng(0)
@@ -496,7 +513,7 @@ def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
         before = kfa.flash_attention.launches
         cache, lg = D.prefill(cfg, p, {"tokens": toks[:, :32].to(dev)}, 40)
         if dev == "cuda":
-            assert kfa.flash_attention.launches == before + cfg.num_layers
+            assert kfa.flash_attention.launches == before + n_attn
         lg2, cache = D.decode_step(cfg, p, cache, toks[:, 32].to(dev))
         out[dev] = [x.cpu() for x in (lg, lg2) + tuple(
             cache[n] for n in sorted(cache) if n != "pos")]

@@ -89,6 +89,17 @@ def test_analysis_modules_are_scanned():
     assert set(ANALYSIS_MODULES) <= set(_modules())
 
 
+# The model zoo's modules, likewise (the SSM blocks among them).
+MODEL_MODULES = ("repro_torch.models.config", "repro_torch.models.convert",
+                 "repro_torch.models.decode", "repro_torch.models.layers",
+                 "repro_torch.models.settings", "repro_torch.models.ssm",
+                 "repro_torch.models.transformer")
+
+
+def test_model_modules_are_scanned():
+    assert set(MODEL_MODULES) <= set(_modules())
+
+
 def test_runtime_modules_are_scanned():
     assert set(RUNTIME_MODULES) <= set(_modules())
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}

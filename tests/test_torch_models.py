@@ -194,7 +194,6 @@ def test_cache_write_clamps_like_dynamic_update_slice(arch, pos):
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("mamba2-1.3b", "SSM"), ("zamba2-7b", "SSM"),
     ("whisper-small", "encoder-decoder")])
 def test_unported_families_raise(arch, what):
     cfg = TR.get_smoke_config(arch)

@@ -76,7 +76,8 @@ Phases (one line each; any failure raises and exits non-zero):
            clean guard sweep, every decision mirrored in telemetry,
            completions >= 2 % of clean), clean and all faults also on
            "cuda" with an equal carry sha256 and counters; resilience off
-           == one monolithic run_engine on both paths, configured and
+           == one monolithic run_engine on both paths ("cuda": the first
+           12000 events), configured and
            never triggered == off (one stream, and 128 lanes with both
            runs' events/s); 128 lanes under lane faults (only the
            poisoned lanes restored, every other lane bitwise its run
@@ -97,8 +98,8 @@ Phases (one line each; any failure raises and exits non-zero):
            run, with snapshot bytes, write and recovery times, WAL
            records replayed and WAL append time per push
   dist     the scale-out (repro_torch.dist): a world of one rank over
-           NCCL in process — stock's run_experiment with the PM store
-           sharded on "cuda_block" (pspice, pmbl, ebl) and "cuda"
+           NCCL in process — stock's run_experiment (12000 events) with
+           the PM store sharded on "cuda_block" (pspice, pmbl, ebl) and "cuda"
            (pspice) equal to the serial "cuda_block" run in FN, fires
            and compliance,
            and the runtime phase's 128 stock lanes through
@@ -160,6 +161,31 @@ Phases (one line each; any failure raises and exits non-zero):
            recurrence on one layer (2e-4); the bf16 decode against the
            full forward logged, not gated; the phase's seconds against
            its 90 s budget
+  encdec   whisper-small at full width and depth (bf16, random weights
+           from a seeded generator): prefill of 16 utterances (the
+           encoder over 1500 seeded frames, a 224-token decoder prompt:
+           36 launches of the flash kernel's (64, 64) instance, 12
+           non-causal encoder, 12 causal self, 12 cross) and 64 greedy
+           decode steps into a cache of 448, a profile of each, serve()
+           once (pspice); the kernel against the plain flash in bf16
+           (5e-2) and, on a float32 copy (1e-4), the kernel against
+           plain, decode against the full forward and a decode from the
+           cross cache rolled by one utterance that must read beyond the
+           bound; each launch against plain on its own inputs; the
+           phase's seconds against its 45 s budget
+  train    the training path: internlm2-1.8b at full width and depth
+           (bf16, float32 moments, B = 4 x S = 2048) through
+           launch.train's loop: 8 steps, a checkpoint of the whole state
+           every 4, a NaN at step 5 that restores step 4 (bit for bit,
+           by fingerprint) and skips; one step run on from memory
+           (profiled) equal to one step resumed from the latest
+           checkpoint; on a float32 cut of 2 layers every gradient leaf
+           through the flash kernel's autograd.Function within 1e-4 of
+           the plain flash under autograd; one AdamW step on the card
+           within 1e-6 of the CPU's; then whisper-small 4 steps at B = 8
+           (the kernel in all three modes under autograd); step ms,
+           tokens/s, peak memory; the phase's seconds against its 90 s
+           budget
 The build phase reports ptxas's registers and spills of the block
 kernel's two instantiations and of the bf16 flash kernel (a spill in the
 flash kernel fails it).  The kernels phase also runs the wgmma probe
@@ -167,9 +193,10 @@ against torch.matmul, holds the flash kernels against their plain version
 (float32 on the SIMT kernel, bf16 on the wgmma/TMA kernel; GQA/MQA,
 ragged, Dv != D, decode-style, a fully masked KV tile, and MLA's
 (D, Dv) = (192, 128) and zamba2's head_dim 112 in the same kinds of
-case; bf16 also row by row, scaled to the output, with planted faults
-that this bar must catch) and times the bf16 kernel at internlm2's,
-deepseek-v3's and zamba2's prefill shapes in turns with
+case, whisper's non-causal shapes over 1500 keys; bf16 also row by row,
+scaled to the output, with planted faults that this bar must catch) and
+times the bf16 kernel at internlm2's, deepseek-v3's and zamba2's prefill
+shapes and whisper's encoder and cross shapes in turns with
 scaled_dot_product_attention (where it takes the shape).
 The last lines are the kernels' JSON record, the nvidia-smi line and the
 contract line.  The script needs CUDA and the repository around it.
@@ -178,6 +205,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -187,7 +215,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
           "runtime", "resilience", "recovery", "dist", "profile", "model",
-          "moe", "ssm")
+          "moe", "ssm", "encdec", "train")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -228,6 +256,10 @@ KERNEL_META = {
     # shared attention block in prefill.
     "flash_attention_hd112": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                               "src/repro/kernels/flash_attention.py:29"),
+    # The same kernel's (64, 64) instance, non-causal over whisper's 1 500
+    # frames: the encoder and the decoder's cross-attention.
+    "flash_attention_encdec": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                               "src/repro/kernels/flash_attention.py:29"),
 }
 # The path whose run counts each kernel's launches: an engine backend of
 # the main phase, or the model phase's prefill and decode.
@@ -236,7 +268,8 @@ KERNEL_PATH = {"nfa_advance": "cuda", "utility_lookup": "cuda",
                "block_step_lanes": "runtime",
                "utility_histogram_lanes": "resilience",
                "flash_attention": "model", "flash_attention_mla": "moe",
-               "flash_attention_hd112": "ssm"}
+               "flash_attention_hd112": "ssm",
+               "flash_attention_encdec": "encdec"}
 W_BLOCK = 32                       # block_events on the block path
 
 
@@ -1212,6 +1245,10 @@ def runtime_refresh(torch, np) -> None:
 # ---------------------------------------------------------------------------
 
 RES_EVENTS, RES_CHUNK, RES_PUSH = 30000, 1024, 4096
+# The per-event path's check of resilience off against one monolithic
+# run_engine takes the stream's first 12 000 of its 30 000 events, to
+# keep the script within its time (PERF.md §7).
+RES_INERT_CUDA_EVENTS = 12000
 RES_FN_BOUND = 0.98        # bench_faults.FN_BOUND: a liveness bound
 RES_POISONED = (3, 64, 127)
 DEV = "cuda"               # the card; the phases' functions run there
@@ -1424,15 +1461,17 @@ def resilience_inert(torch, np) -> None:
                                       checkpoint_every_chunks=4))
     for backend in ("cuda_block", "cuda"):
         c = dataclasses.replace(cfg, backend=backend)
-        mono, _ = eng.run_engine(c, model, ev, eng.init_carry(c, device=dev),
-                                 device=dev)
+        n = RES_EVENTS if backend == "cuda_block" else RES_INERT_CUDA_EVENTS
+        ev_b = RT.slice_events(ev, 0, n)
+        mono, _ = eng.run_engine(c, model, ev_b,
+                                 eng.init_carry(c, device=dev), device=dev)
         runs = {}
         for label, kw in (("off", {}), ("inert", inert)):
             if backend == "cuda" and label == "inert":
                 continue
             srt = RT.StreamRuntime(c, model, RT.RuntimeConfig(
                 chunk_size=RES_CHUNK, **kw), device=dev)
-            push_all(RT, srt, ev)
+            push_all(RT, srt, ev_b)
             sync(torch, dev)
             runs[label] = srt
         for label, srt in runs.items():
@@ -1445,7 +1484,7 @@ def resilience_inert(torch, np) -> None:
         log("resilience", f"{backend}: resilience off == one monolithic "
             f"run_engine" + (" == resilience configured and never "
                              "triggered" if "inert" in runs else "") +
-            f" (every carry leaf, {RES_EVENTS} events, pushes of "
+            f" (every carry leaf, {n} events, pushes of "
             f"{RES_PUSH}, chunk {RES_CHUNK})")
 
     # -- 128 lanes, the runtime phase's cell --------------------------------
@@ -1780,7 +1819,10 @@ def recovery_lanes(torch, work) -> None:
 # ---------------------------------------------------------------------------
 
 DIST_TIMEOUT = 120.0       # seconds: each spawned world, each collective
-DIST_STOCK = 30000         # stock events of the world of one
+# Stock events of the world of one: 12 000 of the main path's 30 000, to
+# keep the script within its time (PERF.md §7); both paths and the serial
+# run take the same stream, whose pspice run still fires (42 shed calls).
+DIST_STOCK = 12000
 DIST_SOCCER = 12000        # soccer events (30 % warm-up, the rest run)
 DIST_LANES = 8             # soccer lanes on the (data 2, model 2) mesh
 DIST_PLAIN_CHUNKS = 1      # lane chunks also run on the plain versions
@@ -2862,10 +2904,24 @@ FLASH_MLA_PREFILL = ("mla_prefill", 4, 2048, 2048, 128, 128, 192, 128, True,
 # holds 48 real columns and 16 that TMA fills with zeros.
 FLASH_ZAMBA_PREFILL = ("zamba2_prefill", 4, 2048, 2048, 32, 32, 112, 112,
                        True, 0)
-# Each timed prefill shape and its kernel name in the JSON line.
+# whisper-small (the encdec phase's, at its B = 16): the encoder's
+# non-causal attention over 1 500 frames (11 KV tiles of 128 and a
+# ragged 92) and the decoder's cross-attention of a 224-token prompt over
+# them, both on the (64, 64) instance.  The cross shape is the first
+# bytes-bound one on a main path: 16 x 12 x 2 CTAs of 128 query rows.
+FLASH_WHISPER_ENCODER = ("whisper_encoder", 16, 1500, 1500, 12, 12, 64, 64,
+                         False, 0)
+FLASH_WHISPER_CROSS = ("whisper_cross", 16, 224, 1500, 12, 12, 64, 64, False,
+                       0)
+# Each timed shape and its kernel name in the JSON line (whisper's cross
+# shape joins the encoder's record with its keys prefixed "cross_").
 FLASH_TIMED = {"prefill": "flash_attention",
                "mla_prefill": "flash_attention_mla",
-               "zamba2_prefill": "flash_attention_hd112"}
+               "zamba2_prefill": "flash_attention_hd112",
+               "whisper_encoder": "flash_attention_encdec",
+               "whisper_cross": "flash_attention_encdec"}
+# The timed shapes that take the planted faults (causal, 2 048 rows).
+FLASH_FAULTED = ("prefill", "mla_prefill", "zamba2_prefill")
 FLASH_CASES = (
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, True, 0),
     ("kernels_test", 1, 128, 128, 2, 2, 32, 32, False, 0),
@@ -2899,6 +2955,11 @@ FLASH_CASES = (
     ("hd112_ragged", 1, 130, 383, 2, 2, 112, 112, False, 0),
     ("hd112_decode_style", 2, 200, 328, 4, 2, 112, 112, True, 128),
     ("hd112_masked_tile", 2, 64, 192, 4, 2, 112, 112, True, 100),
+    # whisper-small's shapes at B = 1 and 2: the encoder, the
+    # cross-attention of a 224-token prompt and of a 4-token one.
+    ("whisper_enc", 1, 1500, 1500, 12, 12, 64, 64, False, 0),
+    ("whisper_xattn", 2, 224, 1500, 12, 12, 64, 64, False, 0),
+    ("whisper_xattn", 2, 4, 1500, 12, 12, 64, 64, False, 0),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # The bf16 kernel's second bar, scaled to the output: the largest
@@ -2918,8 +2979,11 @@ FLASH_ORDER = ("kernel", "sdpa", "sdpa", "kernel")
 FLASH_WINDOWS, FLASH_CALLS = 5, 20
 
 
-def flash_name(kfa, D: int, Dv: int) -> str:
-    """The JSON line's name of the flash cases at head dims (D, Dv)."""
+def flash_name(kfa, label: str, D: int, Dv: int) -> str:
+    """The JSON line's name of the flash case ``label`` at head dims (D,
+    Dv)."""
+    if label.startswith("whisper"):
+        return "flash_attention_encdec"
     if kfa.sm90_instance(D, Dv) == (192, 128):
         return "flash_attention_mla"
     return "flash_attention_hd112" if D == 112 else "flash_attention"
@@ -3040,11 +3104,13 @@ def phase_probe(torch, np) -> None:
 
 def phase_flash_kernel(torch, np) -> dict:
     """The probe, then every flash case in both dtypes against the plain
-    version; the planted faults and the timing at each prefill shape of
-    FLASH_TIMED.  Returns the records of flash_attention (the (64, 64) and
-    (128, 128) instances), flash_attention_mla (the (192, 128) instance)
-    and flash_attention_hd112 (head_dim 112 on the (128, 128) instance),
-    each with its max |kernel - plain| over its cases."""
+    version; the planted faults at each causal prefill shape and the
+    timing at each shape of FLASH_TIMED.  Returns the records of
+    flash_attention (the (64, 64) and (128, 128) instances),
+    flash_attention_mla (the (192, 128) instance), flash_attention_hd112
+    (head_dim 112 on the (128, 128) instance) and flash_attention_encdec
+    (whisper's shapes on the (64, 64) instance), each with its max
+    |kernel - plain| over its cases."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as kfa
@@ -3055,10 +3121,10 @@ def phase_flash_kernel(torch, np) -> dict:
             for name in FLASH_TIMED.values()}
     row_max = 0.0
     record = {}
-    for case in (FLASH_PREFILL, FLASH_MLA_PREFILL,
-                 FLASH_ZAMBA_PREFILL) + FLASH_CASES:
+    for case in (FLASH_PREFILL, FLASH_MLA_PREFILL, FLASH_ZAMBA_PREFILL,
+                 FLASH_WHISPER_ENCODER, FLASH_WHISPER_CROSS) + FLASH_CASES:
         label, B, Sq, Sk, H, KVH, D, Dv, causal, q_off = case
-        name = flash_name(kfa, D, Dv)
+        name = flash_name(kfa, label, D, Dv)
         # Inputs drawn on the card (the MLA prefill's are 0.5 G values).
         gen = torch.Generator(device=dev)
         gen.manual_seed(B * Sq + H * D + Dv + q_off)
@@ -3101,8 +3167,12 @@ def phase_flash_kernel(torch, np) -> dict:
                 f"plain| {err:.3e} (tol {FLASH_TOL[dt]}){row_txt}")
             if label not in FLASH_TIMED or dt != "bfloat16":
                 continue
-            flash_faults(torch, kfa, q, k, v, want)
-            record[name] = flash_timing(torch, F, kfa, q, k, v, got, case)
+            if label in FLASH_FAULTED:
+                flash_faults(torch, kfa, q, k, v, want)
+            timed = flash_timing(torch, F, kfa, q, k, v, got, case)
+            if label == "whisper_cross":
+                timed = {f"cross_{k}": x for k, x in timed.items()}
+            record.setdefault(name, {}).update(timed)
             del q, k, v, got, want
         del base
     for name, e in errs.items():
@@ -4115,6 +4185,610 @@ def ssm_config(torch, np, arch) -> dict:
     return {"flash_attention_hd112": {"launches": on_inst}} if every else {}
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder at full width and depth: whisper-small
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-small"
+# 16 utterances, a 224-token decoder prompt, 64 greedy steps into a cache
+# of 448 (whisper's decoder context).  The float32 checks run on the
+# first ENCDEC_EXACT_B utterances.
+ENCDEC_B, ENCDEC_S, ENCDEC_MAX_LEN, ENCDEC_DECODE = 16, 224, 448, 64
+ENCDEC_EXACT_B = 4
+ENCDEC_BUDGET_S = 45.0
+
+
+def _encdec_batch(torch, cfg, B: int, S: int, dev) -> dict:
+    """Seeded tokens (B, S) and frames (B, enc_frames, d) in the model's
+    type (the reference stubs the conv frontend with frames)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
+                         device=dev)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return {"tokens": toks, "frames": frames.to(dt)}
+
+
+def _cross_rolled(cache):
+    """The planted fault of an encoder-decoder cache: each layer's cross
+    K/V rolled by one utterance along the batch (every utterance attends
+    to another's audio); the self-attention K/V copied, as decode writes
+    them."""
+    return dict(cache, k=cache["k"].clone(), v=cache["v"].clone(),
+                ck=cache["ck"].roll(1, dims=1),
+                cv=cache["cv"].roll(1, dims=1))
+
+
+def _encdec_answer(torch, cfg, params, batch, S: int, flash):
+    """prefill of the first S tokens (``flash`` its attention), one
+    decode step of token S, the same step from the cross cache rolled by
+    one utterance, and the full forward (encoder + decoder) over S + 1
+    tokens: (prefill logits, step logits, full logits, faulty step)."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    kernel_flash = L.flash_attention
+    L.flash_attention = flash
+    try:
+        toks = batch["tokens"]
+        cache, logits = D.prefill(cfg, params, {"tokens": toks[:, :S],
+                                                "frames": batch["frames"]},
+                                  ENCDEC_MAX_LEN)
+        faulty = _cross_rolled(cache)
+        step, _ = D.decode_step(cfg, params, cache, toks[:, S])
+        bad, _ = D.decode_step(cfg, params, faulty, toks[:, S])
+        del cache, faulty
+        enc = T.encoder(cfg, params, batch["frames"])
+        h, _ = T.backbone(cfg, params, T.embed_inputs(
+            cfg, params, {"tokens": toks[:, :S + 1]}), enc_out=enc)
+        h = L.rmsnorm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        full = T.lm_head_logits(cfg, params, h)[:, 0]
+    finally:
+        L.flash_attention = kernel_flash
+    return logits, step, full, bad
+
+
+def phase_encdec(torch, np) -> dict:
+    """whisper-small at full width and depth (bf16, random weights from a
+    seeded generator): prefill of ENCDEC_B utterances (the encoder over
+    1 500 frames, the decoder over a ENCDEC_S-token prompt: 36 launches of
+    the flash kernel's (64, 64) instance, 12 encoder, 12 causal
+    self-attention, 12 cross-attention) and ENCDEC_DECODE greedy decode
+    steps (the path's counted run); prefill and decode rates, peak
+    memory, a profile of each; serve() once (pspice); then the kernel
+    against the plain flash in bf16 (5e-2) and, on a float32 copy (1e-4),
+    the kernel against plain, decode against the full forward and a
+    decode from a cross cache rolled by one utterance that must read
+    beyond the bound; each of the 36 launches of a prefill against plain
+    on its own inputs, in both types.  Returns the flash kernel's
+    launches of the counted run."""
+    import dataclasses
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=torch.device("cuda")).add_(1)
+        torch.cuda.synchronize()
+    dev = torch.device("cuda")
+    cfg = registry.get_config(ENCDEC_ARCH)
+    n_attn = cfg.enc_layers + 2 * cfg.num_layers
+    inst = kfa.sm90_instance(cfg.head_dim, cfg.head_dim)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _tensors(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    log("encdec", f"{cfg.name}: {cfg.enc_layers} encoder + {cfg.num_layers} "
+        f"decoder layers (full depth), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.head_dim} (KV {cfg.num_kv_heads}), "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.enc_frames} frames, "
+        f"{cfg.dtype}; {n_par} parameters ({n_bytes} B) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = _encdec_batch(torch, cfg, ENCDEC_B, ENCDEC_S, dev)
+    prompt = {"tokens": batch["tokens"][:, :ENCDEC_S].contiguous(),
+              "frames": batch["frames"]}
+    B, S = ENCDEC_B, ENCDEC_S
+
+    # The path's run: prefill + greedy decode, launch counts from 0.
+    torch.cuda.synchronize()
+    _reset_flash_counts(kfa)
+    t0 = time.perf_counter()
+    cache, logits = D.prefill(cfg, params, prompt, ENCDEC_MAX_LEN)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    n_prefill = kfa.flash_attention.launches
+    cross_bytes = 2 * cache["ck"].numel() * cache["ck"].element_size()
+    tok = logits.argmax(-1).to(torch.int32)
+    step_logits = []
+    t0 = time.perf_counter()
+    for _ in range(ENCDEC_DECODE):
+        lg, cache = D.decode_step(cfg, params, cache, tok)
+        step_logits.append(lg)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = kfa.flash_attention.launches
+    on_inst = kfa.flash_attention.sm90_instances[inst]
+    if n_prefill != n_attn or launches != n_attn or on_inst != n_attn:
+        raise AssertionError(f"{cfg.name} flash launches: {n_prefill} in "
+                             f"prefill, {launches} after decode, {on_inst} "
+                             f"on {inst}; expected {n_attn}")
+    if not (bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(x).all()) for x in step_logits)):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    if int(cache["pos"]) != S + ENCDEC_DECODE:
+        raise AssertionError(f"{cfg.name}: cache pos {int(cache['pos'])}")
+    peak = torch.cuda.max_memory_allocated()
+    del step_logits
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D.prefill(cfg, params, prompt, ENCDEC_MAX_LEN)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    log("encdec", f"{cfg.name} prefill B={B} ({cfg.enc_frames} frames, "
+        f"prompt {S} tokens, cache {ENCDEC_MAX_LEN}): {t_pre * 1e3:.2f} ms "
+        f"warm ({B * cfg.enc_frames / t_pre:.1f} frames/s, "
+        f"{B * S / t_pre:.1f} prompt tokens/s; first call "
+        f"{t_first * 1e3:.2f} ms), flash launches {n_prefill} per prefill, "
+        f"all on the bf16 wgmma kernel's <{inst[0]}, {inst[1]}> instance "
+        f"({cfg.enc_layers} encoder non-causal, {cfg.num_layers} causal "
+        f"self, {cfg.num_layers} cross); {ENCDEC_DECODE} greedy decode "
+        f"steps {t_dec * 1e3:.2f} ms ({t_dec / ENCDEC_DECODE * 1e3:.3f} ms "
+        f"per step, {B * ENCDEC_DECODE / t_dec:.1f} tokens/s); cross cache "
+        f"{cross_bytes} B; every logit finite, pos {int(cache['pos'])}; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
+    _profile(torch, lambda: D.prefill(cfg, params, prompt, ENCDEC_MAX_LEN),
+             f"{cfg.name} one prefill", "encdec")
+    _profile(torch, lambda: D.decode_step(cfg, params, cache, tok),
+             f"{cfg.name} one decode step", "encdec")
+    del cache
+
+    # The port's serve() with the reference CLI's defaults (decode over
+    # the initial cache, whose cross cache is zero, as the reference's).
+    t0 = time.perf_counter()
+    out = srv.serve(cfg, params, requests=64, rate=50.0, policy="pspice",
+                    slots=16, slo=1.0, max_len=96, device=dev,
+                    log=lambda s: log("encdec", f"{cfg.name} {s}"))
+    m = out["metrics"]
+    log("encdec", f"{cfg.name} serve pspice: decode_step "
+        f"{out['step_cost'] * 1e3:.3f} ms at B=16, {out['decode_steps']} "
+        f"real decode steps, metrics {m}, wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    if out["finished"] != 64 or m["completed"] + m["evicted"] != 64:
+        raise AssertionError(f"{cfg.name} serve: {out['finished']} of 64 "
+                             "requests finished")
+
+    # Exactness: bf16 at B = 16, then a float32 copy (TF32 is off) on the
+    # first ENCDEC_EXACT_B utterances.
+    readings, launch_errs = {}, {}
+    for dt in ("bf16", "f32"):
+        if dt == "f32":
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            params = _tree_map(lambda t: t.float(), params)
+            batch = {"tokens": batch["tokens"][:ENCDEC_EXACT_B],
+                     "frames": batch["frames"][:ENCDEC_EXACT_B].float()}
+            gc.collect()
+            torch.cuda.empty_cache()
+        errs = launch_errs[dt] = []
+        k_out = _encdec_answer(torch, cfg, params, batch, S,
+                               _flash_recorder(torch, kfa, errs))
+        p_out = _encdec_answer(torch, cfg, params, batch, S,
+                               kfa.flash_attention_plain)
+        readings[dt] = dict(
+            kernel_vs_plain=rel_err(torch, k_out[0], p_out[0]),
+            decode_vs_full=rel_err(torch, k_out[1], k_out[2]),
+            plain_decode_vs_full=rel_err(torch, p_out[1], p_out[2]),
+            fault_decode=rel_err(torch, k_out[3], k_out[2]))
+        if dt == "bf16":
+            bf16_first = k_out[0][:ENCDEC_EXACT_B]
+        else:
+            readings["bf16 vs f32"] = dict(
+                prefill=rel_err(torch, bf16_first, k_out[0]))
+        del k_out, p_out
+    del params
+    for label, e in readings.items():
+        log("encdec", f"{ENCDEC_ARCH} logits max|d|/max|logits|, {label}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+    log("encdec", f"{ENCDEC_ARCH} (bf16: B={B}; f32: B={ENCDEC_EXACT_B}; "
+        f"prompt {S}, then one decode step against the full forward over "
+        f"{S + 1} tokens; the fault: that step from the cross cache rolled "
+        "by one utterance)")
+    bad = []
+    for dt, errs in launch_errs.items():
+        abs_max = max(e[0] for e in errs)
+        row_max = max(e[1] for e in errs)
+        tol = FLASH_TOL["float32" if dt == "f32" else "bfloat16"]
+        # The recorder saw the prefill's launches and the full forward's.
+        log("encdec", f"{ENCDEC_ARCH} {dt}: {len(errs)} flash launches "
+            f"(the prefill's and the full forward's) each against the plain "
+            f"flash on its own inputs: max |kernel - plain| {abs_max:.3e} "
+            f"(tol {tol}), row-relative {row_max:.3e} (bar {FLASH_ROW_TOL}, "
+            "bf16)")
+        if (len(errs) != 2 * n_attn or not abs_max <= tol or
+                (dt == "bf16" and not row_max <= FLASH_ROW_TOL)):
+            bad.append(f"{dt} per-launch flash {len(errs)} launches, "
+                       f"{abs_max!r}, rows {row_max!r}")
+    f32 = readings["f32"]
+    bad += [f"f32 {k} {f32[k]!r}" for k in ("kernel_vs_plain",
+                                            "decode_vs_full")
+            if not f32[k] <= EXACT_TOL]
+    if not f32["fault_decode"] > EXACT_TOL:
+        bad.append(f"the planted fault passed the float32 bound "
+                   f"({f32['fault_decode']!r})")
+    if not readings["bf16"]["kernel_vs_plain"] <= NOISE_TOL:
+        bad.append(f"bf16 kernel_vs_plain "
+                   f"{readings['bf16']['kernel_vs_plain']!r}")
+    if bad:
+        raise AssertionError(f"{ENCDEC_ARCH} beyond bounds: {bad}")
+    secs = time.perf_counter() - t_phase
+    log("encdec", f"{ENCDEC_ARCH}: float32 kernel == plain and decode == "
+        f"full forward within {EXACT_TOL} (the planted fault beyond it); "
+        f"bf16 kernel vs plain within {NOISE_TOL}; every flash launch "
+        f"within its bar; the phase took {secs:.2f} s of its "
+        f"{ENCDEC_BUDGET_S:.0f} s budget "
+        f"({'within' if secs <= ENCDEC_BUDGET_S else 'OVER'} it)")
+    return {"flash_attention_encdec": {"launches": on_inst}}
+
+
+# ---------------------------------------------------------------------------
+# The training path: internlm2-1.8b at full width and depth, whisper-small
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"
+# The model phase's prompt shape; 8 steps of the launch.train loop with a
+# checkpoint every 4 and a NaN planted at step 5; then one more step run
+# on from memory (profiled) and, again, resumed from the latest
+# checkpoint (8).
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NAN_AT = (4, 2048, 8,
+                                                                  4, 5)
+TRAIN_MORE = 1
+TRAIN_CUT_LAYERS = 2       # the float32 cut of the gradient check
+TRAIN_CUT_B, TRAIN_CUT_S = 2, 2048
+# Each gradient leaf's max|kernel path - plain path| / max|grad| (float32).
+GRAD_TOL = 1e-4
+# One AdamW step on the card against the CPU: max|d| / max|x| per leaf.
+ADAMW_TOL = 1e-6
+# whisper-small under autograd: 4 steps at B = 8 (1 500 frames, 448
+# decoder tokens: the encoder, causal self- and cross-attention).
+TRAIN_WHISPER_B, TRAIN_WHISPER_S, TRAIN_WHISPER_STEPS = 8, 448, 4
+TRAIN_BUDGET_S = 90.0
+
+
+def fingerprint(torch, tree) -> dict:
+    """{leaf path: (sum of its bits, sum of its bits · (i mod 65521 + 1))}
+    as int64 on the card (wrapping): equal trees give equal prints, and a
+    changed element changes the second sum unless its change is a
+    multiple of 2^64 / its weight.  Two states of 18 GB never fit the card
+    beside training at once, so states are compared by print."""
+    from repro_torch.training.tree import items
+
+    out = {}
+    for path, t in items(tree):
+        bits = t.detach().reshape(-1)
+        bits = bits.view({2: torch.int16, 4: torch.int32, 8: torch.int64,
+                          1: torch.int8}[bits.element_size()]).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out["/".join(map(str, path))] = (int(bits.sum()),
+                                         int((bits * w).sum()))
+        del bits, w
+    return out
+
+
+def phase_train(torch, np) -> dict:
+    """The training path on the card (TRAIN_* above): internlm2-1.8b at
+    full width and depth in bf16 (float32 moments) through
+    ``launch.train``'s loop, then whisper-small, each step's attention
+    forward on the flash kernel under its autograd.Function.  Gates:
+    every kept loss finite; the NaN step restores the step-4 checkpoint
+    bit for bit (fingerprints) and skips; the state resumed from the
+    latest checkpoint equals the saved one, and a step from it equals the
+    step run on in memory; on a float32 cut of the first 2 layers, every
+    gradient leaf through the kernel's Function within GRAD_TOL of the
+    plain flash under autograd; one AdamW step on the card within
+    ADAMW_TOL of the same step on the CPU.  Logged: step ms, tokens/s,
+    peak memory, a profiled step's idle share."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # Bitwise resume needs deterministic kernels (the embedding's
+    # gradient sums colliding token rows).
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = registry.get_config(TRAIN_ARCH)
+    opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=10)
+    tokens = TRAIN_B * TRAIN_S
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=0, device=dev)
+    opt = O.init_opt_state(params)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _tensors(params))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      list(_tensors(params)) + list(_tensors(opt)))
+    log("train", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_par} parameters in bf16, AdamW moments in "
+        f"float32: {state_bytes} B of state; B={TRAIN_B} x S={TRAIN_S}")
+    prints, events = {}, []
+
+    def on_checkpoint(kind, step, state):
+        events.append((kind, step))
+        fp = fingerprint(torch, state)
+        if kind == "save":
+            prints[step] = fp
+        elif fp != prints.get(step):
+            raise AssertionError(f"the {kind} of step {step} is not bit for "
+                                 "bit the saved state")
+        log("train", f"checkpoint {kind} step {step}: {len(fp)} leaves, "
+            "fingerprints equal to the save's" if kind == "restore" else
+            f"checkpoint {kind} step {step}: {len(fp)} leaves fingerprinted")
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log("train", f"{label}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    _reset_flash_counts(kfa)
+    logs = []
+    # The loop takes the state over: this frame keeps no reference to it
+    # (a second 18 GB state would not fit beside a step).
+    given = {"params": params, "opt": opt}
+    del params, opt
+    run = timed("8 steps of the loop (checkpoints and the NaN restore "
+                "included)", lambda: LT.train_loop(
+                    cfg, given.pop("params"), given.pop("opt"),
+                    steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                    opt_cfg=opt_cfg, ckpt_dir=str(ckpt),
+                    ckpt_every=TRAIN_CKPT_EVERY, inject_nan_at=TRAIN_NAN_AT,
+                    device=dev, on_checkpoint=on_checkpoint,
+                    log=logs.append))
+    for line in logs:
+        log("train", line.removeprefix("[train] "))
+    peak = torch.cuda.max_memory_allocated()
+    kept = [s for s, _ in run["losses"]]
+    want = [s for s in range(TRAIN_STEPS) if s != TRAIN_NAN_AT]
+    ms = [t * 1e3 for t in run["step_s"]]
+    n_flash = kfa.flash_attention.launches
+    if (kept != want or run["restored"] != [4] or run["saved"] != [4, 8] or
+            events != [("save", 4), ("restore", 4), ("save", 8)] or
+            not all(math.isfinite(x) for _, x in run["losses"])):
+        raise AssertionError(f"train loop: kept steps {kept}, restored "
+                             f"{run['restored']}, saved {run['saved']}, "
+                             f"events {events}, losses {run['losses']}")
+    if n_flash != TRAIN_STEPS * cfg.num_layers:
+        raise AssertionError(f"{n_flash} flash launches in {TRAIN_STEPS} "
+                             f"steps; expected {cfg.num_layers} a step")
+    warm = statistics.median(ms[1:])
+    log("train", f"{cfg.name} losses {[round(x, 4) for _, x in run['losses']]}"
+        f" (steps {kept}; step {TRAIN_NAN_AT}'s NaN restored step 4 and "
+        f"skipped); step ms {[round(x, 1) for x in ms]} (first with the "
+        f"allocator's warm-up): median {warm:.1f} ms = "
+        f"{tokens / warm * 1e3:.1f} tokens/s; flash launches {n_flash} "
+        f"({cfg.num_layers} a step, forward on the kernel; the backward "
+        f"is the plain version's VJP); max_memory_allocated {peak} B "
+        f"({peak / 2**30:.3f} GiB)")
+
+    # Running on from memory (profiled) and resuming from the latest
+    # checkpoint: TRAIN_MORE more steps each, compared by fingerprint.
+    state8 = prints[8]
+    from torch.profiler import ProfilerActivity, profile
+    more = {}
+
+    def on_memory():
+        more["on"] = LT.train_loop(
+            cfg, run.pop("params"), run.pop("opt"), steps=TRAIN_STEPS +
+            TRAIN_MORE, start=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+            opt_cfg=opt_cfg, device=dev, log=lambda s: None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # Device activity alone: a step's ~10^4 host ops would take the
+    # profile's table seconds to build.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        on_memory()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = timed("the profile's kernel table", lambda: device_rows(prof))
+    busy = sum(r[0] for r in rows) / 1e6
+    n_more = f"{TRAIN_MORE} step{'s' if TRAIN_MORE > 1 else ''}"
+    log("train", f"{n_more} run on from memory under the "
+        f"profiler: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms ({busy / wall:.2%}; idle "
+        f"{1 - busy / wall:.2%})")
+    for dev_us, count, key in rows[:8]:
+        log("train", f"  {dev_us / 1e3:.3f} ms device "
+            f"({dev_us / 1e6 / busy:.1%} of busy), {count} calls: "
+            f"{key[:80]}")
+    del prof, rows
+    on = more.pop("on")
+    fp_on, losses_on = fingerprint(torch, {"params": on["params"],
+                                           "opt": on["opt"]}), on["losses"]
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+    like = T.init_params(cfg, seed=1, device=dev)
+    p, o, start = timed("resume from the latest checkpoint", lambda:
+                        LT.resume(str(ckpt), like, O.init_opt_state(like),
+                                  log=lambda s: log(
+                                      "train", s.removeprefix("[train] "))))
+    del like
+    if start != TRAIN_STEPS or fingerprint(
+            torch, {"params": p, "opt": o}) != state8:
+        raise AssertionError(f"resume: step {start}, or the state is not "
+                             "the saved one")
+    given = {"params": p, "opt": o}
+    del p, o
+    res = LT.train_loop(cfg, given.pop("params"), given.pop("opt"),
+                        steps=TRAIN_STEPS + TRAIN_MORE, start=start,
+                        batch=TRAIN_B, seq=TRAIN_S, opt_cfg=opt_cfg,
+                        device=dev, log=lambda s: None)
+    fp_res = fingerprint(torch, {"params": res["params"],
+                                 "opt": res["opt"]})
+    if res["losses"] != losses_on or fp_res != fp_on:
+        raise AssertionError(f"resumed steps {res['losses']} differ from "
+                             f"running on {losses_on} (or the states' "
+                             "fingerprints differ)")
+    log("train", f"resumed at step {start}: the restored state's "
+        f"fingerprints equal the step-8 save's; {n_more} from it "
+        f"equal{'s' if TRAIN_MORE == 1 else ''} {n_more} run on from memory (losses "
+        f"{[round(x, 6) for _, x in losses_on]}, every leaf's fingerprint)")
+    # The real moments of the first TRAIN_CUT_LAYERS layers for the AdamW
+    # check; the rest of the state goes.
+    cut = lambda t: t[:TRAIN_CUT_LAYERS].float()  # noqa: E731
+    moments = {k: _tree_map(cut, res["opt"][k]["layers"]) for k in "mv"}
+    step_now = res["opt"]["step"]
+    cut_params = dict(
+        {k: res["params"][k].float() for k in ("embed", "lm_head",
+                                               "final_norm")},
+        layers=_tree_map(cut, res["params"]["layers"]))
+    del res
+    torch.use_deterministic_algorithms(det)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The gradient bar on a float32 cut (the kernel's float32 instance
+    # under the Function against the plain flash under autograd).
+    ccfg = dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS,
+                               dtype="float32")
+    batch = LT.synthetic_batch(ccfg, TRAIN_CUT_B, TRAIN_CUT_S, 0, device=dev)
+    n0 = kfa.flash_attention.launches
+    loss_k, _, g_k = timed("float32 cut: loss and grads through the kernel",
+                           lambda: loss_and_grads(ccfg, cut_params, batch))
+    if kfa.flash_attention.launches != n0 + TRAIN_CUT_LAYERS:
+        raise AssertionError("the float32 cut's forward did not run the "
+                             "kernel in each layer")
+    kernel_flash = L.flash_attention
+    L.flash_attention = kfa.flash_attention_plain
+    try:
+        loss_p, _, g_p = timed("float32 cut: loss and grads through the "
+                               "plain flash", lambda: loss_and_grads(
+                                   ccfg, cut_params, batch))
+    finally:
+        L.flash_attention = kernel_flash
+    from repro_torch.training.tree import items
+    worst, bad = 0.0, []
+    flat_p = dict(items(g_p))
+    for path, g in items(g_k):
+        w = flat_p[path]
+        e = float((g - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+        worst = max(worst, e)
+        if not e <= GRAD_TOL:
+            bad.append(("/".join(map(str, path)), e))
+    log("train", f"float32 cut ({TRAIN_CUT_LAYERS} layers, B="
+        f"{TRAIN_CUT_B} x S={TRAIN_CUT_S}): loss kernel {float(loss_k):.6f}"
+        f", plain {float(loss_p):.6f}; {len(flat_p)} gradient leaves, "
+        f"worst max|kernel - plain| / max|grad| {worst:.3e} (bar "
+        f"{GRAD_TOL})")
+    if bad or abs(float(loss_k) - float(loss_p)) > 1e-5 * abs(float(loss_p)):
+        raise AssertionError(f"gradients through the kernel beyond "
+                             f"{GRAD_TOL}: {bad}")
+    del g_p
+
+    # One AdamW step on the card and on the CPU from the same numbers: the
+    # cut's layers (float32), their kernel-path gradients and the run's
+    # real moments at its step.
+    sub_p, sub_g = cut_params["layers"], g_k["layers"]
+    sub_o = {"m": moments["m"], "v": moments["v"], "step": step_now}
+    got = O.adamw_update(opt_cfg, sub_p, sub_g, sub_o)
+    on_cpu = lambda t: _tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    want = timed("AdamW on the CPU (copies included)", lambda:
+                 O.adamw_update(opt_cfg, on_cpu(sub_p), on_cpu(sub_g),
+                                on_cpu(sub_o)))
+    worst, bad = 0.0, []
+    for what, a, b in (("params", got[0], want[0]),
+                       ("m", got[1]["m"], want[1]["m"]),
+                       ("v", got[1]["v"], want[1]["v"])):
+        flat_b = dict(items(b))
+        for path, x in items(a):
+            y = flat_b[path]
+            e = float((x.cpu() - y).abs().max()) / (float(y.abs().max()) +
+                                                    1e-30)
+            worst = max(worst, e)
+            if not e <= ADAMW_TOL:
+                bad.append((what, "/".join(map(str, path)), e))
+    log("train", f"one AdamW step (step {int(step_now) + 1}) on "
+        f"{len(dict(items(sub_p)))} float32 leaves of {TRAIN_CUT_LAYERS} "
+        f"layers: card vs CPU worst max|d| / max|x| {worst:.3e} over "
+        f"params and both moments (bar {ADAMW_TOL})")
+    if bad:
+        raise AssertionError(f"AdamW card vs CPU beyond {ADAMW_TOL}: {bad}")
+    del cut_params, g_k, moments, got, want, sub_p, sub_g, sub_o
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("removing the checkpoints", lambda: shutil.rmtree(
+        ckpt, ignore_errors=True))
+
+    # whisper-small: the kernel in all three modes under autograd.
+    wcfg = registry.get_config(ENCDEC_ARCH)
+    wp = T.init_params(wcfg, seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    inst = kfa.sm90_instance(wcfg.head_dim, wcfg.head_dim)
+    n0 = kfa.flash_attention.sm90_instances[inst]
+    wrun = timed(f"{wcfg.name}: {TRAIN_WHISPER_STEPS} steps", lambda:
+                 LT.train_loop(wcfg, wp, O.init_opt_state(wp),
+                               steps=TRAIN_WHISPER_STEPS,
+                               batch=TRAIN_WHISPER_B, seq=TRAIN_WHISPER_S,
+                               opt_cfg=opt_cfg, device=dev,
+                               log=lambda s: None))
+    del wp
+    n_w = kfa.flash_attention.sm90_instances[inst] - n0
+    n_attn = wcfg.enc_layers + 2 * wcfg.num_layers
+    wpeak = torch.cuda.max_memory_allocated()
+    wms = [t * 1e3 for t in wrun["step_s"]]
+    if (len(wrun["losses"]) != TRAIN_WHISPER_STEPS or not all(
+            math.isfinite(x) for _, x in wrun["losses"]) or
+            n_w != TRAIN_WHISPER_STEPS * n_attn):
+        raise AssertionError(f"{wcfg.name} training: losses "
+                             f"{wrun['losses']}, {n_w} flash launches on "
+                             f"{inst}")
+    wwarm = statistics.median(wms[1:])
+    log("train", f"{wcfg.name} B={TRAIN_WHISPER_B} ({wcfg.enc_frames} "
+        f"frames, {TRAIN_WHISPER_S} tokens): losses "
+        f"{[round(x, 4) for _, x in wrun['losses']]}; step ms "
+        f"{[round(x, 1) for x in wms]}: median {wwarm:.1f} ms = "
+        f"{TRAIN_WHISPER_B * TRAIN_WHISPER_S / wwarm * 1e3:.1f} decoder "
+        f"tokens/s; flash launches {n_w} on <{inst[0]}, {inst[1]}> "
+        f"({n_attn} a step: encoder, causal self, cross); "
+        f"max_memory_allocated {wpeak} B ({wpeak / 2**30:.3f} GiB)")
+    del wrun
+    secs = time.perf_counter() - t_phase
+    log("train", f"the phase took {secs:.2f} s of its {TRAIN_BUDGET_S:.0f} "
+        f"s budget ({'within' if secs <= TRAIN_BUDGET_S else 'OVER'} it)")
+    return {"flash_attention": {"train_launches": n_flash},
+            "flash_attention_encdec": {"train_launches": n_w}}
+
+
 def phase_analysis() -> None:
     """The contract checker over the whole grid and the full-width cells
     on the card; logs each rule's pass count, the full-width cells'
@@ -4250,7 +4924,9 @@ def main() -> int:
                                            ("cuda", "cuda_block")]),
                       ("model", lambda: phase_model(torch, np)),
                       ("moe", lambda: phase_moe(torch, np)),
-                      ("ssm", lambda: phase_ssm(torch, np))):
+                      ("ssm", lambda: phase_ssm(torch, np)),
+                      ("encdec", lambda: phase_encdec(torch, np)),
+                      ("train", lambda: phase_train(torch, np))):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -4260,7 +4936,7 @@ def main() -> int:
         if phase == "kernels":
             record = out
         if phase in ("main", "runtime", "resilience", "dist", "model",
-                     "moe", "ssm"):
+                     "moe", "ssm", "encdec", "train"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -4288,7 +4964,10 @@ def main() -> int:
                       "lanes_device_us",
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
                       "trim_lane_by_lane_launches", "dist_launches",
-                      "moe_launches", "tflops"):
+                      "moe_launches", "tflops", "train_launches",
+                      "cross_ms", "cross_plain_ms", "cross_bound_ms",
+                      "cross_bound_by", "cross_library_ms",
+                      "cross_device_us", "cross_tflops"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))

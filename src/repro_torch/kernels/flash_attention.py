@@ -23,6 +23,14 @@ The plain version transliterates ``layers.flash_attention``: the same
 same cast of the probabilities to v's type before the PV product, which
 the bf16 kernel rounds the same way; the kernels sum in another order,
 so they are held to a tolerance, not to bits.
+
+Training differentiates the wrapper through ``_FlashAttention``, a
+``torch.autograd.Function``: its forward is the kernel (the plain
+version on CPU tensors), its backward recomputes the plain version under
+autograd on the saved q, k and v and returns that vector-Jacobian
+product — the function the reference differentiates, since its Pallas
+kernel has no backward either.  A hand-written backward kernel is later
+performance work.
 """
 from __future__ import annotations
 
@@ -73,10 +81,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     qr = q.reshape(B, nq, cq, H, Dk)
     kr = k.reshape(B, nk, ck, KVH, Dk)
     vr = v.reshape(B, nk, ck, KVH, Dv)
-    acc = torch.zeros((B, nq, cq, H, Dv), dtype=torch.float32, device=dev)
-    m = torch.full((B, nq, cq, H), float("-inf"), dtype=torch.float32,
-                   device=dev)
-    l = torch.zeros((B, nq, cq, H), dtype=torch.float32, device=dev)
+    # Each q chunk's running (acc, m, l), replaced rather than written in
+    # place, so that autograd can differentiate the loop.
+    acc = [torch.zeros((B, cq, H, Dv), dtype=torch.float32, device=dev)] * nq
+    m = [torch.full((B, cq, H), float("-inf"), dtype=torch.float32,
+                    device=dev)] * nq
+    l = [torch.zeros((B, cq, H), dtype=torch.float32, device=dev)] * nq
 
     if causal and causal_skip:
         pairs = [(i, j) for i in range(nq) for j in range(nk)
@@ -95,7 +105,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
             mask = qpos[:, None] >= kpos[None, :]
             s = torch.where(mask[None, :, None, :], s,
                             torch.full_like(s, float("-inf")))
-        mi, li, ai = m[:, i], l[:, i], acc[:, i]
+        mi, li, ai = m[i], l[i], acc[i]
         m_new = torch.maximum(mi, s.amax(dim=-1))
         # guard fully-masked rows
         m_safe = torch.where(torch.isneginf(m_new),
@@ -103,11 +113,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         p = torch.exp(s - m_safe[..., None])
         corr = torch.where(torch.isneginf(mi), torch.zeros_like(mi),
                            torch.exp(mi - m_safe))
-        l[:, i] = li * corr + p.sum(dim=-1)
-        acc[:, i] = ai * corr[..., None] + torch.einsum(
+        l[i] = li * corr + p.sum(dim=-1)
+        acc[i] = ai * corr[..., None] + torch.einsum(
             "bqhk,bkhd->bqhd", p.to(v.dtype).float(), vj_h.float())
-        m[:, i] = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
+        m[i] = m_new
+    out = torch.stack(acc, 1) / torch.clamp_min(
+        torch.stack(l, 1)[..., None], 1e-30)
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
@@ -174,10 +185,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dv multiples of 8, D up to 192 and Dv up to 128, contiguous): the
     tensor-core kernel for bfloat16 (a positive scale), the SIMT kernel
     for float32.  On CPU tensors the plain version runs with its default
-    chunks.
+    chunks.  When autograd records (grad enabled and an input that
+    requires grad) the same forward runs inside ``_FlashAttention``,
+    whose backward is the plain version's vector-Jacobian product.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset),
+                                     float(scale))
+    return _forward(q, k, v, causal, q_offset, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward (kernel on the card) with the plain version's
+    gradient: the backward recomputes ``flash_attention_plain`` under
+    autograd from the saved q, k, v and returns its VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, q_offset, scale)
+        return _forward(q, k, v, causal, q_offset, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, q_offset, scale = ctx.args
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*ins, causal=causal,
+                                        q_offset=q_offset, scale=scale)
+            got = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, need) if n], grad_out))
+        return tuple(next(got) if n else None for n in need) + (None,) * 3
+
+
+def _forward(q, k, v, causal, q_offset, scale) -> torch.Tensor:
+    """The forward on q's device: the plain version on the CPU, a kernel
+    on the card (counted)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=int(q_offset), scale=scale)

@@ -1,6 +1,6 @@
 """Serving forward passes: prefill (cache build) and single-token decode
 (port of ``repro.models.decode``: the dense and MoE paths, GQA and MLA
-attention, the SSM and the hybrid).
+attention, the SSM, the hybrid and the encoder-decoder).
 
 Prefill runs the flash kernel in every attention layer; decode attends
 densely over the cache, one token's scores over the Smax cached positions
@@ -11,20 +11,25 @@ so its cache holds only (c_kv, k_rope) per token.  An MoE layer decodes
 the whole batch as one dispatch row (``layers.moe_block``).  A Mamba2
 layer decodes by its recurrent update (``ssm.ssd_decode_step``); the
 hybrid's shared attention block keeps one K/V cache per application.
+The encoder-decoder's prefill runs the encoder once and writes each
+decoder layer's cross K/V (the encoder output's projections) into the
+cache; its decode attends over them non-causally, with no RoPE on the
+query, and never writes them.
 
 The cache is ``{"pos": () int32, "k": (L, B, Smax, KVH, hd), "v": ...}``,
 with MLA ``{"pos", "ckv": (L, B, Smax, rkv), "krope": (L, B, Smax,
 dr)}``, and for the SSM ``{"pos", "conv": (L, B, W - 1, d_inner + 2
 state) in the activation type (the last W - 1 tokens' pre-conv inputs),
 "state": (L, B, heads, head_dim, state) float32}``, with the hybrid's
-``"sk"``/``"sv"``: (L // every, B, Smax, KVH, hd) beside them.  Unlike
+``"sk"``/``"sv"``: (L // every, B, Smax, KVH, hd) beside them; the
+encoder-decoder's adds ``"ck"``/``"cv"``: (L, B, enc_frames, KVH, hd)
+to ``"k"``/``"v"``.  Unlike
 the reference's immutable arrays, ``decode_step`` writes the new token's
 entries (and each SSM layer's conv and state) into the cache tensors in
 place (a copy of the whole cache per step would cost more than the step)
 and returns a new dict that shares them, with ``pos`` advanced.  The
 write position is clamped into [0, Smax - 1] as
-``jax.lax.dynamic_update_slice`` clamps it.  Encoder-decoder configs
-raise ``NotImplementedError`` (ROADMAP queue 1 item 6).
+``jax.lax.dynamic_update_slice`` clamps it.
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (_dtype, check_supported,
-                                            embed_inputs, lm_head_logits,
+from repro_torch.models.transformer import (_dtype, cross_kv, embed_inputs,
+                                            encoder, lm_head_logits,
                                             shared_fwd_kv, shared_slot)
 
 
@@ -48,7 +53,6 @@ from repro_torch.models.transformer import (_dtype, check_supported,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -76,6 +80,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         shape = lead + (cfg.num_kv_heads, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.enc_dec:
+        shape = (Ln, batch, cfg.enc_frames, cfg.num_kv_heads, cfg.head_dim)
+        cache["ck"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["cv"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
@@ -89,29 +97,37 @@ def _cache_names(cfg: ModelConfig) -> tuple[str, str]:
 # ---------------------------------------------------------------------------
 
 def _gqa_cached_attn(p: dict, x: torch.Tensor, kc: torch.Tensor,
-                     vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
-    """x: (B, d) one token; kc/vc: (B, Smax, KVH, hd), written in place at
+                     vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                     *, update: bool = True, causal: bool = True):
+    """x: (B, d) one token; kc/vc: (B, Smax, KVH, hd).  With ``update``
+    the token's K/V are written in place at ``pos`` and q and k take
+    RoPE; without (cross-attention over the encoder's K/V) q takes none
+    and the cache is only read.  ``causal`` masks the positions past
     ``pos``.  Returns (out (B, d), kc, vc)."""
     B, d = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KVH
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
-    k_new = torch.einsum("bd,dhk->bhk", x, p["wk"])
-    v_new = torch.einsum("bd,dhk->bhk", x, p["wv"])
     if cfg.qkv_bias:
-        q, k_new, v_new = q + p["bq"], k_new + p["bk"], v_new + p["bv"]
-    posv = pos.expand(B, 1)
-    q = L.apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
-    k_new = L.apply_rope(k_new[:, None], posv, cfg.rope_theta)
-    at = pos.clamp(0, kc.shape[1] - 1).reshape(1).long()
-    kc.index_copy_(1, at, k_new.to(kc.dtype))
-    vc.index_copy_(1, at, v_new[:, None].to(vc.dtype))
+        q = q + p["bq"]
+    if update:
+        k_new = torch.einsum("bd,dhk->bhk", x, p["wk"])
+        v_new = torch.einsum("bd,dhk->bhk", x, p["wv"])
+        if cfg.qkv_bias:
+            k_new, v_new = k_new + p["bk"], v_new + p["bv"]
+        posv = pos.expand(B, 1)
+        q = L.apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
+        k_new = L.apply_rope(k_new[:, None], posv, cfg.rope_theta)
+        at = pos.clamp(0, kc.shape[1] - 1).reshape(1).long()
+        kc.index_copy_(1, at, k_new.to(kc.dtype))
+        vc.index_copy_(1, at, v_new[:, None].to(vc.dtype))
     qg = q.reshape(B, KVH, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), kc.float()) / \
         math.sqrt(hd)
-    valid = torch.arange(kc.shape[1], device=x.device) <= pos
-    s = torch.where(valid[None, None, None, :], s,
-                    torch.full_like(s, float("-inf")))
+    if causal:
+        valid = torch.arange(kc.shape[1], device=x.device) <= pos
+        s = torch.where(valid[None, None, None, :], s,
+                        torch.full_like(s, float("-inf")))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", w, vc.float())
     o = o.reshape(B, H, hd).to(x.dtype)
@@ -168,7 +184,6 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """tokens: (B,) int — the newest token per sequence.  Returns (logits
     (B, V), the cache advanced by one position; its K/V (or MLA's
     ckv/krope) tensors are the input's, written in place)."""
-    check_supported(cfg)
     pos = cache["pos"]
     x = params["embed"][tokens.long()]                 # (B, d)
     if cfg.ssm:
@@ -178,15 +193,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     attn = _mla_cached_attn if cfg.use_mla else _gqa_cached_attn
 
     def body(x, inp):
-        lp, kc, vc = inp
+        lp, kc, vc = inp[:3]
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         h, _, _ = attn(lp["attn"], h, kc, vc, pos, cfg)
         x = x + h
+        if cfg.enc_dec:
+            cp, ck, cv = inp[3:]
+            h = L.rmsnorm(x, cp["norm"], cfg.norm_eps)
+            x = x + _gqa_cached_attn(cp["attn"], h, ck, cv, pos, cfg,
+                                     update=False, causal=False)[0]
         h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
         return x + _ffn(cfg, lp, h), None
 
     a, b = _cache_names(cfg)
-    x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
+    xs = (params["layers"], cache[a], cache[b])
+    if cfg.enc_dec:
+        xs += (params["cross_layers"], cache["ck"], cache["cv"])
+    x = SET.scan(body, x, xs)
     return _last_logits(cfg, params, x[:, None]), dict(cache, pos=pos + 1)
 
 
@@ -241,9 +264,16 @@ def _ssm_decode(cfg: ModelConfig, params: dict, cache: dict,
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,
             max_len: int) -> tuple[dict, torch.Tensor]:
-    """Run the full prompt (``batch["tokens"]`` (B, S) [+ ``patches``]),
-    building the cache.  Returns (cache, logits of the last position)."""
-    check_supported(cfg)
+    """Run the full prompt (``batch["tokens"]`` (B, S) [+ ``patches``;
+    whisper's ``frames`` (B, enc_frames, d)]), building the cache.
+    Returns (cache, logits of the last position)."""
+    enc_out = None
+    if cfg.enc_dec:
+        frames = batch["frames"].shape[1]
+        if frames != cfg.enc_frames:
+            raise ValueError(f"prefill: {frames} frames, but the cross cache "
+                             f"holds enc_frames = {cfg.enc_frames}")
+        enc_out = encoder(cfg, params, batch["frames"])
     x = embed_inputs(cfg, params, batch)
     B, Sq, _ = x.shape
     if max_len < Sq and (not cfg.ssm or cfg.hybrid_attn_every):
@@ -256,7 +286,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     pos = torch.arange(Sq, device=x.device)
 
     def body(x, inp):
-        lp, kc, vc = inp
+        lp, kc, vc = inp[:3]
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if cfg.use_mla:
             k, v = L.mla_compress(lp["attn"], h, cfg, pos)  # (ckv, krope)
@@ -265,13 +295,24 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             q, k, v = L.attention_qkv(lp["attn"], h, cfg, pos)
             o = L.flash_attention(q, k, v, causal=True)
             x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
         kc[:, :Sq] = k.to(kc.dtype)
         vc[:, :Sq] = v.to(vc.dtype)
+        if cfg.enc_dec:
+            cp, ck, cv = inp[3:]
+            kv = cross_kv(cp, enc_out)
+            h = L.rmsnorm(x, cp["norm"], cfg.norm_eps)
+            x = x + L.attention_block(cp["attn"], h, cfg, causal=False,
+                                      kv_override=kv)
+            ck.copy_(kv[0])
+            cv.copy_(kv[1])
+        h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
         return x + _ffn(cfg, lp, h), None
 
     a, b = _cache_names(cfg)
-    x = SET.scan(body, x, (params["layers"], cache[a], cache[b]))
+    xs = (params["layers"], cache[a], cache[b])
+    if cfg.enc_dec:
+        xs += (params["cross_layers"], cache["ck"], cache["cv"])
+    x = SET.scan(body, x, xs)
     cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=x.device)
     return cache, _last_logits(cfg, params, x)
 

@@ -7,7 +7,8 @@ Parameters are nested dicts of tensors with the reference's layouts
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), expert stacks (E, d, ff)), and
 every function is pure.  ``flash_attention`` is the kernel's wrapper: the
 hand-written CUDA kernel for CUDA tensors, its plain version for CPU
-tensors; MLA's prefill runs it at (D, Dv) = (192, 128).
+tensors (differentiable: its backward is the plain version's); MLA's
+prefill runs it at (D, Dv) = (192, 128).
 """
 from __future__ import annotations
 
@@ -111,12 +112,24 @@ def attention_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v.contiguous()
 
 
-def attention_block(p: dict, x: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """Causal self-attention over the whole sequence (prefill)."""
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k, v = attention_qkv(p, x, cfg, pos)
-    return torch.einsum("bshk,hkd->bsd", flash_attention(q, k, v), p["wo"])
+def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    causal: bool = True,
+                    kv_override: tuple | None = None) -> torch.Tensor:
+    """Attention over the whole sequence (training, prefill, the
+    encoder).  ``kv_override`` supplies (k, v) for cross-attention (the
+    whisper decoder over the encoder's output): then q takes no RoPE and
+    k, v are used as given (made contiguous for the kernel)."""
+    if kv_override is None:
+        pos = torch.arange(x.shape[1], device=x.device)
+        q, k, v = attention_qkv(p, x, cfg, pos)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.contiguous()
+        k, v = (t.contiguous() for t in kv_override)
+    o = flash_attention(q, k, v, causal=causal)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 # ---------------------------------------------------------------------------

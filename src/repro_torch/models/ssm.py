@@ -129,10 +129,11 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Bc = Bm.float().reshape(B, nc, Q, ds)
     Cc = Cm.float().reshape(B, nc, Q, ds)
 
-    # Within a chunk: Y[l] = sum_{m<=l} (C[l]·B[m]) L[l, m] x[m].  The
-    # weights Wt = scores · Lmat are formed in Lmat's storage.
+    # Within a chunk: Y[l] = sum_{m<=l} (C[l]·B[m]) L[l, m] x[m].  Lmat
+    # is exponentiated in the segment sums' storage; the weights Wt =
+    # scores · Lmat take a tensor of their own (autograd keeps Lmat).
     Wt = torch.exp_(_segsum(ac.transpose(2, 3)))       # (B, nc, nh, Q, Q)
-    Wt.mul_(torch.einsum("bcln,bcmn->bclm", Cc, Bc)[:, :, None])
+    Wt = Wt * torch.einsum("bcln,bcmn->bclm", Cc, Bc)[:, :, None]
     y = torch.matmul(Wt, xc.permute(0, 1, 3, 2, 4))    # (B, nc, nh, Q, hd)
     del Wt
     y = y.permute(0, 1, 3, 2, 4)                       # (B, nc, Q, nh, hd)

@@ -1,18 +1,21 @@
-"""The decoder-LM of the model zoo (port of ``repro.models.transformer``):
-init, embedding, the layer stack's forward and the LM head.
+"""The model zoo's transformer (port of ``repro.models.transformer``):
+init, embedding, the layer stack's forward, the encoder, the LM head and
+the training loss.
 
 Covers the dense families (starcoder2, qwen1.5 with QKV bias, internlm2,
 minitron), the VLM's LM backbone (internvl2, patch embeddings
 prepended), the MoE family (deepseek-moe-16b; deepseek-v3 with MLA
-attention), the SSM (mamba2: Mamba2 blocks only) and the hybrid (zamba2:
+attention), the SSM (mamba2: Mamba2 blocks only), the hybrid (zamba2:
 a Mamba2 backbone and one shared attention + MLP block, applied after
-every ``hybrid_attn_every``-th layer with the same parameters).  Layer
-parameters stay stacked along a leading L axis and the layer loop is
-``settings.scan`` (a Python loop); the forward is inference only, so the
-reference's ``remat`` has nothing to do here.  Encoder-decoder configs
-raise ``NotImplementedError`` naming the ROADMAP item that ports them
-(queue 1 item 6); ``chunked_ce_loss`` and ``forward_train`` wait for the
-training slice.
+every ``hybrid_attn_every``-th layer with the same parameters) and the
+encoder-decoder (whisper: a non-causal encoder over stubbed
+conv-frontend frames with a sinusoid added, and decoder layers of
+self-attention, cross-attention over the encoder's output and an MLP).
+Layer parameters stay stacked along a leading L axis and the layer loop
+is ``settings.scan`` (a Python loop).  ``forward_train`` is
+differentiable by autograd (the flash kernel's gradient is its plain
+version's, ``kernels.flash_attention``); it keeps every activation for
+the backward, where the reference rematerialises each layer.
 """
 from __future__ import annotations
 
@@ -25,19 +28,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-
-# What each unported family waits for (ROADMAP queue 1 item 6).
-_LATER = (("enc_dec", "6d", "the encoder-decoder (whisper)"),)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config whose layers the port does not have yet."""
-    for flag, item, what in _LATER:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet — ROADMAP queue 1 "
-                f"item 6 ({item}: {what}); the port serves the dense and "
-                "MoE configs")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -61,7 +51,6 @@ def shared_slot(cfg: ModelConfig, idx: int) -> int | None:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights (the reference's distributions and layouts) drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -96,11 +85,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     elif cfg.d_ff:
         layers["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, lead=(Ln,))
     params["layers"] = layers
+    if cfg.enc_dec:
+        Le = cfg.enc_layers
+        params["enc_layers"] = {
+            "norm1": torch.ones((Le, d), dtype=dtype, device=dev),
+            "attn": L.init_attention(gen, cfg, dtype, lead=(Le,)),
+            "norm2": torch.ones((Le, d), dtype=dtype, device=dev),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, lead=(Le,))}
+        params["enc_final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+        params["cross_layers"] = {
+            "norm": torch.ones((Ln, d), dtype=dtype, device=dev),
+            "attn": L.init_attention(gen, cfg, dtype, lead=(Ln,))}
     return params
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (prefill compute)
+# Full-sequence forward (train / prefill compute)
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg: ModelConfig, lp: dict, x: torch.Tensor):
@@ -137,11 +137,37 @@ def shared_fwd_kv(cfg: ModelConfig, sp: dict, x: torch.Tensor):
     return x + L.mlp_block(sp["mlp"], h), k, v
 
 
-def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
-    """Run the stacked layers over x (B, S, d), the hybrid's shared block
-    after every ``hybrid_attn_every``-th.  Returns (hidden,
-    total_aux_loss)."""
-    check_supported(cfg)
+def cross_kv(cp: dict, enc_out: torch.Tensor):
+    """A cross layer's K and V (B, F, KVH, hd) from the encoder's output:
+    projections only (no bias, no RoPE), as the reference takes them."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, cp["attn"]["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, cp["attn"]["wv"]))
+
+
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
+             enc_out: torch.Tensor | None = None):
+    """Run the stacked layers over x (B, S, d): the hybrid's shared block
+    after every ``hybrid_attn_every``-th, the encoder-decoder's layers as
+    self-attention -> cross-attention over ``enc_out`` -> MLP.  Returns
+    (hidden, total_aux_loss)."""
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.enc_dec:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: the decoder needs the encoder's "
+                             "output (enc_out)")
+
+        def dec_body(x, inp):
+            lp, cp = inp
+            h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+            x = x + L.attention_block(lp["attn"], h, cfg)
+            h = L.rmsnorm(x, cp["norm"], cfg.norm_eps)
+            x = x + L.attention_block(cp["attn"], h, cfg, causal=False,
+                                      kv_override=cross_kv(cp, enc_out))
+            h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+            return x + L.mlp_block(lp["mlp"], h), None
+
+        return SET.scan(dec_body, x, (params["layers"],
+                                      params["cross_layers"])), aux0
 
     def body(carry, lp):
         x, aux, idx = carry
@@ -150,9 +176,37 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
             x = shared_fwd_kv(cfg, params["shared_attn"], x)[0]
         return (x, aux + a, idx + 1), None
 
-    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux, _ = SET.scan(body, (x, aux0, 0), params["layers"])
     return x, aux
+
+
+def encoder(cfg: ModelConfig, params: dict,
+            frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over stubbed conv-frontend frames (B, F, d):
+    the sinusoid added, then per layer non-causal attention (the flash
+    kernel) and an MLP, then the final norm.  Frames are taken in the
+    model's type (the reference promotes a bf16 model's encoder to float32
+    when it is given float32 frames)."""
+    frames = frames.to(_dtype(cfg))
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = frames + _sinusoid(pos, cfg.d_model).to(frames.dtype)
+
+    def body(x, lp):
+        h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        x = x + L.attention_block(lp["attn"], h, cfg, causal=False)
+        h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        return x + L.mlp_block(lp["mlp"], h), None
+
+    x = SET.scan(body, x, params["enc_layers"])
+    return L.rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(1, S, d) float32: sin then cos of pos / 1e4^(2i/d)."""
+    ar = torch.arange(0, d, 2, device=pos.device).float() / d
+    inv = 1.0 / (1e4 ** ar)
+    ang = pos[:, None].float() * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -167,3 +221,49 @@ def lm_head_logits(cfg: ModelConfig, params: dict,
                    h: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.einsum("bsd,dv->bsv", h, w.to(h.dtype))
+
+
+def chunked_ce_loss(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy of h (B, S, d) against labels (B, S) over the
+    positions ``mask`` keeps, the float32 logits formed one chunk of
+    ``settings.loss_chunk()`` positions at a time, never as a whole
+    (B, S, V)."""
+    B, Sq, d = h.shape
+    ck = min(SET.loss_chunk(), Sq)
+    if Sq % ck:
+        raise ValueError(f"chunked_ce_loss: {Sq} positions are not a "
+                         f"multiple of the loss chunk {ck}")
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = w.to(h.dtype)
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, Sq, ck):
+        logits = torch.einsum("bsd,dv->bsv", h[:, c:c + ck], w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[:, c:c + ck, None].long())[..., 0]
+        mc = mask[:, c:c + ck].float()
+        tot = tot + ((lse - ll) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict):
+    """The training loss over batch["tokens"] and batch["labels"] (B, S)
+    [+ "patches", the VLM's stub, whose positions carry no loss; "frames",
+    whisper's; "loss_mask"].  Returns (ce + 0.01 · the MoE's aux loss,
+    {"ce", "aux"})."""
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encoder(cfg, params, batch["frames"])
+    x = embed_inputs(cfg, params, batch)
+    h, aux = backbone(cfg, params, x, enc_out=enc_out)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.vlm_patches and "patches" in batch:
+        h = h[:, batch["patches"].shape[1]:]   # the loss over text only
+    loss = chunked_ce_loss(cfg, params, h, batch["labels"],
+                           batch.get("loss_mask"))
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -225,3 +225,37 @@ def stats_world(shape, names, cfg, model, events, carry):
     D.run_engine_sharded(cfg, *port_inputs(model, events, carry), mesh=mesh,
                          device="cpu")
     return dataclasses.asdict(D.stats)
+
+
+def compressed_sync_rank(grads, err):
+    """One rank of the compressed all-reduce world
+    (tests/test_torch_training.py): rounds of ``compression.sync_tree``
+    over the world on this rank's rows of ``grads`` (a list of rounds)
+    with the error state carried, from ``err``'s rows.  Returns
+    ``{"round{i}.mean.<path>", "round{i}.err.<path>"}`` of this rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.training import compression as C
+
+    r = dist.get_rank()
+
+    def row(tree):
+        if isinstance(tree, dict):
+            return {k: row(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree[r]))
+
+    def flat_np(tree, path):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(flat_np(v, f"{path}.{k}"))
+            return out
+        return {path: tree.numpy()}
+
+    e, out = row(err), {}
+    for i, g in enumerate(grads):
+        mean, e = C.sync_tree(row(g), e)
+        out.update(flat_np(mean, f"round{i}.mean"))
+        out.update(flat_np(e, f"round{i}.err"))
+    return out

@@ -411,6 +411,12 @@ FLASH_SHAPES = [  # (B, Sq, Sk, H, KVH, D, Dv, causal, q_offset)
     (1, 130, 383, 2, 2, 112, 112, False, 0),
     (2, 200, 328, 4, 2, 112, 112, True, 128),  # q_offset > 0
     (2, 64, 192, 4, 2, 112, 112, True, 100),   # a fully masked KV tile
+    # whisper-small (the (64, 64) instance, non-causal, Sk = 1 500 = 11 ×
+    # 128 + 92): the encoder, the cross-attention of a 224-token prompt
+    # and of a 4-token one.
+    (1, 1500, 1500, 12, 12, 64, 64, False, 0),
+    (2, 224, 1500, 12, 12, 64, 64, False, 0),
+    (2, 4, 1500, 12, 12, 64, 64, False, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # bf16 is also held row by row, scaled to the output: the largest
@@ -485,33 +491,42 @@ def test_flash_kernel_rejects_bad_input(cuda):
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen1.5-110b",
                                   "deepseek-moe-16b", "deepseek-v3-671b",
-                                  "mamba2-1.3b", "zamba2-7b"])
+                                  "mamba2-1.3b", "zamba2-7b",
+                                  "whisper-small"])
 def test_smoke_serving_path_on_card_equals_cpu(cuda, arch):
     """prefill and decode_step of a smoke config (float32) on the card
     (the flash kernel in each attention layer; MoE layers; MLA's
     compressed cache and absorbed decode; Mamba2 layers and the hybrid's
-    shared block at each application point) against the CPU (its plain
-    version)."""
+    shared block at each application point; whisper's encoder, self- and
+    cross-attention) against the CPU (its plain version)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     cfg = registry.get_smoke_config(arch)
     # Flash launches of a prefill: one per attention layer, or one per
-    # application of the hybrid's shared block (none in mamba2).
+    # application of the hybrid's shared block (none in mamba2); whisper:
+    # each encoder layer, and each decoder layer twice (self, cross).
     n_attn = cfg.num_layers
     if cfg.ssm:
         every = cfg.hybrid_attn_every
         n_attn = cfg.num_layers // every if every else 0
+    if cfg.enc_dec:
+        n_attn = cfg.enc_layers + 2 * cfg.num_layers
     params = T.init_params(cfg, seed=0, device="cpu")
     on_card = _to(params, cuda)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 33))
                             .astype(np.int32))
+    batch = {"tokens": toks[:, :32]}
+    if cfg.enc_dec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_frames, cfg.d_model)).astype(np.float32))
     out = {}
     for dev, p in (("cpu", params), ("cuda", on_card)):
         before = kfa.flash_attention.launches
-        cache, lg = D.prefill(cfg, p, {"tokens": toks[:, :32].to(dev)}, 40)
+        cache, lg = D.prefill(cfg, p, {k: v.to(dev) for k, v in
+                                       batch.items()}, 40)
         if dev == "cuda":
             assert kfa.flash_attention.launches == before + n_attn
         lg2, cache = D.decode_step(cfg, p, cache, toks[:, 32].to(dev))
@@ -525,6 +540,98 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# The training path on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,Dv,causal", [
+    (2, 300, 300, 4, 2, 64, 64, True),
+    (2, 224, 1500, 12, 12, 64, 64, False),
+    (1, 256, 256, 4, 4, 192, 128, True)])
+def test_flash_gradient_on_card_equals_plain(cuda, B, Sq, Sk, H, KVH, D, Dv,
+                                             causal, dtype):
+    """Under autograd the forward is still the kernel (one launch, no
+    plain forward), and the gradient is the plain version's: against
+    autograd through the plain version on the card, each input's max|Δ|
+    within 1e-4 of its max|grad| in float32 (the forwards differ by the
+    kernel's rounding only in bf16, 3e-2 there)."""
+    from repro_torch.kernels import flash_attention as kfa
+    rng = np.random.default_rng(Sq + D)
+    base = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
+                                       (B, Sk, KVH, Dv))]
+    cot = torch.randn((B, Sq, H, Dv), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_() for t in base]
+    before = kfa.flash_attention.launches
+    out = kfa.flash_attention(*ins, causal=causal)
+    assert kfa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, ins, cot)
+    assert kfa.flash_attention.launches == before + 1
+    ref_in = [t.clone().requires_grad_() for t in base]
+    want = torch.autograd.grad(kfa.flash_attention_plain(
+        *ref_in, causal=causal), ref_in, cot)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-small",
+                                  "deepseek-moe-16b", "zamba2-7b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """One train step of a smoke config (float32) on the card (the flash
+    kernel's forward under autograd) against the CPU: the loss, the
+    gradient norm and every parameter and moment within 1e-4 of its
+    size."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    cfg = registry.get_smoke_config(arch)
+    step = make_train_step(cfg, O.AdamWConfig(lr=1e-2, warmup_steps=2,
+                                              eps=1e-3))
+    params = T.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to(params, cuda)
+        batch = LT.synthetic_batch(cfg, 2, 32, 0, device=dev)
+        out[dev] = step(p, O.init_opt_state(p), batch)
+    (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-5 * abs(float(mc[k]))
+
+    def close(a, b, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                close(a[k], b[k], f"{path}/{k}")
+            return
+        b = b.cpu()
+        assert float((a - b).abs().max()) <= \
+            1e-4 * float(a.abs().max()) + 1e-12, path
+    close(pc, pg)
+    close(oc["m"], og["m"])
+    close(oc["v"], og["v"])
+
+
+def test_compression_on_card_equals_cpu(cuda):
+    """int8 quantization and one error-feedback round on the card, bit for
+    bit the CPU's."""
+    from repro_torch.training import compression as C
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal(4096) * 3).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal(4096) * 1e-2).astype(
+        np.float32))
+    for fn in (lambda a, b: C.quantize_int8(a),
+               lambda a, b: C.compress_decompress(a, b)):
+        for a, b in zip(fn(x, e), fn(x.to(cuda), e.to(cuda))):
+            assert torch.equal(a, b.cpu())
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,19 @@ def test_model_modules_are_scanned():
     assert set(MODEL_MODULES) <= set(_modules())
 
 
+# The training path's modules and the launch drivers, likewise.
+TRAINING_MODULES = ("repro_torch.training", "repro_torch.training.tree",
+                    "repro_torch.training.optimizer",
+                    "repro_torch.training.checkpoint",
+                    "repro_torch.training.compression",
+                    "repro_torch.training.train_step",
+                    "repro_torch.launch.train", "repro_torch.launch.serve")
+
+
+def test_training_modules_are_scanned():
+    assert set(TRAINING_MODULES) <= set(_modules())
+
+
 def test_runtime_modules_are_scanned():
     assert set(RUNTIME_MODULES) <= set(_modules())
     scanned = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")}

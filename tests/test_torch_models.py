@@ -193,22 +193,6 @@ def test_cache_write_clamps_like_dynamic_update_slice(arch, pos):
     assert int(tc2["pos"]) == pos + 1
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("whisper-small", "encoder-decoder")])
-def test_unported_families_raise(arch, what):
-    cfg = TR.get_smoke_config(arch)
-    for call in (lambda: TT.init_params(cfg, device="cpu"),
-                 lambda: TD.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: TD.prefill(cfg, {}, {"tokens": torch.zeros(
-                     (1, 4), dtype=torch.int32)}, 8),
-                 lambda: TD.decode_step(cfg, {}, {}, torch.zeros(
-                     1, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item "
-                           "6") as e:
-            call()
-        assert what in str(e.value)
-
-
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TR.get_smoke_config("internlm2-1.8b")

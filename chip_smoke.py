@@ -175,7 +175,9 @@ Phases (one line each; any failure raises and exits non-zero):
            phase's seconds against its 45 s budget
   train    the training path: internlm2-1.8b at full width and depth
            (bf16, float32 moments, B = 4 x S = 2048) through
-           launch.train's loop: 8 steps, a checkpoint of the whole state
+           launch.train's loop (each layer rematerialised, so the flash
+           kernel runs in the forward and again in the backward's
+           recomputation): 8 steps, a checkpoint of the whole state
            every 4, a NaN at step 5 that restores step 4 (bit for bit,
            by fingerprint) and skips; one step run on from memory
            (profiled) equal to one step resumed from the latest
@@ -186,6 +188,22 @@ Phases (one line each; any failure raises and exits non-zero):
            (the kernel in all three modes under autograd); step ms,
            tokens/s, peak memory; the phase's seconds against its 90 s
            budget
+  dryrun   the dry-run (repro_torch.launch.dryrun) on the card's software
+           in a child process whose pool of 7 processes runs the traces:
+           the production mesh's rows (data 32, model 8; target cuda) of
+           internlm2-1.8b's three shapes and every architecture's
+           decode_32k, and internlm2-1.8b's train_4k on the multi-pod
+           mesh, each "ok"; a world of one (mesh (1, 1)) against the card
+           at the model and train phases' shapes — a prefill of 4 x 2048,
+           a decode step into a cache of 2112, a train step with remat on
+           and off, run for real meanwhile — with argument bytes and
+           FLOPs (the full-depth trace against FlopCounterMode) equal,
+           the predicted peak within 10 % of max_memory_allocated, the
+           analysis mode's two-depth extrapolation equal to its full-depth
+           trace, 24 flash launches a prefill, the roofline's terms
+           beside the measured step; the CEP block's analytic bytes per
+           event beside the kernels phase's; the phase's seconds against
+           its 90 s budget
 The build phase reports ptxas's registers and spills of the block
 kernel's two instantiations and of the bf16 flash kernel (a spill in the
 flash kernel fails it).  The kernels phase also runs the wgmma probe
@@ -215,7 +233,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
           "runtime", "resilience", "recovery", "dist", "profile", "model",
-          "moe", "ssm", "encdec", "train")
+          "moe", "ssm", "encdec", "train", "dryrun")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -850,6 +868,7 @@ def phase_block_kernel(torch, np) -> dict:
             f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
         if (name, N, shedder) == block_cases.CASES[0]:
             record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                          bytes_per_event=nbytes / W_BLOCK,
                           us_per_event=k_ms / W_BLOCK * 1e3,
                           call_ms=call_ms, host_us_per_launch=host_us,
                           store=lay.store, smem_bytes=lay.smem_bytes)
@@ -3920,11 +3939,13 @@ def _flash_recorder(torch, kfa, errs: list):
     """The flash kernel's wrapper, each call also held to the plain
     version on the same inputs: appends (max |kernel - plain|,
     row-relative error) to ``errs``."""
-    def flash(q, k, v, *, causal=True, q_offset=0, scale=None):
+    def flash(q, k, v, *, causal=True, q_offset=0, scale=None,
+              causal_skip=True):
         got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                  scale=scale)
+                                  scale=scale, causal_skip=causal_skip)
         want = kfa.flash_attention_plain(q, k, v, causal=causal,
-                                         q_offset=q_offset, scale=scale)
+                                         q_offset=q_offset, scale=scale,
+                                         causal_skip=causal_skip)
         errs.append((max_abs_err(torch, got, want),
                      row_rel_err(torch, got, want)))
         return got
@@ -4587,17 +4608,20 @@ def phase_train(torch, np) -> dict:
         raise AssertionError(f"train loop: kept steps {kept}, restored "
                              f"{run['restored']}, saved {run['saved']}, "
                              f"events {events}, losses {run['losses']}")
-    if n_flash != TRAIN_STEPS * cfg.num_layers:
+    # launch.train rematerialises each layer: the forward and the
+    # backward's recomputation launch the kernel once a layer each.
+    if n_flash != TRAIN_STEPS * cfg.num_layers * 2:
         raise AssertionError(f"{n_flash} flash launches in {TRAIN_STEPS} "
-                             f"steps; expected {cfg.num_layers} a step")
+                             f"steps; expected {2 * cfg.num_layers} a step")
     warm = statistics.median(ms[1:])
     log("train", f"{cfg.name} losses {[round(x, 4) for _, x in run['losses']]}"
         f" (steps {kept}; step {TRAIN_NAN_AT}'s NaN restored step 4 and "
         f"skipped); step ms {[round(x, 1) for x in ms]} (first with the "
         f"allocator's warm-up): median {warm:.1f} ms = "
         f"{tokens / warm * 1e3:.1f} tokens/s; flash launches {n_flash} "
-        f"({cfg.num_layers} a step, forward on the kernel; the backward "
-        f"is the plain version's VJP); max_memory_allocated {peak} B "
+        f"({2 * cfg.num_layers} a step, remat on: the forward and its "
+        f"recomputation on the kernel; the backward is the plain "
+        f"version's VJP); max_memory_allocated {peak} B "
         f"({peak / 2**30:.3f} GiB)")
 
     # Running on from memory (profiled) and resuming from the latest
@@ -4685,9 +4709,12 @@ def phase_train(torch, np) -> dict:
     n0 = kfa.flash_attention.launches
     loss_k, _, g_k = timed("float32 cut: loss and grads through the kernel",
                            lambda: loss_and_grads(ccfg, cut_params, batch))
-    if kfa.flash_attention.launches != n0 + TRAIN_CUT_LAYERS:
-        raise AssertionError("the float32 cut's forward did not run the "
-                             "kernel in each layer")
+    # Remat: each layer's forward runs the kernel, and so does its
+    # recomputation in the backward.
+    if kfa.flash_attention.launches != n0 + 2 * TRAIN_CUT_LAYERS:
+        raise AssertionError("the float32 cut's forward and its "
+                             "recomputation did not run the kernel in each "
+                             "layer")
     kernel_flash = L.flash_attention
     L.flash_attention = kfa.flash_attention_plain
     try:
@@ -4763,7 +4790,9 @@ def phase_train(torch, np) -> dict:
                                log=lambda s: None))
     del wp
     n_w = kfa.flash_attention.sm90_instances[inst] - n0
-    n_attn = wcfg.enc_layers + 2 * wcfg.num_layers
+    # Encoder, causal self and cross attention, each forward run again by
+    # the backward's recomputation (remat).
+    n_attn = 2 * (wcfg.enc_layers + 2 * wcfg.num_layers)
     wpeak = torch.cuda.max_memory_allocated()
     wms = [t * 1e3 for t in wrun["step_s"]]
     if (len(wrun["losses"]) != TRAIN_WHISPER_STEPS or not all(
@@ -4779,7 +4808,8 @@ def phase_train(torch, np) -> dict:
         f"{[round(x, 1) for x in wms]}: median {wwarm:.1f} ms = "
         f"{TRAIN_WHISPER_B * TRAIN_WHISPER_S / wwarm * 1e3:.1f} decoder "
         f"tokens/s; flash launches {n_w} on <{inst[0]}, {inst[1]}> "
-        f"({n_attn} a step: encoder, causal self, cross); "
+        f"({n_attn} a step: encoder, causal self, cross, each twice with "
+        f"remat); "
         f"max_memory_allocated {wpeak} B ({wpeak / 2**30:.3f} GiB)")
     del wrun
     secs = time.perf_counter() - t_phase
@@ -4787,6 +4817,295 @@ def phase_train(torch, np) -> dict:
         f"s budget ({'within' if secs <= TRAIN_BUDGET_S else 'OVER'} it)")
     return {"flash_attention": {"train_launches": n_flash},
             "flash_attention_encdec": {"train_launches": n_w}}
+
+
+# The dry-run on the card's software (the production mesh's rows) and a
+# world of one against the card: internlm2-1.8b at the model and train
+# phases' shapes.
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_BUDGET_S = 90.0
+DRYRUN_WORKERS = 7
+DRYRUN_CARD_SHARE = 0.85     # of the card's memory for the child's allocator
+DRYRUN_PEAK_TOL = 0.10       # |predicted - measured| / measured peak
+# (label, kind, seq_len, batch, remat): a decode step runs into the model
+# phase's cache of MODEL_MAX_LEN after a prefill of MODEL_S tokens.
+DRYRUN_CASES = (("prefill", "prefill", MODEL_S, MODEL_B, True),
+                ("decode", "decode", MODEL_MAX_LEN, MODEL_B, True),
+                ("train", "train", TRAIN_S, TRAIN_B, True),
+                ("train_no_remat", "train", TRAIN_S, TRAIN_B, False))
+def dryrun_cells() -> list:
+    """The production mesh's rows the card's run lowers: internlm2-1.8b's
+    three shapes, every architecture's decode_32k, internlm2-1.8b's
+    train_4k on the multi-pod mesh."""
+    from repro_torch.configs import registry
+    cells = [(DRYRUN_ARCH, s, False) for s in ("train_4k", "prefill_32k",
+                                               "decode_32k")]
+    cells += [(a, "decode_32k", False) for a in registry.ARCH_IDS
+              if a != DRYRUN_ARCH]
+    return cells + [(DRYRUN_ARCH, "train_4k", True)]
+
+
+def dryrun_plan() -> tuple[list, list]:
+    """(plan, jobs): the dry-run's traces for the production rows and the
+    world of one (mesh (1, 1)): per case its full depth at the default
+    chunks (FLOPs, peak) and under analysis mode, and a row's four
+    (``dryrun.cell_jobs``).  ``plan`` holds (kind, key, first job,
+    number of jobs)."""
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    plan, jobs = [], []
+
+    def add(kind, key, js):
+        plan.append((kind, key, len(jobs), len(js)))
+        jobs.extend(js)
+    for arch, shape, mp in dryrun_cells():
+        add("row", (arch, shape, mp), DR.cell_jobs(
+            arch, SHAPES[shape], *M.production_topology(multi_pod=mp),
+            roofline=not mp, device="cuda"))
+    one = ((1, 1), ("data", "model"))
+    for label, kind, seq, B, remat in DRYRUN_CASES:
+        shape = ShapeSpec(label, kind, seq, B)
+        kw = dict(device="cuda", remat=remat)
+        add("one", label, [DR.Job(DRYRUN_ARCH, shape, *one, None, False, **kw),
+                           DR.Job(DRYRUN_ARCH, shape, *one, None, True, **kw)]
+            + DR.cell_jobs(DRYRUN_ARCH, shape, *one, **kw))
+    return plan, jobs
+
+
+def dryrun_real(torch, cfg, params, label, kind, seq, B, remat) -> dict:
+    """The world of one's case run for real on the card: the arguments'
+    bytes, peak memory (reset once the arguments are made), FLOPs under
+    FlopCounterMode, flash launches, and the median step ms."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as LT
+    from repro_torch.models import decode as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.tree import items
+    dev = torch.device("cuda")
+    shape = ShapeSpec(label, kind, seq, B)
+    if kind == "decode":
+        toks = LT.synthetic_batch(cfg, B, MODEL_S, 0, device=dev)["tokens"]
+        with torch.no_grad():
+            cache, logits = D.prefill(cfg, params, {"tokens": toks},
+                                      max_len=seq)
+        args = {"params": D.decode_weights(cfg, params), "cache": cache,
+                "tokens": logits.argmax(-1).to(torch.int32)}
+        del logits
+    else:
+        batch = LT.synthetic_batch(cfg, B, seq, 0, device=dev)
+        args = {"params": params, "batch": {"tokens": batch["tokens"]}}
+        if kind == "train":
+            args = {"params": params, "opt": O.init_opt_state(params),
+                    "batch": batch}
+    arg_bytes = sum(t.numel() * t.element_size() for _, t in items(args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        out = DR.run_step(cfg, shape, args, remat=remat)
+        torch.cuda.synchronize()
+        del out
+
+    step()
+    peak = torch.cuda.max_memory_allocated()
+    n0 = kfa.flash_attention.launches
+    with FlopCounterMode(display=False) as fc:
+        step()
+    launches = kfa.flash_attention.launches - n0
+    ms = []
+    for _ in range(2 if kind == "train" else 5):
+        t0 = time.perf_counter()
+        step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del args
+    return dict(arg=arg_bytes, peak=peak, flops=fc.get_total_flops(),
+                launches=launches, ms=statistics.median(ms))
+
+
+def dryrun_child(path: str) -> int:
+    """The dryrun phase's work, in a process of its own (chip_smoke.py
+    --dryrun-child PATH): every trace of ``dryrun_plan`` in a pool of
+    DRYRUN_WORKERS processes, the world of one's real runs on the card
+    meanwhile; writes {"rows", "one", ...} as JSON to PATH."""
+    import gc
+    import multiprocessing
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES, ShapeSpec
+    from repro_torch.dist.mesh import abstract_mesh
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    plan, jobs = dryrun_plan()
+    # The longest first: the train traces, the multi-pod mesh's above all.
+    order = sorted(range(len(jobs)), key=lambda i: (
+        jobs[i].shape.kind != "train", len(jobs[i].mesh_shape) != 3,
+        jobs[i].depth is not None))
+    # Each worker of the pool holds a CUDA context of its own, and its
+    # autograd on fake CUDA tensors reserves a little of the card's
+    # memory: this process's allocator, which would cache up to the whole
+    # card around the 54 GB train step, leaves them room.
+    torch.cuda.set_per_process_memory_fraction(DRYRUN_CARD_SHARE)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(DRYRUN_WORKERS) as pool:
+        pending = pool.map_async(DR.run_job, [jobs[i] for i in order],
+                                 chunksize=1)
+        cfg = registry.get_config(DRYRUN_ARCH)
+        params = T.init_params(cfg, seed=0, device=torch.device("cuda"))
+        real = {}
+        for case in DRYRUN_CASES:
+            real[case[0]] = dryrun_real(torch, cfg, params, *case)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+        t_real = time.perf_counter() - t0
+        done = pending.get(timeout=600)
+    results = [None] * len(jobs)
+    for i, r in zip(order, done):
+        results[i] = r
+    rows, one = [], {}
+    for kind, key, i, n in plan:
+        res = results[i:i + n]
+        if kind == "row":
+            arch, shape, mp = key
+            row = {"arch": arch, "shape": shape,
+                   "mesh": "multi" if mp else "single"}
+            rows.append(DR.assemble_row(
+                row, registry.get_config(arch), SHAPES[shape],
+                M.make_abstract_production_mesh(multi_pod=mp), res))
+            continue
+        case = next(c for c in DRYRUN_CASES if c[0] == key)
+        shape = ShapeSpec(*case[:4])
+        row = DR.assemble_row({"arch": DRYRUN_ARCH, "shape": key}, cfg, shape,
+                              abstract_mesh((1, 1), ("data", "model")),
+                              res[2:])
+        full, afull = res[0], res[1]
+        one[key] = {"row": row, "real": real[key], "error": [
+            r["error"] for r in res if "error" in r],
+            "full": {k: full.get(k) for k in ("flops", "peak", "bytes")},
+            "analysis_full": {k: afull.get(k) for k in ("flops", "bytes")},
+            "trace_s": sum(r.get("wall_s", 0) for r in res)}
+    with open(path, "w") as f:
+        json.dump({"rows": rows, "one": one, "real_s": t_real,
+                   "jobs": len(jobs), "job_s": sum(
+                       r.get("wall_s", 0) for r in results),
+                   "child_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def phase_dryrun(torch, np, block_record: dict | None) -> dict:
+    """The dry-run (``repro_torch.launch.dryrun``) on the card's software,
+    in a child process (``dryrun_child``): the production rows of
+    ``dryrun_cells`` (target cuda) must read ``ok``; a world of one
+    (mesh (1, 1)) against the card at the model and train phases' shapes
+    (prefill, decode, train with remat on and off): argument bytes equal
+    to the real tensors', traced FLOPs (full depth, default chunks) equal
+    to FlopCounterMode over the real step, the row's peak within
+    DRYRUN_PEAK_TOL of max_memory_allocated, under analysis mode the
+    two-depth extrapolation equal to the full-depth trace in FLOPs and
+    bytes, 24 flash launches a prefill; the roofline's terms beside the
+    measured step; the CEP block's analytic bytes per event beside the
+    kernels phase's."""
+    import gc
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.cep import patterns as pat
+    from repro_torch.cep import runner
+    from repro_torch.data import streams
+    from repro_torch.launch import roofline as RF
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("dryrun", f"this process holds {torch.cuda.memory_allocated()} B "
+        f"allocated, {torch.cuda.memory_reserved()} B reserved on the card "
+        "as the child starts")
+    out = ROOT / "build" / "dryrun.json"
+    out.unlink(missing_ok=True)
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--dryrun-child", str(out)], timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"the dry-run child exited {res.returncode}")
+    got = json.loads(out.read_text())
+    bad = []
+    for row in got["rows"]:
+        ma = row.get("memory_analysis", {})
+        log("dryrun", f"{row['arch']} {row['shape']} {row['mesh']}: "
+            f"{row['status']}; argument {ma.get('argument_gb', 0):.6f} GB, "
+            f"peak {ma.get('peak_gb', 0):.6f} GB per device"
+            + (f"; {row['flops']:.6e} FLOP, {row['bytes']:.6e} B, "
+               f"collectives {row['coll_bytes']:.6e} B; terms compute "
+               f"{row['compute_s'] * 1e3:.4f} ms, memory "
+               f"{row['memory_s'] * 1e3:.4f} ms, collective "
+               f"{row['collective_s'] * 1e3:.4f} ms, dominant "
+               f"{row['dominant']}, useful {row['useful_ratio']:.4f}"
+               if "flops" in row else "")
+            + f" ({row.get('wall_s', 0):.2f} s)"
+            + (f" {row.get('error', '')}" if row["status"] != "ok" else ""))
+        if row["status"] != "ok":
+            bad.append((row["arch"], row["shape"], row["mesh"]))
+    n_flash = 0
+    for label, c in got["one"].items():
+        if c["error"] or c["row"]["status"] != "ok":
+            bad.append(("world of one", label, c["error"]))
+            continue
+        real, full, af, row = (c["real"], c["full"], c["analysis_full"],
+                               c["row"])
+        arg = row["memory_analysis"]["argument_gb"] * 1e9
+        peak = row["memory_analysis"]["peak_gb"] * 1e9
+        peak_err = abs(peak - real["peak"]) / real["peak"]
+        step_s = real["ms"] / 1e3
+        log("dryrun", f"world of one, {DRYRUN_ARCH} {label}: argument "
+            f"bytes {round(arg)} predicted, {real['arg']} real; FLOPs "
+            f"{full['flops']} traced (full depth), {real['flops']} "
+            f"FlopCounterMode; peak {peak / 1e9:.4f} GB predicted (full "
+            f"depth traced {full['peak'] / 1e9:.4f}), max_memory_allocated "
+            f"{real['peak'] / 1e9:.4f} GB ({peak_err:.2%} apart); analysis "
+            f"mode: two depths {row['flops']:.6e} FLOP / {row['bytes']:.6e} "
+            f"B, full depth {af['flops']:.6e} / {af['bytes']:.6e}; roofline "
+            f"compute {row['compute_s'] * 1e3:.3f} ms, memory "
+            f"{row['memory_s'] * 1e3:.3f} ms, {row['dominant']}-bound, "
+            f"against {real['ms']:.2f} ms measured (share "
+            f"{max(row['compute_s'], row['memory_s']) / step_s:.2%}); flash "
+            f"launches {real['launches']}; traces {c['trace_s']:.2f} s")
+        if label == "prefill":
+            n_flash = real["launches"]
+        if not (round(arg) == real["arg"] and full["flops"] == real["flops"]
+                and peak_err <= DRYRUN_PEAK_TOL
+                and row["flops"] == af["flops"]
+                and abs(row["bytes"] - af["bytes"]) <= 1e-9 * af["bytes"]):
+            bad.append(("world of one", label))
+    if n_flash != 24:
+        bad.append(("prefill flash launches", n_flash))
+    sc = streams.get_scenario("stock")
+    ecfg = runner.default_config(pat.compile_patterns(sc.specs()),
+                                 max_pms=256, block_events=W_BLOCK)
+    bi = RF.engine_block_intensity(ecfg)
+    measured = (f"{block_record['bytes_per_event']:.1f} B per event (the "
+                "kernels phase's bound bytes of its stock block / W)"
+                if block_record and "bytes_per_event" in block_record
+                else "not measured in this run")
+    log("dryrun", f"CEP block (stock, P={ecfg.num_patterns} "
+        f"N={ecfg.max_pms} W={ecfg.block_events}): analytic "
+        f"{bi['bytes_per_event_fused']:.1f} B per event fused, "
+        f"{bi['bytes_per_event_unfused']:.1f} unfused, intensity fused "
+        f"{bi['intensity_fused']:.3f} FLOP/B; measured {measured}")
+    secs = time.perf_counter() - t_phase
+    log("dryrun", f"child {got['child_s']:.2f} s ({got['jobs']} traces, "
+        f"{got['job_s']:.2f} s of worker time on {DRYRUN_WORKERS} "
+        f"processes; the real runs {got['real_s']:.2f} s); the phase took {secs:.2f} s of its "
+        f"{DRYRUN_BUDGET_S:.0f} s budget "
+        f"({'within' if secs <= DRYRUN_BUDGET_S else 'OVER'} it)")
+    if bad:
+        raise AssertionError(f"dry-run checks failed: {bad}")
+    return {"flash_attention": {"dryrun_launches": n_flash}}
 
 
 def phase_analysis() -> None:
@@ -4875,7 +5194,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--dryrun-child", default=None, metavar="PATH",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    phases = args.phases.split(",")
 
     import numpy as np
     import torch
@@ -4890,6 +5212,8 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing next to "
               f"this script ({e})", file=sys.stderr)
         return 2
+    if args.dryrun_child:
+        return dryrun_child(args.dryrun_child)
     t_all = time.perf_counter()
     smi = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4926,7 +5250,9 @@ def main() -> int:
                       ("moe", lambda: phase_moe(torch, np)),
                       ("ssm", lambda: phase_ssm(torch, np)),
                       ("encdec", lambda: phase_encdec(torch, np)),
-                      ("train", lambda: phase_train(torch, np))):
+                      ("train", lambda: phase_train(torch, np)),
+                      ("dryrun", lambda: phase_dryrun(
+                          torch, np, record.get("block_step")))):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -4936,7 +5262,7 @@ def main() -> int:
         if phase == "kernels":
             record = out
         if phase in ("main", "runtime", "resilience", "dist", "model",
-                     "moe", "ssm", "encdec", "train"):
+                     "moe", "ssm", "encdec", "train", "dryrun"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -4965,6 +5291,7 @@ def main() -> int:
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
                       "trim_lane_by_lane_launches", "dist_launches",
                       "moe_launches", "tflops", "train_launches",
+                      "dryrun_launches", "bytes_per_event",
                       "cross_ms", "cross_plain_ms", "cross_bound_ms",
                       "cross_bound_by", "cross_library_ms",
                       "cross_device_us", "cross_tflops"):

@@ -1,9 +1,12 @@
-"""Pattern- and lane-parallel scale-out of the CEP operator.
+"""Pattern- and lane-parallel scale-out of the CEP operator, and the
+model zoo's sharding specs.
 
 Port of the CEP half of ``repro.dist.sharding`` (``pm_specs``,
 ``_merge_pattern_shards``, ``run_engine_sharded``, ``lane_specs``,
-``run_chunk_lanes_sharded``) over ``torch.distributed``.  The model half
-(param, batch, cache and train specs) is not here.
+``run_chunk_lanes_sharded``) over ``torch.distributed``, and of its model
+half (param, batch, cache, train and decode specs, at the end of this
+module), whose specs the dry-run (``launch.dryrun``) lays out as DTensor
+placements.
 
 * **Pattern parallelism.**  The (P, N) PM store splits on its pattern
   axis: each rank scans the whole stream against P/n patterns as its own
@@ -60,6 +63,7 @@ from repro_torch.core import overload as ovl
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import (axis_group, axis_rank, axis_size,
                                    dim_names, world_mesh)
+from repro_torch.models.config import ModelConfig
 
 # How a leaf of a pattern shard's result merges across the pattern axis
 # (the reference's psum / pmax); a leaf sharded on the axis concatenates
@@ -625,3 +629,332 @@ def run_chunk_lanes_plain(cfg: eng.EngineConfig, model: eng.EngineModel,
     return tuple(_map(lambda s, *xs: torch.cat(xs, dim=0), sp[k],
                       *(b[t] for b in blocks))
                  for t, k in enumerate(("carry", "out")))
+
+
+# ---------------------------------------------------------------------------
+# The model half: parameter, batch, cache and step specs (DESIGN.md §5)
+# ---------------------------------------------------------------------------
+#
+# The specs of ``repro.dist.sharding``'s model half, rule for rule, as
+# spec tuples (one entry per tensor dim: None, a mesh dim name or a tuple
+# of names), on a ``DeviceMesh`` or an ``AbstractMesh``.  Every rule goes
+# through ``_fit``, which drops (from the left) any axis absent from the
+# mesh or not dividing the dim, so every shard is even.
+# ``placements``/``placements_tree`` turn specs into DTensor placements
+# and ``distribute_tree`` a tree of tensors into DTensors; the dry-run
+# (``launch.dryrun``) runs on them.
+
+def _axis_size(mesh, axes) -> int:
+    size = 1
+    for a in axes:
+        size *= axis_size(mesh, a)
+    return size
+
+
+def _norm(axes):
+    """Normalize an axis group to a spec entry."""
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return axes[0]
+    return tuple(axes)
+
+
+def _fit(mesh, shape, entries) -> tuple:
+    """Spec from per-dim axis proposals, dropping (from the left) any
+    axes absent from the mesh or not dividing the dim."""
+    names = set(dim_names(mesh))
+    out = []
+    for dim, ax in zip(shape, entries):
+        if ax is None:
+            out.append(None)
+            continue
+        ax_t = (ax,) if isinstance(ax, str) else tuple(ax)
+        ax_t = tuple(a for a in ax_t if a in names)
+        while ax_t and dim % _axis_size(mesh, ax_t) != 0:
+            ax_t = ax_t[1:]
+        out.append(_norm(ax_t))
+    return tuple(out)
+
+
+def spec(mesh, shape, *entries) -> tuple:
+    """Ad-hoc spec builder with the same divisibility fallback."""
+    return _fit(mesh, shape, entries)
+
+
+_BLOCKS = ("attn", "mlp", "moe", "mamba")
+
+
+def _leaf_spec(mesh, cfg: ModelConfig, scheme: str, block: str | None,
+               name: str, shape) -> tuple:
+    """Sharding rule for one parameter leaf (the reference's, rule for
+    rule).  Axis indices are negative so the same rule covers stacked
+    (leading L axis) and unstacked (shared_attn) leaves.  scheme:
+      "tp"    — tensor parallelism over "model" (+FSDP over "data" when
+                cfg.fsdp), the default.
+      "fsdp"  — no tensor axis; params shard over ("data", "model") as one
+                flat FSDP axis group.
+      "moe2d" — tp + experts sharded (E × d_ff) two-dimensionally.
+    """
+    nd = len(shape)
+    fsdp = cfg.fsdp or scheme == "fsdp"
+    dp = ("data", "model") if scheme == "fsdp" else ("data",)
+    tp = None if scheme == "fsdp" else "model"
+    ax: dict = {}
+    if block == "attn":
+        head_tp = tp if cfg.attn_head_tp else None
+        if name in ("wq", "bq", "wq_b", "wk", "wv", "bk", "bv",
+                    "wk_b", "wv_b"):
+            ax[-2] = head_tp
+            if fsdp and nd >= 3 and not name.startswith("b"):
+                ax[-3] = dp                 # d (or lora rank) over data
+        elif name == "wo":
+            ax[-3] = head_tp
+            if fsdp:
+                ax[-1] = dp
+        elif name in ("wq_a", "wkv_a"):
+            if fsdp:
+                ax[-2] = dp
+    elif block == "mlp":
+        if name in ("wi", "wg"):
+            ax[-1] = tp
+            if fsdp:
+                ax[-2] = dp
+        elif name == "wo":
+            ax[-2] = tp
+            if fsdp:
+                ax[-1] = dp
+    elif block == "moe":
+        if name == "router":
+            ax[-1] = tp
+        elif name in ("wi", "wg"):
+            ax[-3] = "model"                # experts on the model axis
+            if scheme == "moe2d":
+                ax[-1] = "data"             # (E × d_ff) 2-D expert shard
+        elif name == "wo":
+            ax[-3] = "model"
+            if scheme == "moe2d":
+                ax[-2] = "data"
+    elif block == "mamba":
+        if name in ("wz", "wx"):
+            ax[-1] = tp                     # channel (d_inner) sharding
+            if fsdp:
+                ax[-2] = dp
+        elif name == "wo":
+            ax[-2] = tp
+            if fsdp:
+                ax[-1] = dp
+        elif name == "wdt":
+            ax[-1] = tp                     # SSD heads are channel groups
+    else:
+        if name == "embed":
+            ax[-2] = tp if tp else ("data", "model")
+            if fsdp and tp:
+                ax[-1] = "data"
+        elif name == "lm_head":
+            ax[-1] = tp if tp else ("data", "model")
+            if fsdp and tp:
+                ax[-2] = "data"
+    entries = [None] * nd
+    for i, a in ax.items():
+        if a is not None and -nd <= i:
+            entries[i] = a
+    return _fit(mesh, shape, entries)
+
+
+def param_specs(mesh, cfg: ModelConfig, params, scheme: str = "tp") -> dict:
+    """Spec tree mirroring ``params`` (tensors of any device, meta and
+    fake included): per-architecture rules with divisibility fallback to
+    replicated — starcoder2's 48 query heads shard over "model" while its
+    4 KV heads stay replicated, and minitron's 24 heads fall back
+    entirely on a 16-way axis."""
+    def walk(tree: dict, block: str | None) -> dict:
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                if key in _BLOCKS:
+                    nb = key
+                elif key == "shared" and block == "moe":
+                    nb = "mlp"              # shared experts are a plain MLP
+                else:
+                    nb = block
+                out[key] = walk(val, nb)
+            else:
+                out[key] = _leaf_spec(mesh, cfg, scheme, block, key,
+                                      tuple(val.shape))
+        return out
+
+    return walk(params, None)
+
+
+def batch_axes(mesh, global_batch: int, scheme: str = "tp"):
+    """Mesh axes the batch dim shards over, or None.  Multi-pod meshes
+    flatten to ("pod", "data"); pure FSDP adds "model".  Leading axes drop
+    until the batch divides (batch 16 on a (2, 16, 16) mesh keeps only
+    ("data",))."""
+    wanted = ("pod", "data", "model") if scheme == "fsdp" else ("pod", "data")
+    axes = tuple(a for a in wanted if a in dim_names(mesh))
+    while axes and global_batch % _axis_size(mesh, axes) != 0:
+        axes = axes[1:]
+    return axes or None
+
+
+def batch_specs(mesh, cfg: ModelConfig, batch: dict,
+                scheme: str = "tp") -> dict:
+    """Specs for the train/prefill input dict (leading dim = batch)."""
+    out = {}
+    for key, val in batch.items():
+        if key == "cache":
+            out[key] = cache_specs(mesh, cfg, val)
+            continue
+        bax = batch_axes(mesh, val.shape[0], scheme)
+        out[key] = (_norm(bax) if bax else None,) + (None,) * (val.dim() - 1)
+    return out
+
+
+# Cache entries whose axis 2 is a (max_len) sequence axis sharded over
+# "model", the decode-memory-critical layout; ck/cv hold encoder frames
+# at axis 2, replicated by the fallback when the frame count (whisper's
+# 1500) does not divide.
+_CACHE_SEQ = ("k", "v", "sk", "sv", "ckv", "krope", "ck", "cv")
+
+
+def cache_specs(mesh, cfg: ModelConfig, cache: dict) -> dict:
+    """Decode-cache layout: (L, B, S, ...) -> batch over the data axes,
+    cache sequence over "model"; SSD state heads over "model"."""
+    out = {}
+    for name, leaf in cache.items():
+        nd = leaf.dim()
+        if nd == 0:
+            out[name] = ()
+            continue
+        entries: list = [None] * nd
+        if nd >= 2:
+            bax = batch_axes(mesh, leaf.shape[1])
+            entries[1] = _norm(bax) if bax else None
+        if name in _CACHE_SEQ and nd >= 3:
+            entries[2] = "model"
+        if name == "state" and nd >= 3:
+            entries[2] = "model"            # SSD heads = channel groups
+        out[name] = _fit(mesh, tuple(leaf.shape), entries)
+    return out
+
+
+def train_specs(mesh, cfg: ModelConfig, params, batch: dict,
+                scheme: str = "tp", pspecs=None):
+    """(pspecs, ospecs, bspecs) of the train step: AdamW's moments mirror
+    the param specs, its step count is replicated.  A precomputed
+    ``pspecs`` skips walking the parameters again."""
+    if pspecs is None:
+        pspecs = param_specs(mesh, cfg, params, scheme=scheme)
+    ospecs = {"m": pspecs, "v": pspecs, "step": ()}
+    return pspecs, ospecs, batch_specs(mesh, cfg, batch, scheme=scheme)
+
+
+def decode_specs(mesh, cfg: ModelConfig, global_batch: int):
+    """(token_spec, logit_spec) of decode_step: tokens over the batch
+    axes, logits (B, V) with vocab over "model"."""
+    bax = batch_axes(mesh, global_batch)
+    tok = _fit(mesh, (global_batch,), [bax])
+    logits = _fit(mesh, (global_batch, cfg.vocab_size), [bax, "model"])
+    return tok, logits
+
+
+def map_specs(fn, specs, *trees):
+    """``fn(spec, *leaves)`` over a tree of dicts whose leaves are specs
+    and trees of the same structure."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, s, *(t[k] for t in trees))
+                for k, s in specs.items()}
+    return fn(specs, *trees)
+
+
+def placements(mesh, spec_: tuple) -> list:
+    """DTensor placements (one per mesh dim) of one spec.  An entry
+    ("data", "model") on tensor dim d is ``Shard(d)`` on both mesh dims,
+    the first named the outer block, as jax lays out a tuple entry; the
+    names of one entry must follow the mesh's dim order.  A mesh dim of
+    size 1 is ``Replicate`` (the same layout)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = dim_names(mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec_):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's dim "
+                             f"order {names}")
+        for md in idx:
+            if not isinstance(out[md], Replicate):
+                raise ValueError(f"mesh dim {names[md]!r} shards two tensor "
+                                 f"dims in {spec_}")
+            if mesh.size(md) > 1:
+                out[md] = Shard(d)
+    return out
+
+
+def placements_tree(mesh, specs):
+    """``placements`` over a spec tree."""
+    return map_specs(lambda s: placements(mesh, s), specs)
+
+
+def shard_slices(mesh, shape, spec_: tuple, coord) -> tuple:
+    """The (start, stop) of each dim of the shard at mesh coordinate
+    ``coord`` (one index per mesh dim): a dim over axes (a1, .., ak) is cut
+    into prod(sizes) even blocks, a1 the outermost."""
+    names = dim_names(mesh)
+    out = []
+    for dim, entry in zip(shape, tuple(spec_) + (None,) * len(shape)):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        block, n = 0, 1
+        for a in axes:
+            i = names.index(a)
+            block = block * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+        size = dim // n
+        out.append((block * size, (block + 1) * size))
+    return tuple(out)
+
+
+def local_shape(mesh, shape, spec_: tuple) -> tuple:
+    """The shape of every shard of a tensor of ``shape`` laid out by
+    ``spec_`` (even by construction of ``_fit``)."""
+    return tuple(b - a for a, b in shard_slices(
+        mesh, shape, spec_, (0,) * len(dim_names(mesh))))
+
+
+def local_bytes(mesh, tree, specs) -> int:
+    """Bytes one device holds of a tree of tensors (or structures) laid
+    out by ``specs``: the sum of its shards' bytes."""
+    total = 0
+
+    def add(s, t):
+        nonlocal total
+        n = 1
+        for x in local_shape(mesh, tuple(t.shape), s):
+            n *= x
+        total += n * t.element_size()
+    map_specs(add, specs, tree)
+    return total
+
+
+def distribute_tree(mesh, tree, specs, device=None):
+    """A tree of DTensors on the ``DeviceMesh`` ``mesh`` laid out by
+    ``specs``.  A leaf on the meta device is a structure: its shard is
+    made empty on ``device`` (this rank's shard; under ``FakeTensorMode``
+    a fake tensor) without the global tensor; any other leaf is a global
+    tensor this rank cuts its own shard from (no collective)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(s, t):
+        pl = placements(mesh, s)
+        if t.device.type != "meta":
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+        local = torch.empty(local_shape(mesh, tuple(t.shape), s),
+                            dtype=t.dtype, device=device)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return map_specs(one, specs, tree)

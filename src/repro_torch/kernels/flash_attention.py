@@ -31,9 +31,29 @@ autograd on the saved q, k and v and returns that vector-Jacobian
 product — the function the reference differentiates, since its Pallas
 kernel has no backward either.  A hand-written backward kernel is later
 performance work.
+
+The forward is the custom operator ``repro_torch::flash_attention``
+(``torch.library.custom_op``), so that the dry-run can trace it
+(``launch.dryrun``): its one implementation for every device runs the
+kernel on CUDA tensors and the plain version on CPU tensors, as the
+wrapper did; ``register_fake`` gives its output (B, Sq, H, Dv) on fake
+and meta tensors; its FLOP formula (``torch.utils.flop_counter``)
+counts the two products of exactly the (q chunk, kv chunk) pairs the
+plain version visits at the chunk sizes in force (``chunks``,
+``use_chunks``; the model's ``settings.analysis_mode`` coarsens them),
+whatever tiles the kernel runs; and its DTensor sharding rule
+(``register_dtensor_rule``) keeps q, k, v and the output sharded alike
+on batch and/or heads.  With GQA, heads shard only where the KV heads
+divide the mesh dim too (local query head h then reads local KV head h
+// G); elsewhere the wrapper first redistributes q, k and v to one
+common layout (``_align``), so that the kernel never sees mismatched
+shards.  Under DTensor the backward runs the plain version's VJP on
+each rank's shards (``local_map``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -43,6 +63,23 @@ from repro_torch.kernels import _build
 # The plain version's default chunk sizes (the reference's settings).
 Q_CHUNK = 512
 KV_CHUNK = 1024
+_CHUNKS = contextvars.ContextVar("repro_torch_flash_chunks",
+                                 default=(Q_CHUNK, KV_CHUNK))
+
+
+def chunks() -> tuple[int, int]:
+    """(q_chunk, kv_chunk) in force: the plain version's chunking and
+    the FLOP formula's."""
+    return _CHUNKS.get()
+
+
+@contextlib.contextmanager
+def use_chunks(q_chunk: int, kv_chunk: int):
+    t = _CHUNKS.set((int(q_chunk), int(kv_chunk)))
+    try:
+        yield
+    finally:
+        _CHUNKS.reset(t)
 
 
 def _divisor_chunk(s: int, target: int) -> int:
@@ -88,12 +125,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                     device=dev)] * nq
     l = [torch.zeros((B, cq, H), dtype=torch.float32, device=dev)] * nq
 
-    if causal and causal_skip:
-        pairs = [(i, j) for i in range(nq) for j in range(nk)
-                 if (q_offset + (i + 1) * cq - 1) >= j * ck]
-    else:
-        pairs = [(i, j) for i in range(nq) for j in range(nk)]
-    for i, j in pairs:
+    for i, j in _pairs(nq, nk, cq, ck, causal, causal_skip, q_offset):
         qi = qr[:, i]
         kj_h = kr[:, j].repeat_interleave(G, dim=2)   # (B, ck, H, Dk)
         vj_h = vr[:, j].repeat_interleave(G, dim=2)
@@ -120,6 +152,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     out = torch.stack(acc, 1) / torch.clamp_min(
         torch.stack(l, 1)[..., None], 1e-30)
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def _pairs(nq: int, nk: int, cq: int, ck: int, causal: bool,
+           causal_skip: bool, q_offset: int) -> list:
+    """The (q chunk, kv chunk) pairs the plain version visits: with
+    ``causal_skip`` only those that meet the causal triangle."""
+    if causal and causal_skip:
+        return [(i, j) for i in range(nq) for j in range(nk)
+                if (q_offset + (i + 1) * cq - 1) >= j * ck]
+    return [(i, j) for i in range(nq) for j in range(nk)]
+
+
+def flash_flops(B: int, Sq: int, Sk: int, H: int, D: int, Dv: int, *,
+                causal: bool = True, q_offset: int = 0,
+                q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK,
+                causal_skip: bool = True) -> int:
+    """FLOPs of the plain version: per visited pair the score product
+    (2·cq·ck·D) and the PV product (2·cq·ck·Dv) for every (batch, head),
+    as ``torch.utils.flop_counter`` counts its two einsums."""
+    cq, ck = _divisor_chunk(Sq, q_chunk), _divisor_chunk(Sk, kv_chunk)
+    n = len(_pairs(Sq // cq, Sk // ck, cq, ck, causal, causal_skip,
+                   int(q_offset)))
+    return n * B * H * 2 * cq * ck * (D + Dv)
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -177,58 +232,117 @@ def _check(q, k, v, q_offset, scale):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    causal_skip: bool = True) -> torch.Tensor:
     """softmax(q·kᵀ·scale [causal]) · v over GQA heads.
 
     q (B, Sq, H, D), k (B, Sk, KVH, D), v (B, Sk, KVH, Dv); returns
     (B, Sq, H, Dv) in q's type.  On CUDA tensors a kernel runs (D and
     Dv multiples of 8, D up to 192 and Dv up to 128, contiguous): the
     tensor-core kernel for bfloat16 (a positive scale), the SIMT kernel
-    for float32.  On CPU tensors the plain version runs with its default
-    chunks.  When autograd records (grad enabled and an input that
-    requires grad) the same forward runs inside ``_FlashAttention``,
-    whose backward is the plain version's vector-Jacobian product.
+    for float32.  On CPU tensors the plain version runs at the chunks in
+    force (``chunks``), visiting only the pairs that meet the causal
+    triangle unless ``causal_skip`` is off (the kernels always skip; the
+    output is the same).  When autograd records (grad enabled and an
+    input that requires grad) the same forward runs inside
+    ``_FlashAttention``, whose backward is the plain version's
+    vector-Jacobian product.  DTensors are first aligned (``_align``).
     """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    q, k, v = _align(q, k, v)
+    args = (bool(causal), int(q_offset), float(scale), bool(causal_skip))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
-        return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset),
-                                     float(scale))
-    return _forward(q, k, v, causal, q_offset, scale)
+        return _FlashAttention.apply(q, k, v, *args)
+    return _op(q, k, v, *args)
+
+
+def _op(q, k, v, causal, q_offset, scale, causal_skip):
+    qc, kc = chunks()
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, causal, q_offset, scale, qc, kc, causal_skip)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The flash forward (kernel on the card) with the plain version's
     gradient: the backward recomputes ``flash_attention_plain`` under
-    autograd from the saved q, k, v and returns its VJP."""
+    autograd from the saved q, k, v and returns its VJP (on DTensors,
+    on each rank's shards)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, scale):
+    def forward(ctx, q, k, v, causal, q_offset, scale, causal_skip):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, q_offset, scale)
-        return _forward(q, k, v, causal, q_offset, scale)
+        ctx.args = (causal, q_offset, scale, causal_skip, chunks())
+        return _op(q, k, v, causal, q_offset, scale, causal_skip)
 
     @staticmethod
     def backward(ctx, grad_out):
-        causal, q_offset, scale = ctx.args
+        q, k, v = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
+        vjp = _vjp(need, *ctx.args)
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            from torch.distributed.tensor.experimental import local_map
+            pl = tuple(q.placements)
+            vjp = local_map(vjp, out_placements=(pl, pl, pl),
+                            in_placements=(pl, pl, pl, pl),
+                            device_mesh=q.device_mesh,
+                            redistribute_inputs=True)
+        return tuple(vjp(q, k, v, grad_out)) + (None,) * 4
+
+
+def _vjp(need, causal, q_offset, scale, causal_skip, chunk):
+    """The plain version's VJP at the forward's chunks: (dq, dk, dv),
+    None where no gradient is needed."""
+    def run(q, k, v, grad_out):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            out = flash_attention_plain(*ins, causal=causal,
-                                        q_offset=q_offset, scale=scale)
+                   for t, n in zip((q, k, v), need)]
+            out = flash_attention_plain(
+                *ins, causal=causal, q_offset=q_offset, scale=scale,
+                q_chunk=chunk[0], kv_chunk=chunk[1],
+                causal_skip=causal_skip)
             got = iter(torch.autograd.grad(
                 out, [t for t, n in zip(ins, need) if n], grad_out))
-        return tuple(next(got) if n else None for n in need) + (None,) * 3
+        return tuple(next(got) if n else None for n in need)
+    return run
 
 
-def _forward(q, k, v, causal, q_offset, scale) -> torch.Tensor:
+def _align(q, k, v):
+    """DTensor inputs redistributed to one layout the kernel takes
+    shard by shard: per mesh dim, q's placement where it is a shard of
+    the batch (dim 0) or of the heads (dim 2) that divides evenly for q,
+    k and v — the heads only where the KV heads divide too —, else
+    replicated.  Plain tensors pass as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return q, k, v
+    mesh = q.device_mesh
+    want = []
+    for md, p in enumerate(q.placements):
+        n = mesh.size(md)
+        ok = isinstance(p, Shard) and p.dim in (0, 2) and all(
+            t.shape[p.dim] % n == 0 for t in (q, k, v))
+        want.append(p if ok else Replicate())
+    want = tuple(want)
+    return tuple(t if tuple(t.placements) == want else
+                 t.redistribute(mesh, want) for t in (q, k, v))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, q_offset: int, scale: float, q_chunk: int,
+              kv_chunk: int, causal_skip: bool) -> torch.Tensor:
     """The forward on q's device: the plain version on the CPU, a kernel
     on the card (counted)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=int(q_offset), scale=scale)
+                                     q_offset=q_offset, scale=scale,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                     causal_skip=causal_skip)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, q_offset, scale)
@@ -249,6 +363,49 @@ def _forward(q, k, v, causal, q_offset, scale) -> torch.Tensor:
                      "flash_attention (float32)")
     flash_attention.launches += 1
     return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, q_offset, scale, q_chunk, kv_chunk,
+                causal_skip):
+    return q.new_empty(tuple(q.shape[:3]) + (v.shape[-1],))
+
+
+def _register_flop_formula() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _formula(q_shape, k_shape, v_shape, causal, q_offset, scale,
+                 q_chunk, kv_chunk, causal_skip, *args, out_shape=None,
+                 **kwargs) -> int:
+        B, Sq, H, D = q_shape
+        return flash_flops(B, Sq, k_shape[1], H, D, v_shape[-1],
+                           causal=causal, q_offset=q_offset,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk,
+                           causal_skip=causal_skip)
+
+
+_register_flop_formula()
+
+
+def register_dtensor_rule() -> None:
+    """The op's DTensor sharding rule (once per process): per mesh dim q,
+    k, v and the output all replicated, all sharded on the batch (dim
+    0), or all sharded on the heads (dim 2); DTensor drops a choice whose
+    shards would be uneven for any of them (GQA's KV heads), so local
+    query heads always read their own KV heads."""
+    if getattr(register_dtensor_rule, "done", False):
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, *args):
+        rest = [None] * len(args)
+        return [([p], [p, p, p] + rest)
+                for p in (Replicate(), Shard(0), Shard(2))]
+
+    register_dtensor_rule.done = True
 
 
 # Launches of either kernel, of the bf16 tensor-core kernel alone, and of

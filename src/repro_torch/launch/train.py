@@ -8,10 +8,11 @@
   - a deterministic batch per step (``synthetic_batch``, the reference's
     bit for bit), so a restarted run re-derives exactly its data.
 
-It runs in one process.  The data-parallel path with compressed gradient
-sync is ``training.compression.sync_tree`` over a process group of
-``dist.mesh``; the reference's sharding specs and host mesh belong to the
-dry-run slice (ROADMAP queue 1 item 6f).
+It runs in one process, each layer rematerialised (``remat=True``, as
+the reference's CLI runs).  The data-parallel path with compressed
+gradient sync is ``training.compression.sync_tree`` over a process group
+of ``dist.mesh``; the reference's run over its host mesh's specs
+(``dist.sharding.train_specs``) is ROADMAP item 6g.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
@@ -71,20 +72,21 @@ def train_loop(cfg, params, opt_state, *, steps: int, batch: int, seq: int,
                start: int = 0, opt_cfg: O.AdamWConfig | None = None,
                ckpt_dir: str | None = None, ckpt_every: int = 20,
                inject_nan_at: int = -1, device=None, on_checkpoint=None,
-               log=print) -> dict:
+               log=print, remat: bool = True) -> dict:
     """Steps ``start`` .. ``steps - 1``.  After a step whose loss is not
     finite the step's result is dropped, and the latest checkpoint (if
     any) restored; every ``ckpt_every`` steps the state is saved.  The
     loop holds one state between steps (a second only inside a step's
     update), so a caller that hands over ``params`` and ``opt_state``
     keeps no reference to them.
+    Each step rematerialises its layers under ``remat``.
     ``on_checkpoint(kind, step, state)`` is told of each save and restore
     ("save" / "restore").  Returns {"params", "opt", "losses": [(step,
     loss)], "step_s": seconds per kept step, "saved", "restored": the
     steps whose checkpoint was written or read}."""
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    step_fn = make_train_step(cfg, opt_cfg or O.AdamWConfig())
+    step_fn = make_train_step(cfg, opt_cfg or O.AdamWConfig(), remat=remat)
     losses, step_s, saved, restored = [], [], [], []
     for step in range(start, steps):
         b = synthetic_batch(cfg, batch, seq, step, device=dev)
@@ -163,7 +165,8 @@ def main(argv=None) -> int:
     train_loop(cfg, params, opt_state, steps=args.steps, batch=args.batch,
                seq=args.seq, start=start, opt_cfg=opt_cfg,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-               inject_nan_at=args.inject_nan_at, device=args.device)
+               inject_nan_at=args.inject_nan_at, device=args.device,
+               remat=True)
     return 0
 
 

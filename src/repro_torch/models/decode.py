@@ -36,13 +36,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import settings as SET
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (_dtype, cross_kv, embed_inputs,
+from repro_torch.models.transformer import (_dtype, _lookup_table,
+                                            cross_kv, embed_inputs,
                                             encoder, lm_head_logits,
                                             shared_fwd_kv, shared_slot)
 
@@ -53,7 +55,25 @@ from repro_torch.models.transformer import (_dtype, cross_kv, embed_inputs,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
+    """The zero cache on ``device``; under an active mesh, DTensors laid
+    out by ``cache_specs`` (each rank allocating its own shard)."""
     dev = resolve_device(device)
+    mesh = SET.active_mesh()
+    if mesh is None:
+        return _cache(cfg, batch, max_len, dtype, dev)
+    from repro_torch.dist.sharding import cache_specs, distribute_tree
+    structs = cache_structs(cfg, batch, max_len, dtype)
+    return distribute_tree(mesh, structs, cache_specs(mesh, cfg, structs),
+                           device=dev)
+
+
+def cache_structs(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=None) -> dict:
+    """``init_cache``'s tree as meta tensors: shapes and dtypes only."""
+    return _cache(cfg, batch, max_len, dtype, torch.device("meta"))
+
+
+def _cache(cfg: ModelConfig, batch: int, max_len: int, dtype, dev) -> dict:
     dt = dtype or _dtype(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     Ln = cfg.num_layers
@@ -96,6 +116,40 @@ def _cache_names(cfg: ModelConfig) -> tuple[str, str]:
 # Cached attention
 # ---------------------------------------------------------------------------
 
+def _write_token(c: torch.Tensor, at: torch.Tensor, x: torch.Tensor) -> None:
+    """Write x (B, 1, ...) into the cache c (B, Smax, ...) at position
+    ``at`` ((1,) int64), in place.  On a DTensor each rank writes its own
+    shard: where the sequence is sharded, the rank whose slice holds the
+    position writes it and every other rank writes back what it holds."""
+    if SET.active_mesh() is None:
+        c.index_copy_(1, at, x.to(c.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, pl = c.device_mesh, tuple(c.placements)
+    # This rank's first position: mesh dims cut the sequence in mesh order.
+    off, size = 0, c.shape[1]
+    for md, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == 1:
+            size //= mesh.size(md)
+            off += mesh.get_coordinate()[md] * size
+    x_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in pl)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(c_l, at_l, x_l):
+        i = at_l - off
+        keep = ((i >= 0) & (i < c_l.shape[1])).reshape(
+            (1, 1) + (1,) * (c_l.dim() - 2))
+        i = i.clamp(0, c_l.shape[1] - 1)
+        c_l.index_copy_(1, i, torch.where(keep, x_l.to(c_l.dtype),
+                                          c_l.index_select(1, i)))
+        return (c_l,)
+
+    local_map(local, out_placements=(pl,), in_placements=(pl, rep, x_pl),
+              device_mesh=mesh, redistribute_inputs=True)(c, at, x)
+
+
 def _gqa_cached_attn(p: dict, x: torch.Tensor, kc: torch.Tensor,
                      vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                      *, update: bool = True, causal: bool = True):
@@ -119,9 +173,11 @@ def _gqa_cached_attn(p: dict, x: torch.Tensor, kc: torch.Tensor,
         q = L.apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
         k_new = L.apply_rope(k_new[:, None], posv, cfg.rope_theta)
         at = pos.clamp(0, kc.shape[1] - 1).reshape(1).long()
-        kc.index_copy_(1, at, k_new.to(kc.dtype))
-        vc.index_copy_(1, at, v_new[:, None].to(vc.dtype))
-    qg = q.reshape(B, KVH, G, hd)
+        _write_token(kc, at, k_new)
+        _write_token(vc, at, v_new[:, None])
+    # Under a mesh the query keeps its batch sharding only: the scores
+    # are taken against each rank's slice of the cache's sequence.
+    qg = SET.constrain(q, "data", None, None).reshape(B, KVH, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), kc.float()) / \
         math.sqrt(hd)
     if causal:
@@ -144,8 +200,8 @@ def _mla_cached_attn(p: dict, x: torch.Tensor, ckv: torch.Tensor,
     posv = pos.expand(x.shape[0], 1)
     ckv_new, krope_new = L.mla_compress(p, x[:, None], cfg, posv)
     at = pos.clamp(0, ckv.shape[1] - 1).reshape(1).long()
-    ckv.index_copy_(1, at, ckv_new.to(ckv.dtype))
-    krope.index_copy_(1, at, krope_new.to(krope.dtype))
+    _write_token(ckv, at, ckv_new)
+    _write_token(krope, at, krope_new)
     q_nope, q_rope = L.mla_queries(p, x[:, None], cfg, posv)
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]            # (B, H, ·)
     # Absorb W_kb into the query: score in the compressed space.
@@ -179,13 +235,29 @@ def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
 # Decode step (one token for the whole batch)
 # ---------------------------------------------------------------------------
 
+def decode_weights(cfg: ModelConfig, params: dict) -> dict:
+    """The part of ``params`` that ``decode_step`` reads: all of it but,
+    for the encoder-decoder, the encoder's weights and the cross layers'
+    K/V projections, whose output the cache holds (the reference's jit
+    drops them from a decode step's arguments)."""
+    if not cfg.enc_dec:
+        return params
+    out = {k: v for k, v in params.items()
+           if k not in ("enc_layers", "enc_final_norm")}
+    cross = dict(params["cross_layers"])
+    cross["attn"] = {k: v for k, v in cross["attn"].items()
+                     if k not in ("wk", "wv", "bk", "bv")}
+    out["cross_layers"] = cross
+    return out
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """tokens: (B,) int — the newest token per sequence.  Returns (logits
     (B, V), the cache advanced by one position; its K/V (or MLA's
     ckv/krope) tensors are the input's, written in place)."""
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]                 # (B, d)
+    x = F.embedding(tokens.long(), _lookup_table(params))  # (B, d)
     if cfg.ssm:
         x = _ssm_decode(cfg, params, cache, x)
         return _last_logits(cfg, params, x[:, None]), dict(cache,
@@ -194,11 +266,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
     def body(x, inp):
         lp, kc, vc = inp[:3]
+        lp = SET.gather_weights(lp)
+        x = L.residual(x)
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         h, _, _ = attn(lp["attn"], h, kc, vc, pos, cfg)
-        x = x + h
+        x = x + L.residual(h)
         if cfg.enc_dec:
             cp, ck, cv = inp[3:]
+            cp = SET.gather_weights(cp)
             h = L.rmsnorm(x, cp["norm"], cfg.norm_eps)
             x = x + _gqa_cached_attn(cp["attn"], h, ck, cv, pos, cfg,
                                      update=False, causal=False)[0]
@@ -217,7 +292,7 @@ def _last_logits(cfg: ModelConfig, params: dict,
                  x: torch.Tensor) -> torch.Tensor:
     """The final norm and the LM head at the last position of x (B, S,
     d): logits (B, V)."""
-    h = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    h = L.rmsnorm(L.residual(x[:, -1:]), params["final_norm"], cfg.norm_eps)
     return lm_head_logits(cfg, params, h)[:, 0]
 
 
@@ -226,6 +301,7 @@ def _shared_cached(cfg: ModelConfig, sp: dict, x: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """The hybrid's shared block on one token x (B, d), attending over
     its application's K/V cache (written in place at ``pos``)."""
+    sp = SET.gather_weights(sp)
     h = L.rmsnorm(x, sp["norm1"], cfg.norm_eps)
     x = x + _gqa_cached_attn(sp["attn"], h, kc, vc, pos, cfg)[0]
     h = L.rmsnorm(x, sp["norm2"], cfg.norm_eps)
@@ -240,6 +316,8 @@ def _ssm_decode(cfg: ModelConfig, params: dict, cache: dict,
     def body(carry, inp):
         x, idx = carry
         lp, conv_l, state_l = inp
+        lp = SET.gather_weights(lp)
+        x = L.residual(x)
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         h, conv, state = SSM.ssd_decode_step(lp["mamba"], h, conv_l,
                                              state_l, cfg)
@@ -262,43 +340,52 @@ def _ssm_decode(cfg: ModelConfig, params: dict, cache: dict,
 # Prefill
 # ---------------------------------------------------------------------------
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict,
-            max_len: int) -> tuple[dict, torch.Tensor]:
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int, *,
+            remat: bool = True, causal_skip: bool = True
+            ) -> tuple[dict, torch.Tensor]:
     """Run the full prompt (``batch["tokens"]`` (B, S) [+ ``patches``;
     whisper's ``frames`` (B, enc_frames, d)]), building the cache.
-    Returns (cache, logits of the last position)."""
+    Returns (cache, logits of the last position).  ``remat`` reaches the
+    encoder (as the reference's; no effect without autograd);
+    ``causal_skip`` the flash attention."""
     enc_out = None
     if cfg.enc_dec:
         frames = batch["frames"].shape[1]
         if frames != cfg.enc_frames:
             raise ValueError(f"prefill: {frames} frames, but the cross cache "
                              f"holds enc_frames = {cfg.enc_frames}")
-        enc_out = encoder(cfg, params, batch["frames"])
+        enc_out = encoder(cfg, params, batch["frames"], remat=remat)
     x = embed_inputs(cfg, params, batch)
     B, Sq, _ = x.shape
     if max_len < Sq and (not cfg.ssm or cfg.hybrid_attn_every):
         raise ValueError(f"prefill: max_len {max_len} < prompt length {Sq}")
     cache = init_cache(cfg, B, max_len, device=x.device)
     if cfg.ssm:
-        x = _ssm_prefill(cfg, params, cache, x)
+        x = _ssm_prefill(cfg, params, cache, x, causal_skip)
         cache["pos"] = torch.tensor(Sq, dtype=torch.int32, device=x.device)
         return cache, _last_logits(cfg, params, x)
     pos = torch.arange(Sq, device=x.device)
 
     def body(x, inp):
         lp, kc, vc = inp[:3]
+        lp = SET.gather_weights(lp)
+        x = L.residual(x)
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         if cfg.use_mla:
             k, v = L.mla_compress(lp["attn"], h, cfg, pos)  # (ckv, krope)
-            x = x + L.mla_block(lp["attn"], h, cfg, compressed=(k, v))
+            x = x + L.mla_block(lp["attn"], h, cfg, compressed=(k, v),
+                                causal_skip=causal_skip)
         else:
             q, k, v = L.attention_qkv(lp["attn"], h, cfg, pos)
-            o = L.flash_attention(q, k, v, causal=True)
-            x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+            o = L.flash_attention(q, k, v, causal=True,
+                                  causal_skip=causal_skip)
+            x = x + L.residual(torch.einsum("bshk,hkd->bsd", L.heads(o, cfg),
+                                            lp["attn"]["wo"]))
         kc[:, :Sq] = k.to(kc.dtype)
         vc[:, :Sq] = v.to(vc.dtype)
         if cfg.enc_dec:
             cp, ck, cv = inp[3:]
+            cp = SET.gather_weights(cp)
             kv = cross_kv(cp, enc_out)
             h = L.rmsnorm(x, cp["norm"], cfg.norm_eps)
             x = x + L.attention_block(cp["attn"], h, cfg, causal=False,
@@ -318,7 +405,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def _ssm_prefill(cfg: ModelConfig, params: dict, cache: dict,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, causal_skip: bool = True) -> torch.Tensor:
     """The SSM / hybrid layers over the prompt x (B, S, d), writing each
     layer's final state and conv tail into the cache, and at each
     application point the shared block's K/V into its slot.  Returns the
@@ -333,6 +420,8 @@ def _ssm_prefill(cfg: ModelConfig, params: dict, cache: dict,
     def body(carry, inp):
         x, idx = carry
         lp, conv_l, state_l = inp
+        lp = SET.gather_weights(lp)
+        x = L.residual(x)
         h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
         y, state = SSM.ssd_forward(lp["mamba"], h, cfg)
         conv_l.copy_(_conv_tail(lp["mamba"], h, cfg))
@@ -340,7 +429,8 @@ def _ssm_prefill(cfg: ModelConfig, params: dict, cache: dict,
         x = x + y
         slot = shared_slot(cfg, idx)
         if slot is not None:
-            x, k, v = shared_fwd_kv(cfg, params["shared_attn"], x)
+            x, k, v = shared_fwd_kv(cfg, params["shared_attn"], x,
+                                    causal_skip)
             cache["sk"][slot, :, :Sq] = k.to(cache["sk"].dtype)
             cache["sv"][slot, :, :Sq] = v.to(cache["sv"].dtype)
         return (x, idx + 1), None

@@ -9,6 +9,12 @@ every function is pure.  ``flash_attention`` is the kernel's wrapper: the
 hand-written CUDA kernel for CUDA tensors, its plain version for CPU
 tensors (differentiable: its backward is the plain version's); MLA's
 prefill runs it at (D, Dv) = (192, 128).
+
+The same functions run on DTensors under an active mesh (the dry-run):
+``settings.constrain`` pins the reference's layouts at its sites
+(attention's q, k, v and output, the MLP's hidden, the residual stream)
+and is the identity on plain tensors; the MoE dispatch runs on each
+rank's rows and experts (``_moe_block_sharded``).
 """
 from __future__ import annotations
 
@@ -18,12 +24,49 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import settings as SET
 from repro_torch.models.config import ModelConfig
+
+
+class Structure:
+    """Stands in for the generator where only shapes and dtypes are
+    wanted (the dry-run's structures): the init functions then allocate
+    on the meta device and draw nothing."""
+    device = torch.device("meta")
+
+
+STRUCTURE = Structure()
+
+
+def normal(gen, shape: tuple) -> torch.Tensor:
+    """N(0, 1) float32 of ``shape`` drawn from ``gen`` on its device
+    (uninitialised on the meta device for ``STRUCTURE``)."""
+    if isinstance(gen, Structure):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
 
 
 # ---------------------------------------------------------------------------
 # Norms & embeddings
 # ---------------------------------------------------------------------------
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout under a mesh: batch over "data",
+    the rest replicated (the reference's per-layer constraint)."""
+    return SET.constrain(x, "data", *([None] * (x.dim() - 1)))
+
+
+def heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """q, k, v or attention's output (B, S, heads, hd) in the reference's
+    layout under a mesh: batch over "data" and heads over "model" where
+    ``attn_head_tp`` (batch over both under
+    ``settings.attn_batch_flip``)."""
+    tp = "model" if cfg.attn_head_tp else None
+    flip = SET.attn_batch_flip() and not cfg.attn_head_tp
+    return SET.constrain(t, ("data", "model") if flip else "data", None, tp,
+                         None)
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
@@ -39,8 +82,10 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
     ``gen`` (on the device the weights go to) in float32 one (d_in, d_out)
     matrix at a time and cast to ``dtype``: a whole stack drawn in float32
     at once (deepseek-moe-16b's 28 x 64 experts, 20.7 GB) would not fit
-    beside the weights already drawn."""
+    beside the weights already drawn.  ``STRUCTURE`` draws nothing."""
     w = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    if isinstance(gen, Structure):
+        return w
     scale = 1.0 / math.sqrt(d_in)
     for m in w.view(-1, d_in, d_out):
         m.copy_(torch.randn((d_in, d_out), generator=gen,
@@ -99,7 +144,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, *,
 
 def attention_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   pos: torch.Tensor):
-    """Project to q, k, v with RoPE applied (each contiguous)."""
+    """Project to q, k, v with RoPE applied (each contiguous; under a
+    mesh in the layout of ``heads``)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -107,18 +153,21 @@ def attention_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    return q, k, v.contiguous()
+    q = heads(apply_rope(q, pos, cfg.rope_theta), cfg)
+    k = heads(apply_rope(k, pos, cfg.rope_theta), cfg)
+    return q, k, heads(v.contiguous(), cfg)
 
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    causal: bool = True,
+                    causal: bool = True, causal_skip: bool = True,
                     kv_override: tuple | None = None) -> torch.Tensor:
     """Attention over the whole sequence (training, prefill, the
     encoder).  ``kv_override`` supplies (k, v) for cross-attention (the
     whisper decoder over the encoder's output): then q takes no RoPE and
-    k, v are used as given (made contiguous for the kernel)."""
+    k, v are used as given (made contiguous for the kernel).  Under a
+    mesh q, k, v and the output take the reference's layouts: batch over
+    "data" and heads over "model" where ``attn_head_tp`` (batch over
+    both axes under ``settings.attn_batch_flip``)."""
     if kv_override is None:
         pos = torch.arange(x.shape[1], device=x.device)
         q, k, v = attention_qkv(p, x, cfg, pos)
@@ -128,8 +177,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             q = q + p["bq"]
         q = q.contiguous()
         k, v = (t.contiguous() for t in kv_override)
-    o = flash_attention(q, k, v, causal=causal)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    o = flash_attention(heads(q, cfg), k, v, causal=causal,
+                        causal_skip=causal_skip)
+    return residual(torch.einsum("bshk,hkd->bsd", heads(o, cfg), p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +194,9 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, *,
 
 
 def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
+    x = residual(x)
     h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    h = SET.constrain(h, "data", *([None] * (h.dim() - 2)), "model")
     return h @ p["wo"]
 
 
@@ -193,7 +245,8 @@ def mla_queries(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              compressed: tuple | None = None) -> torch.Tensor:
+              compressed: tuple | None = None,
+              causal_skip: bool = True) -> torch.Tensor:
     """MLA for prefill: expand the compressed KV per head and run the flash
     kernel at (D, Dv) = (qk_head_dim, v_head_dim).  ``compressed`` takes
     ``mla_compress``'s (c_kv, k_rope) where the caller has them already
@@ -210,8 +263,9 @@ def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
     out = flash_attention(q, k, v, causal=True,
-                          scale=1.0 / math.sqrt(cfg.qk_head_dim))
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+                          scale=1.0 / math.sqrt(cfg.qk_head_dim),
+                          causal_skip=causal_skip)
+    return residual(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +320,29 @@ def moe_route(p: dict, xr: torch.Tensor, cfg: ModelConfig):
     return probs, topk_idx, gate, gval, gidx
 
 
+def _moe_experts(p: dict, xr: torch.Tensor, cfg: ModelConfig,
+                e0: int = 0):
+    """The routing of rows xr (R, Sr, d) over all E experts, then the
+    experts e0 .. e0 + El of ``p``'s stacks (El = their length) on their
+    tokens and the gated combine: (out (R, Sr, d) in the experts' type,
+    probs, gate)."""
+    R, Sr, d = xr.shape
+    probs, _, gate, gval, gidx = moe_route(p, xr, cfg)
+    El = p["wi"].shape[0]
+    gval, gidx = gval[:, e0:e0 + El], gidx[:, e0:e0 + El]
+    C = gidx.shape[-1]
+    rows = torch.arange(R, device=xr.device)[None, :, None]
+    xe = xr[rows, gidx.transpose(0, 1)].reshape(El, R * C, d)  # (El, R·C, d)
+    h = torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(
+        xe, p["wi"])
+    ye = torch.bmm(h, p["wo"])                               # (El, R·C, d)
+    ye = ye * gval.transpose(0, 1).reshape(El, R * C, 1).to(ye.dtype)
+    dest = (rows * Sr + gidx.transpose(0, 1)).reshape(-1)    # e, r, c order
+    out = torch.zeros((R * Sr, d), dtype=ye.dtype, device=xr.device)
+    out.index_add_(0, dest, ye.reshape(-1, d))
+    return out.reshape(R, Sr, d), probs, gate
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """Capacity-based top-k MoE.  Returns (out, aux_loss).
 
@@ -278,28 +355,72 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig):
     through a broadcast over every (row, expert, token) triple.  The
     combine scales each expert's output by its gate in the activation
     type and adds it into the (R, Sr, d) output in that type (in bf16
-    the sum rounds in bf16, as the reference's scatter-add).
+    the sum rounds in bf16, as the reference's scatter-add).  On
+    DTensors see ``_moe_block_sharded``.
     """
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_block_sharded(p, x, cfg)
     B, S, d = x.shape
     E = cfg.num_experts
     xr = x.reshape(1, B, d) if S == 1 else x                 # (R, Sr, d)
-    R, Sr, _ = xr.shape
-    probs, _, gate, gval, gidx = moe_route(p, xr, cfg)
-    C = gidx.shape[-1]
-    rows = torch.arange(R, device=x.device)[None, :, None]
-    xe = xr[rows, gidx.transpose(0, 1)].reshape(E, R * C, d)  # (E, R·C, d)
-    h = torch.nn.functional.silu(torch.bmm(xe, p["wg"])) * torch.bmm(
-        xe, p["wi"])
-    ye = torch.bmm(h, p["wo"])                               # (E, R·C, d)
-    ye = ye * gval.transpose(0, 1).reshape(E, R * C, 1).to(ye.dtype)
-    dest = (rows * Sr + gidx.transpose(0, 1)).reshape(-1)    # e, r, c order
-    out = torch.zeros((R * Sr, d), dtype=ye.dtype, device=x.device)
-    out.index_add_(0, dest, ye.reshape(-1, d))
-    out = out.reshape(R, Sr, d)
+    out, probs, gate = _moe_experts(p, xr, cfg)
     # Load-balance aux loss (Switch-style).
     me = probs.mean(dim=(0, 1))
     ce = (gate > 0).float().mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
+    if cfg.num_shared_experts:
+        out = out + mlp_block(p["shared"], xr).to(out.dtype)
+    return out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _moe_block_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """``moe_block`` on DTensors over the active mesh, the reference's
+    expert-parallel layout (rows over the data axes, experts over
+    "model"): each rank routes its own rows over all E experts (the
+    router replicated), runs its experts on their tokens and combines
+    them into a partial sum over "model", which DTensor reduces where it
+    is next used.  Rows that do not divide the data axes (one decode
+    row) are replicated; experts that do not divide "model", or a
+    "model" axis the rows use, are replicated.  The aux loss comes from
+    the summed router probabilities and expert loads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.mesh import axis_rank, axis_size, dim_names
+    from repro_torch.dist.sharding import _norm, batch_axes, placements
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = cfg.num_experts
+    xr = x.reshape(1, B, d) if S == 1 else x
+    R, Sr, _ = xr.shape
+    bax = batch_axes(mesh, R, SET.scheme()) or ()
+    row_pl = placements(mesh, (_norm(bax), None, None))
+    names = dim_names(mesh)
+    ep = ("model" in names and "model" not in bax
+          and E % axis_size(mesh, "model") == 0)
+    exp_pl = placements(mesh, ("model" if ep else None, None, None))
+    e0 = axis_rank(mesh, "model") * (E // axis_size(mesh, "model")) \
+        if ep else 0
+    rep = [Replicate()] * len(names)
+    sum_pl = [Partial() if isinstance(q, Shard) else Replicate()
+              for q in row_pl]
+    out_pl = [Partial() if isinstance(w, Shard) else r
+              for r, w in zip(row_pl, exp_pl)]
+
+    def local(xr_l, router, wi, wg, wo):
+        out, probs, gate = _moe_experts(
+            {"router": router, "wi": wi, "wg": wg, "wo": wo}, xr_l, cfg, e0)
+        return (out, probs.sum(dim=(0, 1)),
+                (gate > 0).float().sum(dim=(0, 1)))
+
+    out, psum, csum = local_map(
+        local, out_placements=(out_pl, sum_pl, sum_pl),
+        in_placements=(row_pl, rep, exp_pl, exp_pl, exp_pl),
+        device_mesh=mesh, redistribute_inputs=True)(
+            xr, p["router"], p["wi"], p["wg"], p["wo"])
+    n = R * Sr
+    aux = E * torch.sum((psum / n) * (csum / n))
     if cfg.num_shared_experts:
         out = out + mlp_block(p["shared"], xr).to(out.dtype)
     return out.reshape(B, S, d).to(x.dtype), aux

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import settings as SET
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_dense, rmsnorm
 
@@ -93,8 +94,13 @@ def _out_proj(p: dict, y: torch.Tensor, z: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """y (float32, flattened heads) back to z's type, gated, normed and
     projected."""
-    y = y.to(z.dtype) * F.silu(z)
-    return rmsnorm(y, p["norm"], cfg.norm_eps) @ p["wo"]
+    # Under a mesh the norm takes whole channel rows (gathered over
+    # "model"), and the normed channels go back to their "model" shards
+    # for the projection (a norm over sharded channels may leave them
+    # sharded by position, and its gradient too).
+    y = SET.constrain(y.to(z.dtype) * F.silu(z), "data", None, None)
+    return SET.constrain(rmsnorm(y, p["norm"], cfg.norm_eps), "data", None,
+                         "model") @ p["wo"]
 
 
 def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -120,8 +126,23 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     z, xBC, dt = _in_proj(p, x)                        # dt (B, S, nh)
     xBC = F.silu(_causal_conv(xBC, p["conv_w"]))
     xin, Bm, Cm = xBC.split([di, ds, ds], dim=-1)
+    scan = _scan_sharded if _is_dtensor(x) else _ssd_scan
+    y, state = scan(xin, Bm, Cm, dt, p["A_log"], p["D"], Q, init_state)
+    return _out_proj(p, y[:, :S_orig], z[:, :S_orig], cfg), state
 
-    a = dt * -torch.exp(p["A_log"])                    # (B, S, nh) log-decay
+
+def _ssd_scan(xin: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              dt: torch.Tensor, A_log: torch.Tensor, Dp: torch.Tensor,
+              Q: int, init_state: torch.Tensor | None):
+    """The chunked scan of ``ssd_forward`` over chunks of Q positions:
+    xin (B, S, nh·hd), B and C (B, S, ds), dt (B, S, nh) float32, A_log
+    and D (nh,).  Returns (y (B, S, nh·hd) float32 with the D skip,
+    the final state (B, nh, hd, ds) float32).  Every (batch, head) is
+    independent, so a rank computes its own heads (``_scan_sharded``)."""
+    B, S, nh = dt.shape
+    hd, ds = xin.shape[-1] // nh, Bm.shape[-1]
+    nc = S // Q
+    a = dt * -torch.exp(A_log)                         # (B, S, nh) log-decay
     xh = xin.reshape(B, S, nh, hd).float()
     xdt = xh * dt[..., None]                           # dt folded into x
     ac = a.reshape(B, nc, Q, nh)
@@ -153,16 +174,50 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # Across chunks: y_inter[l] = (C[l] · state) exp(cum[l]), then the
     # state decays by the chunk's total and takes the chunk's input.
     state = (torch.zeros((B, nh, hd, ds), dtype=torch.float32,
-                         device=x.device)
+                         device=xin.device)
              if init_state is None else init_state.float())
     for c in range(nc):
         y_int = torch.einsum("bln,bhpn->blhp", Cc[:, c], state)
         y[:, c] += y_int * torch.exp(cum[:, c])[..., None]
         state = state * torch.exp(total[:, c])[..., None, None] + s_in[:, c]
 
-    y = y.reshape(B, S, nh, hd) + p["D"][:, None] * xh
-    y = y.reshape(B, S, di)[:, :S_orig]
-    return _out_proj(p, y, z[:, :S_orig], cfg), state
+    y = y.reshape(B, S, nh, hd) + Dp[:, None] * xh
+    return y.reshape(B, S, nh * hd), state
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _scan_sharded(xin, Bm, Cm, dt, A_log, Dp, Q, init_state):
+    """``_ssd_scan`` on DTensors: each rank scans its batch rows and,
+    where the heads divide "model" (and the batch does not use it), its
+    own heads, with B and C replicated across "model"."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.mesh import axis_size, dim_names
+    from repro_torch.dist.sharding import _norm, batch_axes, placements
+    mesh = xin.device_mesh
+    bax = batch_axes(mesh, dt.shape[0], SET.scheme()) or ()
+    hp = ("model" in dim_names(mesh) and "model" not in bax
+          and dt.shape[-1] % axis_size(mesh, "model") == 0)
+    b, h = _norm(bax), "model" if hp else None
+    x_pl = placements(mesh, (b, None, h))
+    bc_pl = placements(mesh, (b, None, None))
+    head_pl = placements(mesh, (h,))
+    st_pl = placements(mesh, (b, h, None, None))
+
+    def local(xin, Bm, Cm, dt, A_log, Dp, *init):
+        return _ssd_scan(xin, Bm, Cm, dt, A_log, Dp, Q,
+                         init[0] if init else None)
+
+    ins = (xin, Bm, Cm, dt, A_log, Dp) + (
+        () if init_state is None else (init_state,))
+    in_pl = (x_pl, bc_pl, bc_pl, x_pl, head_pl, head_pl) + (
+        () if init_state is None else (st_pl,))
+    return local_map(local, out_placements=(x_pl, st_pl), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*ins)
 
 
 def ssd_decode_step(p: dict, x: torch.Tensor, conv_state: torch.Tensor,

@@ -12,11 +12,14 @@ from repro_torch.training import optimizer as O
 from repro_torch.training.tree import leaves, tree_map, unflatten
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch: dict):
-    """(loss, metrics, grads) of ``forward_train`` at ``params``; the
-    loss and metrics detached, grads a tree like params."""
+def loss_and_grads(cfg: ModelConfig, params, batch: dict, *,
+                   remat: bool = True, causal_skip: bool = True):
+    """(loss, metrics, grads) of ``forward_train`` at ``params`` (each
+    layer rematerialised under ``remat``); the loss and metrics
+    detached, grads a tree like params."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = T.forward_train(cfg, p, batch)
+    loss, metrics = T.forward_train(cfg, p, batch, remat=remat,
+                                    causal_skip=causal_skip)
     flat = leaves(p)
     got = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = unflatten(p, [torch.zeros_like(t) if g is None else g
@@ -24,13 +27,16 @@ def loss_and_grads(cfg: ModelConfig, params, batch: dict):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: O.AdamWConfig | None = None):
+def make_train_step(cfg: ModelConfig, opt_cfg: O.AdamWConfig | None = None,
+                    remat: bool = True, causal_skip: bool = True):
     opt_cfg = opt_cfg or O.AdamWConfig()
 
     def train_step(params, opt_state, batch: dict):
         """Returns (new params, new opt state, metrics); the inputs are
         left as they were."""
-        loss, metrics, grads = loss_and_grads(cfg, params, batch)
+        loss, metrics, grads = loss_and_grads(cfg, params, batch,
+                                              remat=remat,
+                                              causal_skip=causal_skip)
         grads, gnorm = O.clip_by_global_norm(grads, opt_cfg.clip_norm)
         params, opt_state = O.adamw_update(opt_cfg, params, grads,
                                            opt_state)
@@ -41,9 +47,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.AdamWConfig | None = None):
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig, remat: bool = False):
     def eval_step(params, batch: dict):
         with torch.no_grad():
-            return T.forward_train(cfg, params, batch)[1]["ce"]
+            return T.forward_train(cfg, params, batch, remat=remat)[1]["ce"]
 
     return eval_step

@@ -40,14 +40,15 @@ Phases (one line each; any failure raises and exits non-zero):
            shedders with fires: backends "cuda" and "cuda_block" on the
            card == backend "torch" on the card == backend "torch" on the
            CPU, whole carry and every StepOut, bitwise
-  main     run_experiment on the stock scenario at its full 30000 events
-           and on soccer and bus at 6000, first through the per-event
-           kernels (backend "cuda"), then through the block kernel
-           (backend "cuda_block"), with the launch counts of each path's
-           kernels; the headline FN ordering, stock's pspice and E-BL
-           cells exactly the committed BENCH_quality.json values (both
-           are independent of the threefry layout), and FN, fires and
-           compliance equal across the two paths
+  main     run_experiment on the stock scenario (30000 events on the
+           block path, 12000 on the per-event path) and on soccer and
+           bus at 6000, first through the per-event kernels (backend
+           "cuda"), then through the block kernel (backend
+           "cuda_block"), with the launch counts of each path's kernels;
+           the headline FN ordering, stock's pspice and E-BL cells
+           exactly the committed BENCH_quality.json values (both are
+           independent of the threefry layout), and FN, fires and
+           compliance equal across the two paths on the same events
   quality  in jax's original threefry layout (the committed results'):
            the oracle's overload fixture and a layout-sensitive stream
            through "cuda" and "cuda_block" == the NumPy oracle, in both
@@ -55,7 +56,7 @@ Phases (one line each; any failure raises and exits non-zero):
            1.6} x 3 shedders at 30000 events) on "cuda_block", gated by
            check_headline, with stock at 1.2 exactly the committed file
            and every other cell within 0.05 of it; "cuda" == "cuda_block"
-           at the headline level on stock (30000 events) and bus (12000;
+           at the headline level on stock and bus (12000 events each;
            QUALITY_CUDA_DATASETS);
            the wall of stock's run_experiment split by layer
   runtime  the multi-tenant streaming runtime: 128 lanes of the stock
@@ -74,8 +75,9 @@ Phases (one line each; any failure raises and exits non-zero):
            ladder, guard and refresh on stock's configuration, 30000
            events, gated as bench_faults (no exception, finite state, a
            clean guard sweep, every decision mirrored in telemetry,
-           completions >= 2 % of clean), clean and all faults also on
-           "cuda" with an equal carry sha256 and counters; resilience off
+           completions >= 2 % of clean), clean and all faults on the
+           first 12000 events also on "cuda" with a carry sha256 and
+           counters equal to cuda_block's on them; resilience off
            == one monolithic run_engine on both paths ("cuda": the first
            12000 events), configured and
            never triggered == off (one stream, and 128 lanes with both
@@ -86,7 +88,8 @@ Phases (one line each; any failure raises and exits non-zero):
            instance per level, equal to its plain version and to one-lane
            trims, lane by lane; its time against lane by lane)
   recovery durable recovery (bench_recovery's counterpart): the
-           supervisor's children on the card (N = 256, W = 32, 30000
+           supervisor's children on the card (the five cells side by
+           side) (N = 256, W = 32, 30000
            events, 12000 on cuda, chunk 1024, snapshot every 4 chunks)
            SIGKILLed at the
            reference grid's kill sites on cuda_block x {none, pspice,
@@ -105,16 +108,25 @@ Phases (one line each; any failure raises and exits non-zero):
            and the runtime phase's 128 stock lanes through
            MultiTenantRuntime(mesh) equal to the meshless runtime lane by
            lane; then gloo worlds of ranks sharing the one card: soccer's
-           8 patterns in 2 and 4 pattern shards (block kernel, every
-           shedder; the per-event kernels at 2 ranks for pspice), every
-           rank's global carry and StepOut equal to merge_shards_plain
-           over the per-slice runs in this process (pspice's on the
-           kernels' plain versions on the CPU), and 8 soccer lanes
-           on a (data 2, model 2) mesh through MultiTenantRuntime(mesh)
-           equal to the plain emulation chunk by chunk (the first chunk
-           also on the plain versions on the CPU); walls, launches
-           per rank and collective ms and bytes (ranks sharing one card
-           measure no scale-out)
+           8 patterns (6000 events) in 2 and 4 pattern shards (block
+           kernel, every shedder; the per-event kernels at 2 ranks for
+           pspice), every rank's global carry and StepOut equal to
+           merge_shards_plain over the per-slice runs in this process
+           (pspice's on the kernels' plain versions on the CPU), and 8
+           soccer lanes on a (data 2, model 2) mesh through
+           MultiTenantRuntime(mesh) with persistence on (rank 0 writes a
+           snapshot every 4 chunks) equal to the plain emulation chunk
+           by chunk (the first chunk also on the plain versions on the
+           CPU); then that world killed twice — rank 0 in its second
+           snapshot write, rank 3 after its sixth chunk — each armed
+           rank dying by SIGKILL (spawn names it, exit code -9), each
+           world restarted on the same directory, recovered on every
+           rank (rank 0 reads the snapshot and WAL tail and broadcasts
+           them) and finished, every rank equal to the uninterrupted run
+           in every carry leaf, counters and events; recovery ms per
+           rank, records replayed, the sub-cell's seconds against its
+           45 s budget; walls, launches per rank and collective ms and
+           bytes (ranks sharing one card measure no scale-out)
   profile  torch.profiler over one stock pspice run per path: device
            busy time by kernel and the device's idle share; on the block
            path also the host's time per launch (the enqueue alone)
@@ -204,6 +216,17 @@ Phases (one line each; any failure raises and exits non-zero):
            beside the measured step; the CEP block's analytic bytes per
            event beside the kernels phase's; the phase's seconds against
            its 90 s budget
+  examples the port's four examples (examples/torch_*.py) in this
+           process at their default sizes on the card: the quickstart
+           (stock Q1 over 10 symbols, 50000 events, the block kernel),
+           the multi-tenant runtime (4 drifting tenants x 16384 events,
+           refresh every 4 chunks, the block kernel's lane instance), the
+           serving scheduler under three policies, and the training
+           example (internlm2's smoke config through launch.train, 60
+           steps with a NaN at step 35, then a resume to 80; the float32
+           flash kernel through its autograd.Function); each one's
+           table, seconds and launches; the phase's seconds against its
+           30 s budget
 The build phase reports ptxas's registers and spills of the block
 kernel's two instantiations and of the bf16 flash kernel (a spill in the
 flash kernel fails it).  The kernels phase also runs the wgmma probe
@@ -224,6 +247,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -233,7 +257,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
           "runtime", "resilience", "recovery", "dist", "profile", "model",
-          "moe", "ssm", "encdec", "train", "dryrun")
+          "moe", "ssm", "encdec", "train", "dryrun", "examples")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -1264,10 +1288,11 @@ def runtime_refresh(torch, np) -> None:
 # ---------------------------------------------------------------------------
 
 RES_EVENTS, RES_CHUNK, RES_PUSH = 30000, 1024, 4096
-# The per-event path's check of resilience off against one monolithic
-# run_engine takes the stream's first 12 000 of its 30 000 events, to
-# keep the script within its time (PERF.md §7).
-RES_INERT_CUDA_EVENTS = 12000
+# The per-event path's checks — resilience off against one monolithic
+# run_engine, and the clean and all-faults cells against cuda_block's on
+# the same events — take the stream's first 12 000 of its 30 000 events,
+# to keep the script within its time (PERF.md §7).
+RES_CUDA_EVENTS = 12000
 RES_FN_BOUND = 0.98        # bench_faults.FN_BOUND: a liveness bound
 RES_POISONED = (3, 64, 127)
 DEV = "cuda"               # the card; the phases' functions run there
@@ -1423,7 +1448,6 @@ def resilience_matrix(torch, np) -> None:
                                RT.STATE_FAULTS] + \
         [("all_faults", RT.STREAM_FAULTS + RT.STATE_FAULTS)]
     clean = None
-    kept = {}
     for name, kinds in cells:
         row, srt = fault_cell(torch, dev, specs, cfg, model, ev, kinds)
         if name == "clean":
@@ -1439,19 +1463,21 @@ def resilience_matrix(torch, np) -> None:
             f"; gates {'FAIL ' + '+'.join(bad) if bad else 'pass'}")
         if bad:
             raise AssertionError(f"fault cell {name}: gates {bad} failed")
-        if name in ("clean", "all_faults"):
-            kept[name] = cell_digest(SV, srt)
+    cut = RT.slice_events(ev, 0, RES_CUDA_EVENTS)
     for name, kinds in (cells[0], cells[-1]):
+        want = cell_digest(SV, fault_cell(torch, dev, specs, cfg, model,
+                                          cut, kinds)[1])
         row, srt = fault_cell(torch, dev, specs,
                               dataclasses.replace(cfg, backend="cuda"),
-                              model, ev, kinds)
+                              model, cut, kinds)
         got = cell_digest(SV, srt)
-        if got != kept[name]:
+        if got != want:
             raise AssertionError(f"fault cell {name}: cuda {got} != "
-                                 f"cuda_block {kept[name]}")
-        log("resilience", f"cell {name} on cuda ({row['wall_s']:.2f} s): "
-            f"carry sha256 {got[0][:16]}... and semantic counters equal "
-            "cuda_block's")
+                                 f"cuda_block {want}")
+        log("resilience", f"cell {name} on cuda, the first "
+            f"{RES_CUDA_EVENTS} events ({row['wall_s']:.2f} s): carry "
+            f"sha256 {got[0][:16]}... and semantic counters equal "
+            "cuda_block's on the same events")
 
 
 def cell_digest(SV, srt) -> tuple:
@@ -1480,7 +1506,7 @@ def resilience_inert(torch, np) -> None:
                                       checkpoint_every_chunks=4))
     for backend in ("cuda_block", "cuda"):
         c = dataclasses.replace(cfg, backend=backend)
-        n = RES_EVENTS if backend == "cuda_block" else RES_INERT_CUDA_EVENTS
+        n = RES_EVENTS if backend == "cuda_block" else RES_CUDA_EVENTS
         ev_b = RT.slice_events(ev, 0, n)
         mono, _ = eng.run_engine(c, model, ev_b,
                                  eng.init_carry(c, device=dev), device=dev)
@@ -1708,7 +1734,10 @@ def phase_recovery(torch, np) -> None:
     """SIGKILL recovery on the card: the supervisor's children run on the
     card, die at a seeded kill site, and the relaunched child must end
     bitwise equal to the uninterrupted run; then an in-process snapshot +
-    recovery of 128 stock lanes."""
+    recovery of 128 stock lanes.  The five supervised cells run side by
+    side (a child's start, not its work, takes most of a cell's time), so
+    their times share the host's cores."""
+    import concurrent.futures
     import shutil
     import tempfile
 
@@ -1717,7 +1746,14 @@ def phase_recovery(torch, np) -> None:
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="smoke-persist-",
                                          dir=ROOT / "build"))
+
+    def supervised(d, spec, kill):
+        t0 = time.perf_counter()
+        res = SV.Supervisor(str(d)).run(spec, kill=kill)
+        return res, time.perf_counter() - t0
+
     try:
+        cells = []
         for backend, shedder, i in REC_CELLS:
             site = RT.KILL_SITES[i % len(RT.KILL_SITES)]
             inj = RT.FaultInjector(RT.FaultConfig(kinds=RT.PROCESS_FAULTS,
@@ -1729,9 +1765,16 @@ def phase_recovery(torch, np) -> None:
             t_ref = time.perf_counter() - t0
             d = work / f"{backend}-{shedder}"
             d.mkdir()
-            t0 = time.perf_counter()
-            res = SV.Supervisor(str(d)).run(spec, kill=ks.spec())
-            t_sup = time.perf_counter() - t0
+            cells.append((backend, shedder, site, ks, spec, ref, t_ref, d))
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(cells)) as pool:
+            futs = [pool.submit(supervised, c[7], c[4], c[3].spec())
+                    for c in cells]
+            done = [f.result() for f in futs]
+        log("recovery", f"{len(cells)} supervised cells side by side: "
+            f"{time.perf_counter() - t0:.2f} s")
+        for (backend, shedder, site, ks, spec, ref, t_ref, d), \
+                (res, t_sup) in zip(cells, done):
             rep, rec = res["report"], res["report"]["recovery"]
             gates = {
                 "ok_killed": res["killed"] and res["attempts"][0][
@@ -1753,7 +1796,8 @@ def phase_recovery(torch, np) -> None:
                 f"snapshot {snaps[-1].stat().st_size if snaps else 0} B; "
                 f"{sum(len(m) for m in rep['matches'])} matches, "
                 f"{rep['events_processed']} events; uninterrupted run "
-                f"{t_ref:.2f} s, supervised {t_sup:.2f} s; gates " +
+                f"{t_ref:.2f} s, supervised {t_sup:.2f} s (side by side); "
+                "gates " +
                 ", ".join(f"{k} {v}" for k, v in gates.items()))
             if not all(gates.values()):
                 raise AssertionError(f"recovery {backend}/{shedder}: "
@@ -1843,7 +1887,17 @@ DIST_TIMEOUT = 120.0       # seconds: each spawned world, each collective
 # run take the same stream, whose pspice run still fires (42 shed calls).
 DIST_STOCK = 12000
 DIST_SOCCER = 12000        # soccer events (30 % warm-up, the rest run)
+# The pattern-shard worlds' soccer stream: 6 000 events (4 200 run), to
+# keep the script within its time (PERF.md §7).
+DIST_SHARD_SOCCER = 6000
 DIST_LANES = 8             # soccer lanes on the (data 2, model 2) mesh
+# The lanes world's durable state: a snapshot every 4 chunks (rank 0
+# writes), and the two worlds killed from it — (rank, "site:after"): rank
+# 0 in its second snapshot write (a torn generation), rank 3, which writes
+# nothing, after its sixth chunk.
+DIST_SNAPSHOT_EVERY = 4
+DIST_KILLS = ((0, "snapshot:2"), (3, "chunk:6"))
+DIST_RECOVERY_BUDGET_S = 45.0
 DIST_PLAIN_CHUNKS = 1      # lane chunks also run on the plain versions
 DIST_BACKEND = "nccl"      # the world of one's (its rank owns the card)
 
@@ -1995,12 +2049,13 @@ def dist_world_of_one(torch, np, add) -> None:
 
 
 def soccer_setup(torch, dev, lanes: int = 1, rates=(1.2, 1.2),
-                 emit: bool = True, shedder: str = "none"):
-    """Soccer (8 x Q3, N = 256, W = 32) with the paper's costs: the model
-    built on lane 0's first 30 % (run_experiment's warm-up), lane l's
-    stream (seed 7 + l, the rest of its events) at max_rate x (rates[0]
-    + (rates[1] - rates[0]) l / (lanes - 1)).  Returns (cfg, model,
-    [events per lane])."""
+                 emit: bool = True, shedder: str = "none",
+                 n: int = DIST_SOCCER):
+    """Soccer (8 x Q3, N = 256, W = 32) with the paper's costs over ``n``
+    events: the model built on lane 0's first 30 % (run_experiment's
+    warm-up), lane l's stream (seed 7 + l, the rest of its events) at
+    max_rate x (rates[0] + (rates[1] - rates[0]) l / (lanes - 1)).
+    Returns (cfg, model, [events per lane])."""
     from repro_torch.cep import engine as eng, patterns as pat, runner
     from repro_torch.data import streams
 
@@ -2011,15 +2066,15 @@ def soccer_setup(torch, dev, lanes: int = 1, rates=(1.2, 1.2),
         cp, max_pms=sc.max_pms, latency_bound=sc.latency_bound,
         backend="cuda_block", block_events=W_BLOCK, emit_matches=emit,
         shedder=shedder, **paper_cost())
-    n_warm = int(DIST_SOCCER * 0.3)
-    raws = [sc.raw(n=DIST_SOCCER, seed=sc.seed + k) for k in range(lanes)]
+    n_warm = int(n * 0.3)
+    raws = [sc.raw(n=n, seed=sc.seed + k) for k in range(lanes)]
     warm = streams.classify(specs, _cut(raws[0], 0, n_warm), rate=1.0,
                             seed=sc.seed, device=dev)
     built = runner.build_model(specs, cfg, warm, bin_size=sc.bin_size,
                                seed=sc.seed, device=dev)
     mult = [rates[0] + (rates[1] - rates[0]) * k / max(lanes - 1, 1)
             for k in range(lanes)]
-    evs = [streams.classify(specs, _cut(raws[k], n_warm, DIST_SOCCER),
+    evs = [streams.classify(specs, _cut(raws[k], n_warm, n),
                             rate=built.max_rate * mult[k], seed=sc.seed + k,
                             device=dev) for k in range(lanes)]
     model = eng.make_model(
@@ -2074,7 +2129,7 @@ def dist_soccer_shards(torch, np, add) -> None:
 
     dev = torch.device(DEV)
     t0 = time.perf_counter()
-    cfg, model, (events,) = soccer_setup(torch, dev)
+    cfg, model, (events,) = soccer_setup(torch, dev, n=DIST_SHARD_SOCCER)
     carry = eng.init_carry(cfg, seed=7, device=dev)
     npy = [convert.tree_to_numpy(x) for x in (model, events, carry)]
     n_run = events.ev_class.shape[0]
@@ -2153,31 +2208,47 @@ def dist_soccer_shards(torch, np, add) -> None:
 
 
 def dist_rank_lanes(device, shape, names, cfg, model, events, chunk,
-                    seed) -> dict:
+                    seed, persist_dir, kill=None) -> dict:
     """One rank of the lanes x patterns world: MultiTenantRuntime on the
-    mesh, fed a chunk at a time; the carry's digests after every chunk,
-    the wall, this rank's launches and its collectives."""
+    mesh with persistence under ``persist_dir`` (rank 0 writes a snapshot
+    every DIST_SNAPSHOT_EVERY chunks), recovered from it (a no-op on an
+    empty directory), then fed a chunk at a time from the report's next
+    push.  ``kill`` = (rank, "site:after") arms the kill switch in that
+    rank alone.  Returns the carry's digests after every chunk run here,
+    the wall, this rank's launches and collectives, the recovery report
+    and milliseconds, the telemetry's counters and the events."""
     import torch
+    import torch.distributed as tdist
     from repro_torch import dist as D
     from repro_torch import runtime as RT
     from repro_torch.cep import convert
     from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import faults as FT
+    from repro_torch.runtime import supervisor as SV
 
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)          # every rank on the one card
     mesh = D.init_mesh(shape, names)
+    if kill is not None and tdist.get_rank() == kill[0]:
+        FT.install_kill_from_env({FT.KILL_ENV: kill[1]})
     model = convert.model_from_numpy(model, dev)
     events = convert.events_from_numpy(events, dev)
     n = events.ev_class.shape[1]
-    mt = RT.MultiTenantRuntime(cfg, model, events.ev_class.shape[0],
-                               rt=RT.RuntimeConfig(chunk_size=chunk),
+    rt = RT.RuntimeConfig(chunk_size=chunk, persist=RT.PersistConfig(
+        dir=persist_dir, snapshot_every_chunks=DIST_SNAPSHOT_EVERY))
+    mt = RT.MultiTenantRuntime(cfg, model, events.ev_class.shape[0], rt=rt,
                                seed=seed, mesh=mesh, device=dev)
     sync(torch, dev)
     kops.reset_launch_counts()
     D.stats.reset()
+    t0 = time.perf_counter()
+    rep = mt.recover_from_disk()
+    sync(torch, dev)
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    rep.pop("recovery_wall_s")
     digests, wall = [], 0.0
-    for s in range(0, n, chunk):
+    for s in range(rep["next_record"] * chunk, n, chunk):
         t0 = time.perf_counter()
         mt.push(RT.slice_events(events, s, min(s + chunk, n), 1),
                 flush=s + chunk >= n)
@@ -2186,11 +2257,18 @@ def dist_rank_lanes(device, shape, names, cfg, model, events, chunk,
         digests.append(tree_digests(mt.carry, "carry"))
     return dict(digests=digests, wall=wall, launches=kops.launch_counts(),
                 coll_ms=D.stats.seconds * 1e3, coll_bytes=D.stats.bytes_out,
-                coll_calls=D.stats.calls, chunks=len(mt.telemetry.rows()))
+                coll_calls=D.stats.calls, chunks=len(mt.telemetry.rows()),
+                recovery=rep, recovery_ms=rec_ms,
+                counters=SV.semantic_counters(mt),
+                events=int(mt.events_processed))
 
 
 def dist_soccer_lanes(torch, np, add) -> None:
-    import dataclasses
+    """The lanes x patterns world (persistence on) against the plain
+    emulation, then killed and recovered (``dist_mesh_recovery``), its
+    durable state under one directory of build/ removed at the end."""
+    import shutil
+    import tempfile
 
     from repro_torch import dist as D
     from repro_torch import runtime as RT
@@ -2202,14 +2280,35 @@ def dist_soccer_lanes(torch, np, add) -> None:
                                    rates=(1.2, 1.4), emit=False,
                                    shedder="pspice")
     mL, evL = RT.broadcast_model(model, DIST_LANES), RT.stack(evs)
-    n = evL.ev_class.shape[1]
     mesh = D.abstract_mesh(shape, names)
+    args = (DEV, shape, names, cfg, convert.tree_to_numpy(mL),
+            convert.tree_to_numpy(evL), RT_CHUNK, seed)
+
+    work = tempfile.mkdtemp(prefix="smoke-lanes-", dir=ROOT / "build")
+    try:
+        dist_lanes_worlds(torch, np, add, work, cfg, mL, evL, mesh, seed,
+                          args)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_lanes_worlds(torch, np, add, work, cfg, mL, evL, mesh, seed,
+                      args) -> None:
+    import dataclasses
+
+    from repro_torch import dist as D
+    from repro_torch import runtime as RT
+    from repro_torch.cep import convert
+
+    dev = torch.device(DEV)
+    n = evL.ev_class.shape[1]
+
+    def world(d, kill=None):
+        return D.spawn(dist_rank_lanes, 4, args=args + (d, kill),
+                       timeout=DIST_TIMEOUT, workdir=str(ROOT / "build"))
 
     t0 = time.perf_counter()
-    ranks = D.spawn(dist_rank_lanes, 4, args=(
-        DEV, shape, names, cfg, convert.tree_to_numpy(mL),
-        convert.tree_to_numpy(evL), RT_CHUNK, seed),
-        timeout=DIST_TIMEOUT, workdir=str(ROOT / "build"))
+    ranks = world(os.path.join(work, "uninterrupted"))
     world_wall = time.perf_counter() - t0
     carry = RT.init_lane_carries(cfg, DIST_LANES, seed=seed, device=dev)
     t0 = time.perf_counter()
@@ -2256,7 +2355,8 @@ def dist_soccer_lanes(torch, np, add) -> None:
                                  "lane grid")
         add(res["launches"])
     log("dist", f"{DIST_LANES} soccer lanes x {n} events on a (data 2, "
-        f"model 2) mesh, gloo, 4 ranks on one card, chunk {RT_CHUNK}: "
+        f"model 2) mesh, gloo, 4 ranks on one card, chunk {RT_CHUNK}, a "
+        f"snapshot every {DIST_SNAPSHOT_EVERY} chunks (rank 0 writes): "
         f"MultiTenantRuntime(mesh) == the plain emulation (per-chunk merge)"
         f" after each of {len(want)} chunks, every rank, bitwise; wall per "
         "rank " + ", ".join(f"{res['wall']:.3f}" for res in ranks) +
@@ -2269,6 +2369,79 @@ def dist_soccer_lanes(torch, np, add) -> None:
         "chunk(s) == the emulation on \"torch\" on the CPU (the kernels' "
         f"plain versions), bitwise, {cpu_wall:.2f} s; world wall "
         f"{world_wall:.2f} s")
+    dist_mesh_recovery(world, ranks[0], add, work)
+
+
+def dist_mesh_recovery(world, clean: dict, add, work: str) -> None:
+    """The lanes world killed and recovered: for each of DIST_KILLS a
+    world with the kill switch armed in one rank (which must die by
+    SIGKILL, named by spawn with exit code -9), then a fresh world on the
+    same directory that recovers on every rank (rank 0 reads the snapshot
+    and WAL tail and broadcasts them) and finishes the stream; every rank
+    must end equal to the uninterrupted world's rank 0 (``clean``) in
+    every carry leaf, the telemetry's counters and the events."""
+    from repro_torch import dist as D
+
+    t_cell = time.perf_counter()
+    final = clean["digests"][-1]
+    for rank, spec in DIST_KILLS:
+        d = os.path.join(work, f"killed-rank{rank}")
+        t0 = time.perf_counter()
+        try:
+            world(d, (rank, spec))
+        except D.RankError as e:
+            died = (e.rank, e.exitcode)
+        else:
+            raise AssertionError(f"dist recovery: the world armed with "
+                                 f"{spec} on rank {rank} did not die")
+        crash_s = time.perf_counter() - t0
+        if died != (rank, -9):
+            raise AssertionError(f"dist recovery: armed rank {rank} "
+                                 f"({spec}), but spawn reports rank "
+                                 f"{died[0]} exit code {died[1]}")
+        t0 = time.perf_counter()
+        ranks = world(d)
+        rec_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            got = (res["digests"][-1], res["counters"], res["events"],
+                   res["chunks"])
+            exp = (final, clean["counters"], clean["events"],
+                   clean["chunks"])
+            if got != exp:
+                bad = [k for k in final if res["digests"][-1].get(k)
+                       != final[k]]
+                raise AssertionError(f"dist recovery ({spec} on rank "
+                                     f"{rank}): rank {r} != the "
+                                     f"uninterrupted run (leaves {bad}; "
+                                     f"counters, events, chunks "
+                                     f"{got[1:]} vs {exp[1:]})")
+            if res["recovery"] != ranks[0]["recovery"]:
+                raise AssertionError(f"dist recovery: rank {r}'s report "
+                                     f"{res['recovery']} != rank 0's")
+            add(res["launches"])
+        rep = ranks[0]["recovery"]
+        torn = (len(rep["rejected_snapshots"]) == 1) == spec.startswith(
+            "snapshot")
+        if rep["snapshot_chunk"] is None or not rep["replayed_records"] \
+                or not torn:
+            raise AssertionError(f"dist recovery ({spec}): report {rep}")
+        log("dist", f"recovery: rank {rank} killed at {spec} (exit code "
+            f"{died[1]}, named by spawn in {crash_s:.2f} s of world wall); "
+            f"attempts [{died[1]}, 0]; restarted world: snapshot chunk "
+            f"{rep['snapshot_chunk']}, {len(rep['rejected_snapshots'])} "
+            f"torn generation(s) rejected, {rep['replayed_records']} WAL "
+            f"records replayed (from record {rep['wal_start_record']}), "
+            f"next push {rep['next_record']}; recovery ms per rank " +
+            ", ".join(f"{res['recovery_ms']:.1f}" for res in ranks) +
+            "; lane-grid launches per rank " + ", ".join(
+                str(res["launches"]["block_step_lanes"]) for res in ranks) +
+            f"; every rank == the uninterrupted run (every carry leaf, "
+            f"counters, {clean['events']} events, {clean['chunks']} "
+            f"chunks), bitwise; restarted world wall {rec_s:.2f} s")
+    secs = time.perf_counter() - t_cell
+    log("dist", f"recovery sub-cell: {secs:.2f} s of its "
+        f"{DIST_RECOVERY_BUDGET_S:.0f} s budget "
+        f"({'within' if secs <= DIST_RECOVERY_BUDGET_S else 'OVER'} it)")
 
 
 def block_original_layout(torch) -> float:
@@ -2452,9 +2625,12 @@ def run_scenario(torch, name: str, n: int, backend: str,
 
 
 # Soccer's and bus's events in the main phase (stock runs its full
-# 30 000): the per-event path is host-bound (~1 000-2 000 events/s), and
-# 6 000 keep the script within its time (PERF.md §7).
+# 30 000 on the block path): the per-event path is host-bound (~1 000-
+# 2 000 events/s), and 6 000 keep the script within its time (PERF.md
+# §7); stock's per-event run takes 12 000, held to a block-path run of
+# the same 12 000.
 MAIN_EVENTS = 6000
+MAIN_CUDA_STOCK = 12000
 
 
 def phase_main(torch) -> dict:
@@ -2465,7 +2641,10 @@ def phase_main(torch) -> dict:
                     ("bus", MAIN_EVENTS)):
         runs = {}
         for backend in ("cuda", "cuda_block"):
-            res, counts, wall, events = run_scenario(torch, name, n, backend)
+            n_b = MAIN_CUDA_STOCK if (name, backend) == ("stock", "cuda") \
+                else n
+            res, counts, wall, events = run_scenario(torch, name, n_b,
+                                                     backend)
             runs[backend] = res
             path = [k for k, b in KERNEL_PATH.items() if b == backend]
             if name == "stock":      # stock runs every kernel of its path
@@ -2484,15 +2663,20 @@ def phase_main(torch) -> dict:
                 if counts["block_step"] != want:
                     raise AssertionError(f"{name}: {counts['block_step']} "
                                          f"block launches, expected {want}")
+        same = runs["cuda_block"]
+        if name == "stock":       # the block path on the per-event's cut
+            same = run_scenario(torch, name, MAIN_CUDA_STOCK,
+                                "cuda_block")[0]
         for sh in runs["cuda"]:
-            a, b = runs["cuda"][sh], runs["cuda_block"][sh]
+            a, b = runs["cuda"][sh], same[sh]
             got = (b.fn, b.fn_match, b.result.shed_calls, b.lb_compliance)
             want = (a.fn, a.fn_match, a.result.shed_calls, a.lb_compliance)
             if got != want:
                 raise AssertionError(f"{name} {sh}: cuda_block {got} != "
                                      f"cuda {want}")
         log("main", f"{name}: cuda_block == cuda in FN, fires and LB "
-            "compliance for every shedder")
+            "compliance for every shedder"
+            + (f" ({MAIN_CUDA_STOCK} events)" if name == "stock" else ""))
         if name == "stock":
             # pspice and E-BL draw nothing from threefry: in the port's
             # default layout they must meet the committed cells exactly
@@ -2614,12 +2798,11 @@ def oracle_diff(np, eng, carry, outs, o) -> list:
 # left out to keep the script within its time limit: the main phase
 # holds soccer's "cuda" run to "cuda_block" (12 000 events, FN, fires and
 # compliance), and the oracle cases hold "cuda" in this layout.
-# The datasets of the per-event path's check at the headline level, each
-# with its stream length: stock at its full 30 000 events (against the
-# grid's cuda_block cells), bus at its quick 12 000 (against a cuda_block
-# run of the same stream), to keep the script within its time (PERF.md
-# §7; the main phase holds bus on both paths too).
-QUALITY_CUDA_DATASETS = (("stock", False), ("bus", True))
+# Stock and bus run the per-event path's check at their quick length
+# (12 000 events), each held to a cuda_block run of the same stream, to
+# keep the script within its time (PERF.md §7; the main phase holds both
+# on both paths too).
+QUALITY_CUDA_DATASETS = (("stock", True), ("bus", True))
 
 
 def quality_grid(torch) -> dict:
@@ -5108,6 +5291,93 @@ def phase_dryrun(torch, np, block_record: dict | None) -> dict:
     return {"flash_attention": {"dryrun_launches": n_flash}}
 
 
+EXAMPLES = ("torch_quickstart", "torch_runtime_multitenant",
+            "torch_serve_slo", "torch_train_lm")
+EXAMPLES_BUDGET_S = 30.0
+
+
+def phase_examples(torch, np) -> dict:
+    """The port's four examples (examples/torch_*.py) in this process,
+    each ``main([])`` at its default size on the card; logs each one's
+    table, seconds and launches.  Gates: the quickstart's FN finite for
+    every shedder and the block kernel launched; the runtime example's
+    lane grid launched and every tenant refreshed; the serving example's
+    three policies each finishing requests; the training example's kept
+    losses finite, its NaN step restoring the step-20 checkpoint and its
+    second run resuming at step 60, through the flash kernel.  Returns the
+    block kernels' launches."""
+    import contextlib
+    import importlib
+    import io
+    import re
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops as kops
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(name)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        _reset_flash_counts(kfa)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = buf.getvalue()
+        counts = kops.launch_counts()
+        flash = kfa.flash_attention.launches
+        lines = out.splitlines()
+        if name == "torch_train_lm":
+            losses = [float(x) for x in re.findall(
+                r"\[train\] step +\d+ loss (\S+)", out)]
+            shown = [ln for ln in lines if re.search(
+                r"phase|restor|resum|first5|NON-FINITE", ln)]
+            ok = (rc == 0 and len(losses) == 79
+                  and all(math.isfinite(x) for x in losses)
+                  and "restored step 20" in out
+                  and "resuming from checkpoint step 60" in out
+                  and flash > 0)
+            shown.append(f"{len(losses)} kept steps, losses "
+                         f"{losses[0]:.4f} .. {losses[-1]:.4f}")
+        else:
+            shown = [ln for ln in lines if ln.strip()]
+            if name == "torch_quickstart":
+                fns = [float(m) for m in re.findall(
+                    r"^(?:pspice|pmbl|ebl) +(\S+)%", out, re.M)]
+                ok = rc == 0 and len(fns) == 3 and all(
+                    math.isfinite(x) for x in fns) and counts["block_step"]
+            elif name == "torch_runtime_multitenant":
+                refreshes = re.search(r"per-tenant refreshes: +\[(.*)\]",
+                                      out)
+                ok = rc == 0 and counts["block_step_lanes"] > 0 and \
+                    refreshes is not None and all(
+                        int(x) > 0 for x in refreshes.group(1).split(","))
+            else:
+                done = [int(m) for m in re.findall(
+                    r"^(?:pspice|random|admission) +\S+ +(\d+)", out,
+                    re.M)]
+                ok = rc == 0 and len(done) == 3 and min(done) > 0
+        for ln in shown:
+            log("examples", f"{name}: {ln}")
+        log("examples", f"{name}: {secs:.2f} s on the card; launches "
+            f"{counts}, flash {flash} (bf16 {kfa.flash_attention.sm90_launches})")
+        if not ok:
+            raise AssertionError(f"example {name} failed its gates "
+                                 f"(rc {rc}); its output:\n{out[-3000:]}")
+        for k in ("block_step", "block_step_lanes"):
+            launches[k] = launches.get(k, 0) + counts[k]
+    secs = time.perf_counter() - t_phase
+    log("examples", f"the phase took {secs:.2f} s of its "
+        f"{EXAMPLES_BUDGET_S:.0f} s budget "
+        f"({'within' if secs <= EXAMPLES_BUDGET_S else 'OVER'} it)")
+    return {k: {"examples_launches": v} for k, v in launches.items()}
+
+
 def phase_analysis() -> None:
     """The contract checker over the whole grid and the full-width cells
     on the card; logs each rule's pass count, the full-width cells'
@@ -5252,7 +5522,8 @@ def main() -> int:
                       ("encdec", lambda: phase_encdec(torch, np)),
                       ("train", lambda: phase_train(torch, np)),
                       ("dryrun", lambda: phase_dryrun(
-                          torch, np, record.get("block_step")))):
+                          torch, np, record.get("block_step"))),
+                      ("examples", lambda: phase_examples(torch, np))):
         if phase not in phases:
             continue
         t0 = time.perf_counter()
@@ -5262,7 +5533,7 @@ def main() -> int:
         if phase == "kernels":
             record = out
         if phase in ("main", "runtime", "resilience", "dist", "model",
-                     "moe", "ssm", "encdec", "train", "dryrun"):
+                     "moe", "ssm", "encdec", "train", "dryrun", "examples"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -5291,7 +5562,8 @@ def main() -> int:
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
                       "trim_lane_by_lane_launches", "dist_launches",
                       "moe_launches", "tflops", "train_launches",
-                      "dryrun_launches", "bytes_per_event",
+                      "dryrun_launches", "examples_launches",
+                      "bytes_per_event",
                       "cross_ms", "cross_plain_ms", "cross_bound_ms",
                       "cross_bound_by", "cross_library_ms",
                       "cross_device_us", "cross_tflops"):

@@ -8,7 +8,8 @@ rank worlds; ``sharding`` the specs, the merge and the sharded steps.
 """
 from repro_torch.dist.mesh import (AbstractMesh, RankError, abstract_mesh,
                                    axis_group, axis_rank, axis_size,
-                                   init_mesh, mesh_rank, spawn, world_mesh)
+                                   broadcast_object, init_mesh, mesh_rank,
+                                   spawn, world_mesh)
 from repro_torch.dist.sharding import (lane_specs, merge_shards_plain,
                                        pm_specs, run_chunk_lanes_plain,
                                        run_chunk_lanes_sharded,

@@ -14,10 +14,14 @@ for several ranks that share one GPU (NCCL refuses two ranks on one
 device).  ``repro.dist.compat`` (jax API shims) has no counterpart.
 
 :func:`spawn` runs a function on a world of rank processes (the tests'
-and ``chip_smoke.py``'s worlds): ``torch.multiprocessing``'s spawn
-context, a ``file://`` store, a timeout on ``init_process_group`` and on
-the whole world, and the traceback of a rank that failed re-raised in
-the parent after every rank has been stopped.
+and ``chip_smoke.py``'s worlds): ranks forked from a server that has
+imported torch and the port, a ``file://`` store, a timeout on
+``init_process_group`` and on the whole world, and the traceback of a
+rank that failed re-raised in the parent after every rank has been
+stopped (a rank killed by a signal is named with its exit code as soon
+as it is seen).  :func:`broadcast_object` sends a picklable object from
+rank 0 to every rank: a mesh runtime's recovery from disk, which rank 0
+alone reads.
 """
 from __future__ import annotations
 
@@ -106,6 +110,19 @@ def mesh_rank(mesh) -> int:
     return dist.get_rank()
 
 
+def broadcast_object(obj, mesh):
+    """World rank 0's ``obj`` on every rank of ``mesh`` (pickled,
+    ``broadcast_object_list`` over the world's group, which a mesh of
+    several ranks spans); ``obj`` itself without a process group.  Every
+    rank calls it; what the other ranks pass is ignored."""
+    _check_mesh(mesh)
+    if isinstance(mesh, AbstractMesh) or not dist.is_initialized():
+        return obj
+    box = [obj if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
@@ -166,8 +183,16 @@ def world_mesh(axis: str):
 # ---------------------------------------------------------------------------
 
 class RankError(RuntimeError):
-    """A rank of a spawned world failed; the message holds its
-    traceback."""
+    """A rank of a spawned world failed; the message holds its traceback,
+    or, for a rank that died without one (a signal), its exit code.
+    ``rank`` and ``exitcode`` name that rank (None where a traceback
+    says it)."""
+
+    def __init__(self, msg: str, rank: int | None = None,
+                 exitcode: int | None = None):
+        super().__init__(msg)
+        self.rank = rank
+        self.exitcode = exitcode
 
 
 def _rank_main(fn, rank: int, world: int, backend: str, tmp: str,
@@ -204,6 +229,20 @@ def _stop(procs) -> None:
             p.join(5)
 
 
+def _context():
+    """The ranks' start method: a fork server that imports torch and the
+    port once, then forks each rank from that state — a rank skips the
+    interpreter's start and the imports (seconds each), and, forked from
+    a process that never touched CUDA, initializes the card itself.  The
+    server forks while idle: the threads torch starts at import wait in
+    their pools holding no lock, as in a DataLoader's forked workers."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "repro_torch.dist",
+                                "repro_torch.runtime"])
+    return ctx
+
+
 def spawn(fn, world: int, args: tuple = (), backend: str = "gloo",
           timeout: float = 60.0, workdir: str | None = None) -> list:
     """``fn(*args)`` on ``world`` rank processes; returns each rank's
@@ -216,26 +255,45 @@ def spawn(fn, world: int, args: tuple = (), backend: str = "gloo",
     (a module-level function).  When a rank raises, every rank is stopped
     and its traceback raised here as :class:`RankError`; when the world
     has not finished within ``timeout`` seconds, every rank is stopped and
-    ``TimeoutError`` raised.  A rank that builds nothing: callers on the
-    card load the kernel library (``kernels._build.load``) before
-    spawning, so the ranks only open it."""
-    import multiprocessing
-    ctx = multiprocessing.get_context("spawn")
+    ``TimeoutError`` raised.  A rank that dies without a traceback (a
+    signal: SIGKILL gives exit code -9) stops the world as soon as it is
+    seen, and :class:`RankError` names it and its exit code; its peers,
+    waiting in a collective with it, are not waited for.  A rank that
+    builds nothing: callers on the card load the kernel library
+    (``kernels._build.load``) before spawning, so the ranks only open
+    it."""
+    ctx = _context()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="repro-torch-world-",
                                         dir=workdir))
     procs = [ctx.Process(target=_rank_main, args=(
         fn, r, world, backend, str(tmp), timeout, tuple(args)))
         for r in range(world)]
+
+    def dead() -> list:
+        # A rank writes its traceback before it exits, so a rank that
+        # exited non-zero with none was stopped from outside.
+        return [(r, p.exitcode) for r, p in enumerate(procs)
+                if p.exitcode not in (None, 0)
+                and not (tmp / f"error-{r}.txt").exists()]
+
     try:
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
         while any(p.is_alive() for p in procs) \
-                and not any(tmp.glob("error-*.txt")) \
+                and not any(tmp.glob("error-*.txt")) and not dead() \
                 and time.monotonic() < deadline:
             time.sleep(0.02)
+        # Read before the stop below, whose signals would count.
+        killed = dead()
         late = [r for r, p in enumerate(procs) if p.is_alive()]
         _stop(procs)
+        if killed:
+            r, code = killed[0]
+            how = f" (signal {-code})" if code < 0 else ""
+            raise RankError(f"rank {r} of {world} exited with code {code}"
+                            f"{how} and left no traceback", rank=r,
+                            exitcode=code)
         errors = list(tmp.glob("error-*.txt"))
         if errors:
             # The first failure is the cause: its peers fail after it.

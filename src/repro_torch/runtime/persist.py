@@ -328,6 +328,15 @@ class SnapshotStore:
         ``(header, sections, meta)`` — ``(None, None, meta)`` when no
         valid generation exists (recovery then replays the WAL from
         record 0 against the initial state)."""
+        _, header, sections, meta = self.load_latest_raw()
+        return header, sections, meta
+
+    def load_latest_raw(self) -> tuple:
+        """``load_latest`` with the generation's file bytes first:
+        ``(data, header, sections, meta)``, all None but ``meta`` when no
+        valid generation exists.  The bytes passed the CRC check; a mesh
+        runtime's rank 0 sends them to the other ranks, which parse them
+        with ``parse_snapshot_bytes``."""
         rejected = []
         for path in reversed(self.paths()):
             with open(path, "rb") as f:
@@ -338,8 +347,9 @@ class SnapshotStore:
                 rejected.append({"path": os.path.basename(path),
                                  "error": str(e)})
                 continue
-            return header, sections, {"path": path, "rejected": rejected}
-        return None, None, {"path": None, "rejected": rejected}
+            return data, header, sections, {"path": path,
+                                            "rejected": rejected}
+        return None, None, None, {"path": None, "rejected": rejected}
 
 
 # -- write-ahead log --------------------------------------------------------
@@ -404,14 +414,23 @@ class WriteAheadLog:
         order.  Strict: any torn segment raises ``CorruptSegmentError``
         (the append path flushes before processing starts, so kill-based
         crashes never tear the tail — a torn segment means real damage)."""
-        tmpl = event_template()
+        return [(rid, decode_record(man, blob, what))
+                for rid, man, blob, what in self._encoded_since(start_id)]
+
+    def encoded_since(self, start_id: int) -> list[tuple[int, list, bytes]]:
+        """``records_since``'s records still encoded: ``(record_id,
+        manifest, payload)``, which ``decode_record`` turns into an
+        EventBatch — what a mesh runtime's rank 0 sends the other
+        ranks."""
+        return [(rid, man, blob)
+                for rid, man, blob, _ in self._encoded_since(start_id)]
+
+    def _encoded_since(self, start_id: int) -> list:
         out = []
         for _seq, path in self.segments():
             for rid, man, blob in _iter_segment(path):
                 if rid >= start_id:
-                    out.append((rid, decode_tree(man, blob, tmpl,
-                                                 what=os.path.basename(path),
-                                                 strict=False)))
+                    out.append((rid, man, blob, os.path.basename(path)))
         out.sort(key=lambda r: r[0])
         return out
 
@@ -419,6 +438,12 @@ class WriteAheadLog:
         if self._f is not None:
             self._f.close()
             self._f = None
+
+
+def decode_record(manifest: list, blob: bytes, what: str = "record"):
+    """One WAL record's EventBatch (host NumPy) from its encoded form."""
+    return decode_tree(manifest, blob, event_template(), what=what,
+                       strict=False)
 
 
 def _iter_segment(path: str):

@@ -234,6 +234,11 @@ _run_group_lanes = ctr.contract(
     functools.partial(_run_group, eng._scan_events_lanes_backend, axis=1))
 
 
+def _wal_start(header: dict | None) -> int:
+    """The first WAL record a snapshot did not absorb (0 without one)."""
+    return 0 if header is None else int(header["control"]["wal_next_record"])
+
+
 class StreamRuntime:
     """Single-tenant chunked runtime over one event stream.
 
@@ -560,12 +565,21 @@ class StreamRuntime:
                              "(PersistConfig)")
         t0 = time.perf_counter()
         header, sections, meta = self.persist.store.load_latest()
-        start_id, snap_chunk = 0, None
+        records = self.persist.wal.records_since(_wal_start(header))
+        return self._recover(header, sections, meta, records,
+                             self.persist.wal.next_record_id, t0)
+
+    def _recover(self, header, sections, meta: dict, records: list,
+                 next_record: int, t0: float) -> dict:
+        """Apply the snapshot (if any), replay the WAL ``records`` through
+        the push path — snapshots that fall due are written, no record is
+        logged again — and return the recovery report.  ``next_record``
+        is the WAL's next record id: the first push the caller has not
+        logged, where its push loop resumes."""
+        start_id, snap_chunk = _wal_start(header), None
         if header is not None:
             self._apply_snapshot(header, sections)
-            start_id = int(header["control"]["wal_next_record"])
             snap_chunk = int(header["chunk_index"])
-        records = self.persist.wal.records_since(start_id)
         self._replaying = True
         try:
             for rid, ev in records:
@@ -582,6 +596,7 @@ class StreamRuntime:
             "rejected_snapshots": meta["rejected"],
             "wal_start_record": int(start_id),
             "replayed_records": len(records),
+            "next_record": int(next_record),
             "recovery_wall_s": time.perf_counter() - t0,
         }
 
@@ -822,8 +837,20 @@ class MultiTenantRuntime(StreamRuntime):
     ``dist.run_chunk_lanes_sharded``: lanes over the mesh's "data" dim,
     each lane's patterns over "model", merged after every chunk, so every
     rank holds the global carry and ingest, guard, ladder and refresh run
-    on it unchanged, chunk at a time.  With more than one rank only rank
-    0 writes snapshots and the WAL, and recovery from disk is refused.
+    on it unchanged, chunk at a time.  On an ``AbstractMesh`` (no process
+    group) this process runs every rank's block
+    (``dist.run_chunk_lanes_plain``).
+
+    With more than one rank only rank 0 writes snapshots and the WAL; the
+    other ranks keep its snapshot cadence (and so reach the ``snapshot``
+    kill site with it) and write nothing.  ``recover_from_disk`` on such
+    a world: rank 0 reads the newest valid snapshot generation and the
+    WAL tail after it and broadcasts them (the snapshot as its
+    CRC-checked bytes, the records encoded); every rank applies the
+    snapshot and replays the records, so the replay's merges keep the
+    ranks in lockstep, rank 0 alone writing the snapshots that fall due;
+    every rank returns the same report, whose ``next_record`` is the
+    first push the world has not logged.
     """
 
     _axis = 1
@@ -836,9 +863,14 @@ class MultiTenantRuntime(StreamRuntime):
         self.num_lanes = num_lanes
         self.mesh = mesh
         rank = 0 if mesh is None else DM.mesh_rank(mesh)  # checks the mesh
-        self._ranks = 1 if mesh is None else mesh.size()
+        # A world of several ranks: a process group behind the mesh.
+        self._world = mesh is not None and mesh.size() > 1 \
+            and not isinstance(mesh, DM.AbstractMesh)
+        # The writer's snapshot cadence, on a rank that does not write.
+        self._follow_every = None
         if rank != 0 and rt is not None and rt.persist is not None:
             # Rank 0 alone writes snapshots and the WAL.
+            self._follow_every = rt.persist.snapshot_every_chunks
             rt = dataclasses.replace(rt, persist=None)
         super().__init__(cfg, model, rt=rt, specs=specs, carry=carry,
                          seed=seed, device=device)
@@ -847,21 +879,59 @@ class MultiTenantRuntime(StreamRuntime):
         if self.mesh is None:
             return super()._run(chunk, start)
         from repro_torch.dist import sharding as SH
-        return SH.run_chunk_lanes_sharded(
-            self.cfg, self.model, chunk, self.carry,
-            eng.wrap_event_index(start), mesh=self.mesh, device=self.device)
+        run = SH.run_chunk_lanes_plain \
+            if isinstance(self.mesh, DM.AbstractMesh) \
+            else SH.run_chunk_lanes_sharded
+        return run(self.cfg, self.model, chunk, self.carry,
+                   eng.wrap_event_index(start), mesh=self.mesh,
+                   device=self.device)
 
     def _group_limit(self) -> int:
         # The sharded path has no grouped runner: chunk at a time.
         return 1 if self.mesh is not None else super()._group_limit()
 
+    def push(self, events: eng.EventBatch,
+             flush: bool = False) -> list[TM.ChunkStats]:
+        stats = super().push(events, flush=flush)
+        if self._follow_every is not None and not self._replaying:
+            self._maybe_snapshot()
+        return stats
+
+    def _maybe_snapshot(self) -> bool:
+        if self._follow_every is None:
+            return super()._maybe_snapshot()
+        if self._chunk_i - self._last_snap_chunk < self._follow_every:
+            return False
+        FT.kill_point("snapshot")       # where rank 0 writes
+        self._last_snap_chunk = self._chunk_i
+        return True
+
     def recover_from_disk(self) -> dict:
-        if self._ranks > 1:
-            raise NotImplementedError(
-                "recovery of a runtime on a mesh of several ranks is not "
-                "ported (ROADMAP.md queue 1, item 4b): only rank 0 writes "
-                "snapshots and the WAL")
-        return super().recover_from_disk()
+        if not self._world:
+            return super().recover_from_disk()
+        if self.persist is None and self._follow_every is None:
+            raise ValueError("recover_from_disk needs rt.persist "
+                             "(PersistConfig)")
+        t0 = time.perf_counter()
+        sent = None
+        if self.persist is not None:       # rank 0 reads
+            data, header, sections, meta = \
+                self.persist.store.load_latest_raw()
+            sent = {"snapshot": data, "meta": meta,
+                    "records": self.persist.wal.encoded_since(
+                        _wal_start(header)),
+                    "next_record": self.persist.wal.next_record_id}
+        got = DM.broadcast_object(sent, self.mesh)
+        meta = got["meta"]
+        if self.persist is None:           # the other ranks parse it
+            header = sections = None
+            if got["snapshot"] is not None:
+                header, sections = PS.parse_snapshot_bytes(
+                    got["snapshot"], meta["path"])
+        records = [(rid, PS.decode_record(man, blob))
+                   for rid, man, blob in got["records"]]
+        return self._recover(header, sections, meta, records,
+                             got["next_record"], t0)
 
     def _init_carry(self, seed: int) -> eng.Carry:
         return LN.init_lane_carries(self.cfg, self.num_lanes, seed=seed,

@@ -167,10 +167,10 @@ def run_service(spec: dict, persist_dir: str | None = None,
             with open(dump, "w") as f:
                 json.dump(srt.telemetry.to_json(), f)
     # Resume the push loop after the last durable record: record ids are
-    # global and one push == one record, so the WAL length IS the cursor.
+    # global and one push == one record, so the WAL length IS the cursor
+    # (the recovery report's ``next_record``).
     push = spec["push"]
-    start_push = 0 if persist_dir is None \
-        else srt.persist.wal.next_record_id
+    start_push = 0 if recovery is None else recovery["next_record"]
     n = chunker.num_events(ev)
     for s in range(start_push * push, n, push):
         srt.push(chunker.slice_events(ev, s, min(s + push, n)))

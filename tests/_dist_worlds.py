@@ -180,6 +180,96 @@ def chunk_runtime_cases(mesh, cases, device):
     return out
 
 
+def mixed_specs(p: int):
+    """The port's copy of ``_dist_reference._mixed(p)``: the lane
+    fixture's patterns, for the refresh of a rank that loads no jax."""
+    from repro_torch.cep import patterns as pat
+    out = []
+    for k in range(p // 2):
+        out += [pat.make_q1(window_size=300 + 100 * k, num_symbols=4),
+                pat.make_q4(any_n=3, window_size=100 + 20 * k, slide=40)]
+    return out
+
+
+def durable_config(RT, d, chunk, refresh_every, snapshot_every):
+    """The durable runtime's config in either package (``RT`` is
+    ``repro.runtime`` or ``repro_torch.runtime``): chunks of ``chunk``,
+    refresh and a snapshot on their cadences, persistence under ``d``
+    (none when ``d`` is None)."""
+    return RT.RuntimeConfig(
+        chunk_size=chunk,
+        refresh=RT.RefreshConfig(every_chunks=refresh_every,
+                                 min_observations=64.0),
+        persist=None if d is None else RT.PersistConfig(
+            dir=str(d), snapshot_every_chunks=snapshot_every))
+
+
+def durable_run(srt, events, push: int, recover: bool = True) -> dict:
+    """One lifetime of a durable lane runtime, as the supervisor's child
+    runs one stream: recover from disk (a no-op on an empty directory),
+    push the lane-stacked ``events`` from the report's next push, flush.
+    Returns the carry's sha256, the telemetry's semantic counters, the
+    events processed and the recovery report (its wall apart)."""
+    from repro_torch.runtime import chunker
+    from repro_torch.runtime import supervisor as SV
+    rep = srt.recover_from_disk() if recover else None
+    wall = None if rep is None else rep.pop("recovery_wall_s")
+    n = events.ev_class.shape[1]
+    first = 0 if rep is None else rep["next_record"] * push
+    for s in range(first, n, push):
+        srt.push(chunker.slice_events(events, s, min(s + push, n), 1))
+    srt.flush()
+    return {"carry_sha": SV.carry_sha(srt),
+            "counters": SV.semantic_counters(srt),
+            "events_processed": int(srt.events_processed),
+            "recovery": rep, "recovery_wall_s": wall,
+            "carry": flat(srt.carry, "carry")}
+
+
+def durable_world(shape, names, cells, kill=None, device="cpu"):
+    """Every rank of a world: each cell (name, port cfg, chunk, push,
+    refresh_every, snapshot_every, directory, model, events) with
+    lane-stacked NumPy inputs through ``MultiTenantRuntime(mesh)`` with
+    persistence under its directory (rank 0 writes), ``durable_run``.
+    ``kill`` = (rank, "site:after") arms the kill switch in that rank
+    alone, so it dies by SIGKILL at that hit and the world with it.
+    Returns {cell name: ``durable_run``'s report}."""
+    import torch.distributed as dist
+
+    from repro_torch import dist as D
+    from repro_torch import runtime as RT
+    from repro_torch.runtime import faults as FT
+    mesh = D.init_mesh(shape, names)
+    if kill is not None and dist.get_rank() == kill[0]:
+        FT.install_kill_from_env({FT.KILL_ENV: kill[1]})
+    out = {}
+    for name, cfg, chunk, push, every, snap, d, model, events in cells:
+        model = convert.model_from_numpy(model, device)
+        events = convert.events_from_numpy(events, device)
+        srt = RT.MultiTenantRuntime(
+            cfg, model, events.ev_class.shape[0],
+            rt=durable_config(RT, d, chunk, every, snap),
+            specs=mixed_specs(cfg.num_patterns), seed=5, mesh=mesh,
+            device=device)
+        out[name] = durable_run(srt, events, push)
+    return out
+
+
+def killed_rank(stamp: str):
+    """Rank 1 notes the time and dies by SIGKILL; rank 0 waits in a
+    collective with it."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+    if dist.get_rank() == 1:
+        time.sleep(0.5)
+        pathlib.Path(stamp).write_text(repr(time.time()))
+        os.kill(os.getpid(), signal.SIGKILL)
+    dist.all_reduce(torch.zeros(1))
+    return dist.get_rank()
+
+
 KINDS = {"engine": engine_cases, "lanes": lanes_cases,
          "runtime": runtime_cases, "persist": persist_cases,
          "chunks": chunk_runtime_cases}

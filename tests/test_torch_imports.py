@@ -3,7 +3,8 @@
 * Importing every ``repro_torch`` module leaves no ``jax*`` and no
   ``repro`` module in ``sys.modules`` (checked in a fresh interpreter),
   and no port source nor ``chip_smoke.py`` imports jax, triton or the
-  reference package (AST scan).
+  reference package (AST scan); the port's examples
+  (``examples/torch_*.py``) likewise.
 * Without CUDA the entry points raise unless ``device="cpu"`` is passed:
   there is no silent CPU fallback.
 """
@@ -138,6 +139,36 @@ def _imported_roots(path: pathlib.Path):
 def test_no_forbidden_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path} imports {bad}"
+
+
+# The port's examples import the port alone (the reference's examples
+# stay beside them, unscanned).
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_example_imports_no_jax_and_no_reference(path):
+    roots = set(_imported_roots(path))
+    assert "repro_torch" in roots
+    bad = sorted(roots & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_examples_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+        f"mods = {[p.stem for p in EXAMPLES]!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'triton', 'repro'))\n"
+        "print(json.dumps({'n': len(mods), 'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"n": 4, "bad": []}, res
 
 
 @pytest.fixture

@@ -643,19 +643,49 @@ def test_resilience_and_persistence_knobs_are_refused(knob):
 
 
 def test_mesh_is_refused(tmp_path):
-    """What a mesh runtime refuses: a mesh that is no mesh, and recovery
-    from disk on a mesh of several ranks (only rank 0 writes)."""
+    """What a mesh runtime refuses: a mesh that is no mesh.  Recovery from
+    disk on an abstract mesh of two ranks (no process group: this process
+    runs both ranks' blocks) is the one-process path: from the snapshot
+    and WAL tail a meshless runtime left, it ends bitwise equal to the
+    meshless runtime's recovery (carry, telemetry, report)."""
+    import shutil
+
     from repro_torch import dist as D
     cfg, m, _, _ = _port()
+    mL = TRT.broadcast_model(m, 2)
     with pytest.raises(TypeError, match="DeviceMesh"):
-        TRT.MultiTenantRuntime(cfg, TRT.broadcast_model(m, 2), 2,
-                               mesh=object(), device="cpu")
-    rt = TRT.RuntimeConfig(persist=TRT.PersistConfig(dir=str(tmp_path)))
-    mrt = TRT.MultiTenantRuntime(cfg, TRT.broadcast_model(m, 2), 2, rt=rt,
-                                 mesh=D.abstract_mesh((2,), ("data",)),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        mrt.recover_from_disk()
+        TRT.MultiTenantRuntime(cfg, mL, 2, mesh=object(), device="cpu")
+    _, evL, _ = _lanes_ref(2)
+    evL = convert.events_from_numpy(convert.tree_to_numpy(evL), "cpu")
+    push, n = 200, N_EVENTS
+
+    def make(d, mesh=None):
+        rt = TRT.RuntimeConfig(chunk_size=128, persist=TRT.PersistConfig(
+            dir=str(d), snapshot_every_chunks=2))
+        return TRT.MultiTenantRuntime(cfg, mL, 2, rt=rt, mesh=mesh,
+                                      device="cpu")
+
+    writer = make(tmp_path / "meshless")
+    for s in range(0, 3 * push, push):
+        writer.push(TRT.slice_events(evL, s, s + push, 1))
+    writer.persist.wal.close()
+    shutil.copytree(tmp_path / "meshless", tmp_path / "abstract")
+    runs = {}
+    for name, mesh in (("meshless", None),
+                       ("abstract", D.abstract_mesh((2,), ("data",)))):
+        srt = make(tmp_path / name, mesh)
+        rep = srt.recover_from_disk()
+        for s in range(rep["next_record"] * push, n, push):
+            srt.push(TRT.slice_events(evL, s, min(s + push, n), 1))
+        srt.flush()
+        rep.pop("recovery_wall_s")
+        runs[name] = (srt, rep)
+    (a, ra), (b, rb) = runs["meshless"], runs["abstract"]
+    assert ra == rb and ra["snapshot_chunk"] == 3 and ra["replayed_records"]
+    assert ra["next_record"] == 3
+    assert_trees_equal(a.carry, b.carry, "abstract-mesh recovery")
+    assert _rows(a.telemetry) == _rows(b.telemetry)
+    assert b.events_processed == a.events_processed == 2 * n
 
 
 def test_runtimes_run_on_cuda_unless_asked_for_the_cpu():

@@ -185,12 +185,12 @@ Phases (one line each; any failure raises and exits non-zero):
            cross cache rolled by one utterance that must read beyond the
            bound; each launch against plain on its own inputs; the
            phase's seconds against its 45 s budget
-  train    the training path: internlm2-1.8b at full width and depth
-           (bf16, float32 moments, B = 4 x S = 2048) through
+  train    the training path: internlm2-1.8b at full width and 4 of its
+           24 layers (bf16, float32 moments, B = 4 x S = 2048) through
            launch.train's loop (each layer rematerialised, so the flash
            kernel runs in the forward and again in the backward's
-           recomputation): 8 steps, a checkpoint of the whole state
-           every 4, a NaN at step 5 that restores step 4 (bit for bit,
+           recomputation): 6 steps, a checkpoint of the whole state
+           every 2, a NaN at step 3 that restores step 2 (bit for bit,
            by fingerprint) and skips; one step run on from memory
            (profiled) equal to one step resumed from the latest
            checkpoint; on a float32 cut of 2 layers every gradient leaf
@@ -200,6 +200,25 @@ Phases (one line each; any failure raises and exits non-zero):
            (the kernel in all three modes under autograd); step ms,
            tokens/s, peak memory; the phase's seconds against its 90 s
            budget
+  mesh     launch.train and launch.serve as SPMD ranks: two gloo worlds
+           of 2 rank processes sharing the card (dist.spawn), each
+           rank's DTensors on the card on a "data" mesh, laid out by
+           dist.sharding's train_specs, cache_specs and decode_specs.
+           Training: the train phase's configuration and schedule on a
+           global batch of 4 x 2048 (2 x 2048 a rank), params
+           replicated, each gradient all-reduced; every rank's state
+           bitwise rank 0's after every step (fingerprints); rank 0
+           writes the checkpoints; the NaN restore and a resume bit for
+           bit; each flash launch (forward and recomputation, on each
+           rank's (2, 2048, 16, 128) shard) against the plain version on
+           the same shard; each kept loss within 1e-4 of the train
+           phase's one process; step ms, collective ms and bytes a step,
+           peak memory a rank.  Serving: internlm2-1.8b at full width
+           and depth, params replicated, 16 slots over the 2 ranks, the
+           reference CLI's defaults: one step cost (rank 0's) on every
+           rank, every rank's decisions those of one process's serve()
+           at that cost, a decode step's gathered logits within 5e-2 of
+           one process's; the phase's seconds against its 60 s budget
   dryrun   the dry-run (repro_torch.launch.dryrun) on the card's software
            in a child process whose pool of 7 processes runs the traces:
            the production mesh's rows (data 32, model 8; target cuda) of
@@ -257,7 +276,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("card", "build", "analysis", "kernels", "parity", "main", "quality",
           "runtime", "resilience", "recovery", "dist", "profile", "model",
-          "moe", "ssm", "encdec", "train", "dryrun", "examples")
+          "moe", "ssm", "encdec", "train", "mesh", "dryrun", "examples")
 
 # The committed quality grid (made by the reference in jax's original
 # threefry layout), read as data.  Stock at the headline level must be
@@ -2097,7 +2116,8 @@ def dist_rank_shards(device, shape, cases, model, events, carry) -> dict:
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)          # every rank on the one card
-    mesh = D.init_mesh(shape, ("data",))
+    # The CEP merge stages its collectives through host memory.
+    mesh = D.init_mesh(shape, ("data",), device_type="cpu")
     model = convert.model_from_numpy(model, dev)
     events = convert.events_from_numpy(events, dev)
     carry = convert.carry_from_numpy(carry, dev)
@@ -2229,7 +2249,7 @@ def dist_rank_lanes(device, shape, names, cfg, model, events, chunk,
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)          # every rank on the one card
-    mesh = D.init_mesh(shape, names)
+    mesh = D.init_mesh(shape, names, device_type="cpu")   # as above
     if kill is not None and tdist.get_rank() == kill[0]:
         FT.install_kill_from_env({FT.KILL_ENV: kill[1]})
     model = convert.model_from_numpy(model, dev)
@@ -4651,16 +4671,22 @@ def phase_encdec(torch, np) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The training path: internlm2-1.8b at full width and depth, whisper-small
+# The training path: internlm2-1.8b at full width, whisper-small
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "internlm2-1.8b"
-# The model phase's prompt shape; 8 steps of the launch.train loop with a
-# checkpoint every 4 and a NaN planted at step 5; then one more step run
-# on from memory (profiled) and, again, resumed from the latest
-# checkpoint (8).
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NAN_AT = (4, 2048, 8,
-                                                                  4, 5)
+# 4 of its 24 layers at full width (cut from the whole depth to pay for
+# the mesh phase: the checkpoints of the 18.9 GB state took 55 s of the
+# phase; the dryrun phase still runs a step of the whole depth), the
+# mesh phase's training world's configuration and schedule, so that these
+# losses are that world's one-process reference.  The model phase's
+# prompt shape; 6 steps of the launch.train loop with a checkpoint every
+# 2 and a NaN planted at step 3, which restores step 2 (dropping steps 2
+# and 3); then one more step run on from memory (profiled) and, again,
+# resumed from the latest checkpoint (6).
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_NAN_AT = (4, 2048, 6,
+                                                                  2, 3)
 TRAIN_MORE = 1
 TRAIN_CUT_LAYERS = 2       # the float32 cut of the gradient check
 TRAIN_CUT_B, TRAIN_CUT_S = 2, 2048
@@ -4674,12 +4700,25 @@ TRAIN_WHISPER_B, TRAIN_WHISPER_S, TRAIN_WHISPER_STEPS = 8, 448, 4
 TRAIN_BUDGET_S = 90.0
 
 
+def remove_meanwhile(path):
+    """Remove the directory ``path`` in a thread, while the card works on
+    (the removal of a checkpoint's gigabytes waits on the file system);
+    returns the thread, which the caller joins before it ends."""
+    import shutil
+    import threading
+    th = threading.Thread(target=shutil.rmtree, args=(path,),
+                          kwargs={"ignore_errors": True})
+    th.start()
+    return th
+
+
 def fingerprint(torch, tree) -> dict:
     """{leaf path: (sum of its bits, sum of its bits · (i mod 65521 + 1))}
     as int64 on the card (wrapping): equal trees give equal prints, and a
     changed element changes the second sum unless its change is a
-    multiple of 2^64 / its weight.  Two states of 18 GB never fit the card
-    beside training at once, so states are compared by print."""
+    multiple of 2^64 / its weight.  States are compared by print: two
+    whole-depth states of 18.9 GB never fit the card beside training, and
+    the ranks of a world send prints, not states."""
     from repro_torch.training.tree import items
 
     out = {}
@@ -4694,19 +4733,43 @@ def fingerprint(torch, tree) -> dict:
     return out
 
 
-def phase_train(torch, np) -> dict:
+def train_cfg():
+    """internlm2-1.8b at TRAIN_LAYERS layers, full width."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(TRAIN_ARCH),
+                               num_layers=TRAIN_LAYERS)
+
+
+def train_schedule() -> tuple:
+    """(kept steps, saved checkpoints, the checkpoint the NaN restores,
+    [(kind, checkpoint step)] in the order they happen) of TRAIN_STEPS
+    steps with a checkpoint every TRAIN_CKPT_EVERY and a NaN at
+    TRAIN_NAN_AT."""
+    kept = [s for s in range(TRAIN_STEPS) if s != TRAIN_NAN_AT]
+    saved = [s + 1 for s in kept if (s + 1) % TRAIN_CKPT_EVERY == 0]
+    back = max(s for s in saved if s <= TRAIN_NAN_AT)
+    # A save after step s - 1, the restore at the NaN step.
+    events = [e[1:] for e in sorted([(s - 1, "save", s) for s in saved] +
+                                    [(TRAIN_NAN_AT, "restore", back)])]
+    return kept, saved, back, events
+
+
+def phase_train(torch, np, shared: dict) -> dict:
     """The training path on the card (TRAIN_* above): internlm2-1.8b at
-    full width and depth in bf16 (float32 moments) through
+    full width and TRAIN_LAYERS layers in bf16 (float32 moments) through
     ``launch.train``'s loop, then whisper-small, each step's attention
     forward on the flash kernel under its autograd.Function.  Gates:
-    every kept loss finite; the NaN step restores the step-4 checkpoint
+    every kept loss finite; the NaN step restores the last checkpoint
     bit for bit (fingerprints) and skips; the state resumed from the
     latest checkpoint equals the saved one, and a step from it equals the
     step run on in memory; on a float32 cut of the first 2 layers, every
     gradient leaf through the kernel's Function within GRAD_TOL of the
     plain flash under autograd; one AdamW step on the card within
     ADAMW_TOL of the same step on the CPU.  Logged: step ms, tokens/s,
-    peak memory, a profiled step's idle share."""
+    peak memory, a profiled step's idle share.  The kept losses go to
+    ``shared["train_losses"]``: the mesh phase's one-process reference."""
     import dataclasses
     import gc
     import shutil
@@ -4727,7 +4790,7 @@ def phase_train(torch, np) -> dict:
     torch.use_deterministic_algorithms(True, warn_only=True)
     ckpt = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    cfg = registry.get_config(TRAIN_ARCH)
+    cfg = train_cfg()
     opt_cfg = O.AdamWConfig(lr=1e-3, warmup_steps=10)
     tokens = TRAIN_B * TRAIN_S
     gc.collect()
@@ -4767,11 +4830,12 @@ def phase_train(torch, np) -> dict:
     _reset_flash_counts(kfa)
     logs = []
     # The loop takes the state over: this frame keeps no reference to it
-    # (a second 18 GB state would not fit beside a step).
+    # (at the whole depth a second 18.9 GB state would not fit beside a
+    # step).
     given = {"params": params, "opt": opt}
     del params, opt
-    run = timed("8 steps of the loop (checkpoints and the NaN restore "
-                "included)", lambda: LT.train_loop(
+    run = timed(f"{TRAIN_STEPS} steps of the loop (checkpoints and the NaN "
+                "restore included)", lambda: LT.train_loop(
                     cfg, given.pop("params"), given.pop("opt"),
                     steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
                     opt_cfg=opt_cfg, ckpt_dir=str(ckpt),
@@ -4782,11 +4846,12 @@ def phase_train(torch, np) -> dict:
         log("train", line.removeprefix("[train] "))
     peak = torch.cuda.max_memory_allocated()
     kept = [s for s, _ in run["losses"]]
-    want = [s for s in range(TRAIN_STEPS) if s != TRAIN_NAN_AT]
+    shared["train_losses"] = run["losses"]
+    want, saved, back, want_events = train_schedule()
     ms = [t * 1e3 for t in run["step_s"]]
     n_flash = kfa.flash_attention.launches
-    if (kept != want or run["restored"] != [4] or run["saved"] != [4, 8] or
-            events != [("save", 4), ("restore", 4), ("save", 8)] or
+    if (kept != want or run["restored"] != [back] or run["saved"] != saved or
+            events != want_events or
             not all(math.isfinite(x) for _, x in run["losses"])):
         raise AssertionError(f"train loop: kept steps {kept}, restored "
                              f"{run['restored']}, saved {run['saved']}, "
@@ -4798,7 +4863,7 @@ def phase_train(torch, np) -> dict:
                              f"steps; expected {2 * cfg.num_layers} a step")
     warm = statistics.median(ms[1:])
     log("train", f"{cfg.name} losses {[round(x, 4) for _, x in run['losses']]}"
-        f" (steps {kept}; step {TRAIN_NAN_AT}'s NaN restored step 4 and "
+        f" (steps {kept}; step {TRAIN_NAN_AT}'s NaN restored step {back} and "
         f"skipped); step ms {[round(x, 1) for x in ms]} (first with the "
         f"allocator's warm-up): median {warm:.1f} ms = "
         f"{tokens / warm * 1e3:.1f} tokens/s; flash launches {n_flash} "
@@ -4809,7 +4874,7 @@ def phase_train(torch, np) -> dict:
 
     # Running on from memory (profiled) and resuming from the latest
     # checkpoint: TRAIN_MORE more steps each, compared by fingerprint.
-    state8 = prints[8]
+    state_last = prints[TRAIN_STEPS]
     from torch.profiler import ProfilerActivity, profile
     more = {}
 
@@ -4851,7 +4916,7 @@ def phase_train(torch, np) -> dict:
                                       "train", s.removeprefix("[train] "))))
     del like
     if start != TRAIN_STEPS or fingerprint(
-            torch, {"params": p, "opt": o}) != state8:
+            torch, {"params": p, "opt": o}) != state_last:
         raise AssertionError(f"resume: step {start}, or the state is not "
                              "the saved one")
     given = {"params": p, "opt": o}
@@ -4867,7 +4932,7 @@ def phase_train(torch, np) -> dict:
                              f"running on {losses_on} (or the states' "
                              "fingerprints differ)")
     log("train", f"resumed at step {start}: the restored state's "
-        f"fingerprints equal the step-8 save's; {n_more} from it "
+        f"fingerprints equal the step-{TRAIN_STEPS} save's; {n_more} from it "
         f"equal{'s' if TRAIN_MORE == 1 else ''} {n_more} run on from memory (losses "
         f"{[round(x, 6) for _, x in losses_on]}, every leaf's fingerprint)")
     # The real moments of the first TRAIN_CUT_LAYERS layers for the AdamW
@@ -4956,8 +5021,7 @@ def phase_train(torch, np) -> dict:
     del cut_params, g_k, moments, got, want, sub_p, sub_g, sub_o
     gc.collect()
     torch.cuda.empty_cache()
-    timed("removing the checkpoints", lambda: shutil.rmtree(
-        ckpt, ignore_errors=True))
+    removal = remove_meanwhile(ckpt)        # joined before the phase ends
 
     # whisper-small: the kernel in all three modes under autograd.
     wcfg = registry.get_config(ENCDEC_ARCH)
@@ -4995,11 +5059,496 @@ def phase_train(torch, np) -> dict:
         f"remat); "
         f"max_memory_allocated {wpeak} B ({wpeak / 2**30:.3f} GiB)")
     del wrun
+    timed("the checkpoints' removal, joined", removal.join)
     secs = time.perf_counter() - t_phase
     log("train", f"the phase took {secs:.2f} s of its {TRAIN_BUDGET_S:.0f} "
         f"s budget ({'within' if secs <= TRAIN_BUDGET_S else 'OVER'} it)")
     return {"flash_attention": {"train_launches": n_flash},
             "flash_attention_encdec": {"train_launches": n_w}}
+
+
+# The mesh phase: launch.train and launch.serve as SPMD ranks of gloo
+# worlds of MESH_RANKS processes sharing the one card, each rank's
+# DTensors on the card (dist.init_mesh), laid out by
+# dist.sharding.train_specs / cache_specs / decode_specs on one "data"
+# dim as the reference lays out its jitted steps on its host mesh.
+MESH_ARCH = "internlm2-1.8b"
+MESH_RANKS = 2
+# Training: the train phase's configuration and schedule (TRAIN_*: 4 of
+# the 24 layers, as two replicated states of the whole depth do not fit
+# one card beside their steps — one process peaks at 50.279 GiB —, the
+# global batch 4 x 2048, 2 x 2048 a rank), so that the train phase's
+# losses are the world's one-process reference.  Each kept step's loss,
+# |world - one process| / |one process|: the world sums its two halves'
+# bf16 gradients in the all-reduce, one process the whole batch's in its
+# GEMMs; the readings were 0 to 2.785e-5 (PERF.md §6, PR 26), and the bar
+# is no tighter than the float32 CPU tests' 1e-5.
+MESH_LOSS_TOL = 1e-4
+# Serving: the whole model (24 layers, params replicated), the reference
+# CLI's defaults (64 requests at rate 50, 16 slots, pspice: 8 slots a
+# rank); the logits of the last of MESH_DECODE_STEPS decode steps of
+# seeded tokens from an empty cache, gathered, against one process's
+# (NOISE_TOL: bf16, the model phase's bar).
+MESH_DECODE_STEPS = 4
+MESH_TOKEN_SEED = 11
+MESH_TIMEOUT = 300.0       # seconds: each world, each collective
+MESH_BUDGET_S = 60.0
+
+
+def _local(torch, tree):
+    """Each DTensor of ``tree`` as this rank's shard (plain tensors as
+    they are): a fingerprint's input."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _local(torch, v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def collective_timer(torch):
+    """A dispatch mode that waits for each c10d functional collective
+    DTensor issues beneath it and synchronises the card, so that the
+    collective's seconds are its own; it adds them and the result bytes
+    up by kind ({"all-reduce": [calls, bytes, seconds], ...})."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.hlo_analysis import collective
+
+    class CollectiveTimer(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_kind = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            c = collective(func, args)
+            t0 = time.perf_counter()
+            out = func(*args, **(kwargs or {}))
+            if c is not None:
+                out = torch.ops._c10d_functional.wait_tensor(out)
+                sync(torch, torch.device(DEV))
+                row = self.by_kind.setdefault(c[0], [0, 0, 0.0])
+                row[0] += 1
+                row[1] += c[1]
+                row[2] += time.perf_counter() - t0
+            return out
+
+    return CollectiveTimer()
+
+
+def _mesh_flash_recorder(torch, kfa, errs: list):
+    """The flash kernel's wrapper on DTensors, each call also held to the
+    plain version on the shards the kernel ran on: appends (max |kernel
+    - plain|, row-relative error, the local q shape, the check's seconds)
+    to ``errs``."""
+    def flash(q, k, v, *, causal=True, q_offset=0, scale=None,
+              causal_skip=True):
+        if not q.placements == k.placements == v.placements:
+            raise AssertionError(f"q, k, v laid out apart: {q.placements}, "
+                                 f"{k.placements}, {v.placements}")
+        got = kfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                  scale=scale, causal_skip=causal_skip)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ql, kl, vl = (t.detach().to_local() for t in (q, k, v))
+            want = kfa.flash_attention_plain(
+                ql, kl, vl, causal=causal, q_offset=q_offset, scale=scale,
+                causal_skip=causal_skip)
+            gl = got.detach().to_local()
+            errs.append((max_abs_err(torch, gl, want),
+                         row_rel_err(torch, gl, want), tuple(ql.shape),
+                         time.perf_counter() - t0))
+        return got
+    return flash
+
+
+def mesh_train_rank(ckpt: str) -> dict:
+    """One rank of the training world (MESH_* above): ``launch.train``'s
+    loop on the world's "data" mesh, one step a call, the state
+    fingerprinted after each; each flash launch held to the plain version
+    on its shards; then one step run on from memory (its collectives
+    timed) against one step resumed from the latest checkpoint."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import dist as D
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    t0 = time.perf_counter()
+    # Deterministic kernels (the embedding's gradient sums colliding token
+    # rows), for the bitwise resume.  torch.use_deterministic_algorithms
+    # would also import torch._inductor to set its flag, which no eager
+    # step reads: 3.9-4.9 s in a fresh rank on the card's machine
+    # (tests/_mesh_probe.py cold).
+    torch._C._set_deterministic_algorithms(True, warn_only=True)
+    torch.zeros(1, device=DEV)          # the card's context
+    card_s = time.perf_counter() - t0
+    mesh = D.init_mesh((tdist.get_world_size(),), ("data",))
+    if mesh.device_type != torch.device(DEV).type:
+        raise AssertionError(f"the world's mesh is on {mesh.device_type}")
+    mesh_s = time.perf_counter() - t0 - card_s
+    cfg = train_cfg()
+    params = T.init_params(cfg, seed=0, device=DEV)
+    state = {"params": params, "opt": O.init_opt_state(params)}
+    del params
+    sync(torch, torch.device(DEV))
+    setup_s = (card_s, mesh_s, time.perf_counter() - t0 - card_s - mesh_s)
+    errs, logs, events, saved, prints = [], [], [], {}, []
+    kernel_flash = L.flash_attention
+    L.flash_attention = _mesh_flash_recorder(torch, kfa, errs)
+    _reset_flash_counts(kfa)
+    torch.cuda.reset_peak_memory_stats()
+
+    def on_checkpoint(kind, step, st):
+        fp = fingerprint(torch, _local(torch, st))
+        if kind == "save":
+            saved[step] = fp
+        events.append((kind, step, fp == saved.get(step)))
+
+    kw = dict(batch=TRAIN_B, seq=TRAIN_S, device=DEV, log=logs.append,
+              mesh=mesh, opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=10))
+    losses, step_s, done = [], [], {"saved": [], "restored": []}
+    t1 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        run = LT.train_loop(cfg, state.pop("params"), state.pop("opt"),
+                            steps=step + 1, start=step, ckpt_dir=ckpt,
+                            ckpt_every=TRAIN_CKPT_EVERY,
+                            inject_nan_at=TRAIN_NAN_AT,
+                            on_checkpoint=on_checkpoint, **kw)
+        state = {"params": run.pop("params"), "opt": run.pop("opt")}
+        losses += run["losses"]
+        step_s += run["step_s"]
+        for k in done:
+            done[k] += run[k]
+        prints.append(fingerprint(torch, _local(torch, state)))
+    loop_s = time.perf_counter() - t1
+    n_flash, n_sm90 = (kfa.flash_attention.launches,
+                       kfa.flash_attention.sm90_launches)
+    peak = torch.cuda.max_memory_allocated()
+    L.flash_attention = kernel_flash       # the checks are done
+    # One step run on from memory, its collectives timed, against one
+    # step resumed from the latest checkpoint (the same state, read back).
+    timer = collective_timer(torch)
+    sync(torch, torch.device(DEV))
+    t1 = time.perf_counter()
+    with timer:
+        on = LT.train_loop(cfg, state["params"], state["opt"],
+                           steps=TRAIN_STEPS + 1, start=TRAIN_STEPS, **kw)
+    timed_s = time.perf_counter() - t1
+    fp_on, losses_on = fingerprint(torch, _local(
+        torch, {"params": on["params"], "opt": on["opt"]})), on["losses"]
+    del on
+    t1 = time.perf_counter()
+    p, o, start = LT.resume(ckpt, state["params"], state["opt"],
+                            log=logs.append)
+    resume_s = time.perf_counter() - t1
+    del state
+    fp_resumed = fingerprint(torch, _local(torch, {"params": p, "opt": o}))
+    res = LT.train_loop(cfg, p, o, steps=TRAIN_STEPS + 1, start=start, **kw)
+    del p, o
+    fp_res = fingerprint(torch, _local(
+        torch, {"params": res["params"], "opt": res["opt"]}))
+    return {"setup_s": setup_s, "loop_s": loop_s, "losses": losses,
+            "step_s": step_s, "saved": done["saved"],
+            "restored": done["restored"], "events": events,
+            "prints": prints, "flash": n_flash, "sm90": n_sm90,
+            "flash_errs": errs, "peak": peak, "logs": logs,
+            "timed_s": timed_s, "collectives": timer.by_kind,
+            "resume_step": start, "resume_s": resume_s,
+            "resumed_is_saved": fp_resumed == prints[-1],
+            "resume_equals_memory": fp_res == fp_on and
+            res["losses"] == losses_on, "losses_on": losses_on}
+
+
+def mesh_decode_logits(torch, cfg, params, mesh=None):
+    """The logits of the last of MESH_DECODE_STEPS decode steps of seeded
+    tokens from an empty cache (``launch.serve.Decoder``; on a mesh
+    gathered whole), float32 on the host, and the steps' mean ms.  The
+    rows are gathered by c10d's ``all_gather_into_tensor``: DTensor's
+    gather, the functional all-gather, segfaults on CUDA tensors over
+    gloo in torch 2.11, where its all-reduce and reduce-scatter run
+    (tests/_mesh_probe.py collectives)."""
+    import torch.distributed as tdist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.launch import serve as LS
+
+    dec = LS.Decoder(cfg, params, 16, torch.device(DEV), mesh)
+    cache = dec.cache(96)
+    g = torch.Generator().manual_seed(MESH_TOKEN_SEED)
+    sync(torch, torch.device(DEV))
+    t0 = time.perf_counter()
+    for _ in range(MESH_DECODE_STEPS):
+        toks = torch.randint(0, cfg.vocab_size, (16,), generator=g,
+                             dtype=torch.int32).to(DEV)
+        logits, cache = dec.step(cache, dec.tokens(toks))
+    sync(torch, torch.device(DEV))
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_DECODE_STEPS
+    if mesh is not None:
+        if tuple(logits.placements) != (Shard(0),):
+            raise AssertionError(f"logits laid out {logits.placements}")
+        rows = logits.to_local().contiguous()
+        logits = rows.new_empty((tdist.get_world_size() * rows.shape[0],) +
+                                tuple(rows.shape[1:]))
+        tdist.all_gather_into_tensor(logits, rows)
+    return logits.float().cpu(), ms
+
+
+def mesh_serve_rank() -> dict:
+    """One rank of the serving world: ``serve`` with the reference CLI's
+    defaults on the world's "data" mesh (the cost measured here, rank
+    0's used), then the decode logits of ``mesh_decode_logits``."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import dist as D
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.zeros(1, device=DEV)          # the card's context
+    card_s = time.perf_counter() - t0
+    mesh = D.init_mesh((tdist.get_world_size(),), ("data",))
+    mesh_s = time.perf_counter() - t0 - card_s
+    cfg = registry.get_config(MESH_ARCH)
+    params = T.init_params(cfg, seed=0, device=DEV)
+    sync(torch, torch.device(DEV))
+    setup_s = (card_s, mesh_s, time.perf_counter() - t0 - card_s - mesh_s)
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    t0 = time.perf_counter()
+    out = LS.serve(cfg, params, device=DEV, mesh=mesh, log=lambda s:
+                   logs.append(f"{s} (at {time.perf_counter() - t0:.2f} s)"))
+    serve_s = time.perf_counter() - t0
+    logits, ms = mesh_decode_logits(torch, cfg, params, mesh)
+    return {"setup_s": setup_s, "serve_s": serve_s, "serve": out,
+            "logits": logits, "decode_ms": ms, "logs": logs,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def mesh_one_process_train(torch) -> list:
+    """The train phase's kept losses, without its checkpoints: the steps
+    up to the checkpoint the NaN restores, the steps from it to the NaN
+    (their state dropped, as the restore drops it), then the steps after
+    the NaN from the restored state.  The mesh phase's one-process
+    reference where the train phase has not run."""
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+
+    _, _, back, _ = train_schedule()
+    cfg = train_cfg()
+    kw = dict(batch=TRAIN_B, seq=TRAIN_S, device=DEV, log=lambda s: None,
+              opt_cfg=O.AdamWConfig(lr=1e-3, warmup_steps=10))
+    params = T.init_params(cfg, seed=0, device=DEV)
+    a = LT.train_loop(cfg, params, O.init_opt_state(params), steps=back,
+                      **kw)
+    del params
+    dropped = LT.train_loop(cfg, a["params"], a["opt"], steps=TRAIN_NAN_AT,
+                            start=back, **kw)["losses"]
+    c = LT.train_loop(cfg, a["params"], a["opt"], steps=TRAIN_STEPS,
+                      start=TRAIN_NAN_AT + 1, **kw)
+    return a["losses"] + dropped + c["losses"]
+
+
+def phase_mesh(torch, np, one: list | None = None) -> dict:
+    """``launch.train`` and ``launch.serve`` over gloo worlds of
+    MESH_RANKS ranks sharing the card (MESH_* above).  Gates, training:
+    the kept steps, checkpoints and the NaN restore as scheduled; every
+    rank's params and moments bitwise rank 0's after every step
+    (fingerprints); each save and restore bit for bit the state saved;
+    the state resumed from the latest checkpoint the saved one, and a
+    step from it equal to a step run on from memory; each flash launch
+    (forward and recomputation, on each rank's shards) within the bf16
+    kernel's bars of the plain version on the same shards, and
+    2 x layers launches a step on every rank; each kept loss within
+    MESH_LOSS_TOL of one process's.  Serving: one step cost on every
+    rank (rank 0's); every rank's decisions those of one process's
+    ``serve`` at that cost; a decode step's gathered logits within
+    NOISE_TOL of one process's.  Logged: step ms, collective ms and
+    bytes a step, peak memory a rank, flash launches.  ``one``: the
+    train phase's kept losses, the one-process reference (None: run
+    here, ``mesh_one_process_train``)."""
+    import gc
+    import shutil
+
+    from repro_torch import dist as D
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    where = "the train phase's run"
+    if one is None:
+        det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        one = mesh_one_process_train(torch)
+        torch.use_deterministic_algorithms(det)
+        gc.collect()
+        torch.cuda.empty_cache()
+        where = f"run here in {time.perf_counter() - t0:.2f} s"
+    log("mesh", f"one process, {cfg.name} at {TRAIN_LAYERS} of "
+        f"{registry.get_config(MESH_ARCH).num_layers} layers "
+        f"(B={TRAIN_B} x S={TRAIN_S}): losses "
+        f"{[(s, round(x, 6)) for s, x in one]} ({where})")
+
+    ckpt = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = D.spawn(mesh_train_rank, MESH_RANKS, args=(str(ckpt),),
+                    timeout=MESH_TIMEOUT, workdir=str(ROOT / "build"))
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for line in r0["logs"]:
+        log("mesh", "rank 0: " + line.removeprefix("[train] "))
+    kept = [s for s, _ in r0["losses"]]
+    want_kept, want_saved, back, want_events = train_schedule()
+    per_step = 2 * TRAIN_LAYERS
+    for r, got in enumerate(ranks):
+        if ([s for s, _ in got["losses"]] != want_kept or
+                got["saved"] != want_saved or got["restored"] != [back] or
+                [e[:2] for e in got["events"]] != want_events or
+                not all(ok for *_, ok in got["events"]) or
+                not all(math.isfinite(x) for _, x in got["losses"])):
+            raise AssertionError(f"rank {r}: losses {got['losses']}, saved "
+                                 f"{got['saved']}, restored "
+                                 f"{got['restored']}, events "
+                                 f"{got['events']}")
+        if got["prints"] != r0["prints"] or got["losses"] != r0["losses"]:
+            raise AssertionError(f"rank {r}'s state or losses differ from "
+                                 "rank 0's")
+        # Each kept step runs the kernel in each layer's forward and its
+        # recomputation; the NaN step's forward runs too (its result is
+        # dropped after the step), so every step counts.
+        if got["flash"] != got["sm90"] or \
+                got["flash"] != TRAIN_STEPS * per_step:
+            raise AssertionError(f"rank {r}: {got['flash']} flash launches "
+                                 f"({got['sm90']} bf16) in {TRAIN_STEPS} "
+                                 f"steps; expected {per_step} a step")
+        bad = [e for e in got["flash_errs"] if not (
+            e[0] <= FLASH_TOL["bfloat16"] and e[1] <= FLASH_ROW_TOL)]
+        if bad or len(got["flash_errs"]) != got["flash"]:
+            raise AssertionError(f"rank {r}: flash launches beyond the bf16 "
+                                 f"bars {bad[:4]} (or not every launch "
+                                 "checked)")
+        if not (got["resume_step"] == TRAIN_STEPS and
+                got["resumed_is_saved"] and got["resume_equals_memory"]):
+            raise AssertionError(f"rank {r}: resumed at step "
+                                 f"{got['resume_step']}; the state equal to "
+                                 f"the save: {got['resumed_is_saved']}; a step"
+                                 " from it equal to a step from memory: "
+                                 f"{got['resume_equals_memory']}")
+    errs = [e for got in ranks for e in got["flash_errs"]]
+    rel = [abs(x - y) / abs(y) for (_, x), (_, y) in zip(r0["losses"], one)]
+    log("mesh", f"train world of {MESH_RANKS} ranks ({world_s:.2f} s of "
+        f"wall; rank setup (card, mesh, params) "
+        f"{[tuple(round(x, 2) for x in g['setup_s']) for g in ranks]} s, "
+        f"loop {[round(g['loop_s'], 2) for g in ranks]} s, of it "
+        f"{[round(sum(e[3] for e in g['flash_errs']), 2) for g in ranks]} s"
+        f" checking flash launches): losses "
+        f"{[(s, round(x, 6)) for s, x in r0['losses']]} (steps {kept}; "
+        f"step {TRAIN_NAN_AT}'s NaN restored step {back}, bit for bit); every "
+        f"rank's {len(r0['prints'][0])} state leaves bitwise rank 0's after "
+        f"each of {TRAIN_STEPS} steps; |world - one process| / |one process| "
+        f"per kept step {[f'{x:.3e}' for x in rel]} (bar {MESH_LOSS_TOL})")
+    if not all(x <= MESH_LOSS_TOL for x in rel) or \
+            [s for s, _ in one] != kept:
+        raise AssertionError(f"the world's losses {r0['losses']} differ from "
+                             f"one process's {one} beyond {MESH_LOSS_TOL}")
+    ms = [t * 1e3 for t in r0["step_s"]]
+    coll = r0["collectives"]
+    coll_ms = sum(v[2] for v in coll.values()) * 1e3
+    coll_bytes = sum(v[1] for v in coll.values())
+    by_kind = {k: [v[0], v[1], round(v[2] * 1e3, 2)] for k, v in coll.items()}
+    log("mesh", f"step ms (rank 0) {[round(x, 1) for x in ms]}: median of "
+        f"the warm {statistics.median(ms[1:]):.1f} ms "
+        f"({TRAIN_B * TRAIN_S / statistics.median(ms[1:]) * 1e3:.1f} tokens/s "
+        f"over the world); one step run on from memory with its "
+        f"collectives waited for: {r0['timed_s'] * 1e3:.1f} ms, of it "
+        f"{coll_ms:.1f} ms in {sum(v[0] for v in coll.values())} "
+        f"collectives moving {coll_bytes} B of results "
+        f"({by_kind} [calls, bytes, ms]); max_memory_allocated a rank "
+        f"{[g['peak'] for g in ranks]} B "
+        f"({[round(g['peak'] / 2**30, 3) for g in ranks]} GiB)")
+    log("mesh", f"flash launches a rank {[g['flash'] for g in ranks]} "
+        f"({per_step} a step: each layer's forward and its recomputation, "
+        f"on the rank's {errs[0][2]} shard), each against the plain version "
+        f"on the same shards: worst max|kernel - plain| "
+        f"{max(e[0] for e in errs):.3e} (bar {FLASH_TOL['bfloat16']}), "
+        f"row-relative {max(e[1] for e in errs):.3e} (bar {FLASH_ROW_TOL}); "
+        f"resumed at step {r0['resume_step']} in {r0['resume_s']:.2f} s: the "
+        f"state bit for bit the step-{TRAIN_STEPS} save, a step from it equal "
+        f"to a step run on from memory (loss {r0['losses_on']})")
+    removal = remove_meanwhile(ckpt)        # joined before the phase ends
+    n_flash = sum(g["flash"] for g in ranks)
+    del ranks, r0
+
+    # Serving: the whole model, params replicated, slots over "data".
+    t0 = time.perf_counter()
+    ranks = D.spawn(mesh_serve_rank, MESH_RANKS, timeout=MESH_TIMEOUT,
+                    workdir=str(ROOT / "build"))
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for line in r0["logs"]:
+        log("mesh", "rank 0: " + line)
+    cost = r0["serve"]["step_cost"]
+    if r0["serve"]["measured"] != cost or any(
+            g["serve"]["step_cost"] != cost for g in ranks):
+        raise AssertionError(f"step costs {[g['serve'] for g in ranks]}: "
+                             "not rank 0's on every rank")
+    scfg = registry.get_config(MESH_ARCH)
+    params = T.init_params(scfg, seed=0, device=DEV)
+    t0 = time.perf_counter()
+    alone = LS.serve(scfg, params, device=DEV, step_cost=cost,
+                     log=lambda s: None)
+    alone_s = time.perf_counter() - t0
+    logits, ms_one = mesh_decode_logits(torch, scfg, params)
+    del params
+    keys = ("metrics", "finished", "decode_steps")
+    for r, got in enumerate(ranks):
+        if any(got["serve"][k] != alone[k] for k in keys):
+            raise AssertionError(f"rank {r} served {got['serve']}; one "
+                                 f"process at its cost {alone}")
+    errs = [rel_err(torch, g["logits"], logits) for g in ranks]
+    log("mesh", f"serve world of {MESH_RANKS} ranks ({world_s:.2f} s of "
+        f"wall; rank setup (card, mesh, params) "
+        f"{[tuple(round(x, 2) for x in g['setup_s']) for g in ranks]} s, "
+        f"serve {[round(g['serve_s'], 2) for g in ranks]} s): "
+        f"{scfg.num_layers} layers, 16 slots (8 a rank); step cost "
+        f"{cost * 1e3:.3f} ms (rank 0's; rank 1 measured "
+        f"{ranks[1]['serve']['measured'] * 1e3:.3f} ms) on every rank; "
+        f"every rank's metrics {alone['metrics']}, {alone['finished']} "
+        f"finished, {alone['decode_steps']} real decode steps: those of one "
+        f"process's serve() at that cost ({alone_s:.2f} s); decode "
+        f"{r0['decode_ms']:.2f} ms a step on the mesh, {ms_one:.2f} in one "
+        f"process; step {MESH_DECODE_STEPS}'s gathered logits "
+        f"max|d|/max|logits| {[f'{e:.3e}' for e in errs]} against one "
+        f"process's (bar {NOISE_TOL}); max_memory_allocated a rank "
+        f"{[g['peak'] for g in ranks]} B")
+    if not all(e <= NOISE_TOL for e in errs):
+        raise AssertionError(f"gathered decode logits {errs} beyond "
+                             f"{NOISE_TOL}")
+    del ranks, r0, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    removal.join()
+    log("mesh", f"the checkpoints' removal, joined: "
+        f"{time.perf_counter() - t0:.2f} s")
+    secs = time.perf_counter() - t_phase
+    log("mesh", f"the phase took {secs:.2f} s of its {MESH_BUDGET_S:.0f} s "
+        f"budget ({'within' if secs <= MESH_BUDGET_S else 'OVER'} it)")
+    return {"flash_attention": {"mesh_launches": n_flash}}
 
 
 # The dry-run on the card's software (the production mesh's rows) and a
@@ -5505,6 +6054,7 @@ def main() -> int:
 
     record = {}
     timings = {}
+    shared = {}          # the train phase's losses, the mesh phase's reference
     for phase, fn in (("analysis", phase_analysis),
                       ("kernels", lambda: phase_kernels(torch, np)),
                       ("parity", lambda: phase_parity(torch, np)),
@@ -5520,7 +6070,9 @@ def main() -> int:
                       ("moe", lambda: phase_moe(torch, np)),
                       ("ssm", lambda: phase_ssm(torch, np)),
                       ("encdec", lambda: phase_encdec(torch, np)),
-                      ("train", lambda: phase_train(torch, np)),
+                      ("train", lambda: phase_train(torch, np, shared)),
+                      ("mesh", lambda: phase_mesh(
+                          torch, np, shared.get("train_losses"))),
                       ("dryrun", lambda: phase_dryrun(
                           torch, np, record.get("block_step"))),
                       ("examples", lambda: phase_examples(torch, np))):
@@ -5533,7 +6085,8 @@ def main() -> int:
         if phase == "kernels":
             record = out
         if phase in ("main", "runtime", "resilience", "dist", "model",
-                     "moe", "ssm", "encdec", "train", "dryrun", "examples"):
+                     "moe", "ssm", "encdec", "train", "mesh", "dryrun",
+                     "examples"):
             for name, n in out.items():
                 if isinstance(n, dict):
                     record.setdefault(name, {}).update(n)
@@ -5562,6 +6115,7 @@ def main() -> int:
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
                       "trim_lane_by_lane_launches", "dist_launches",
                       "moe_launches", "tflops", "train_launches",
+                      "mesh_launches",
                       "dryrun_launches", "examples_launches",
                       "bytes_per_event",
                       "cross_ms", "cross_plain_ms", "cross_bound_ms",

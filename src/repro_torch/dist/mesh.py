@@ -11,7 +11,11 @@ names with no process group behind it — the counterpart of jax's
 
 Backends: NCCL where each rank has a GPU of its own; gloo on the CPU and
 for several ranks that share one GPU (NCCL refuses two ranks on one
-device).  ``repro.dist.compat`` (jax API shims) has no counterpart.
+device).  A mesh's device type is its DTensors' device, the card where
+there is one whatever the backend (gloo stages a CUDA tensor's
+collective through host memory); the CEP merge asks for the backend's
+(``backend_device_type``).  ``repro.dist.compat`` (jax API shims) has no
+counterpart.
 
 :func:`spawn` runs a function on a world of rank processes (the tests'
 and ``chip_smoke.py``'s worlds): ranks forked from a server that has
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import faulthandler
 import math
 import os
 import pathlib
@@ -123,22 +128,49 @@ def broadcast_object(obj, mesh):
     return box[0]
 
 
-def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+def backend_device_type() -> str:
+    """The device type of the CEP merge's meshes: the card under NCCL, the
+    host under gloo, whose merge stages CUDA tensors through host memory
+    (``sharding._Collective``)."""
+    return "cuda" if dist.is_initialized() and \
+        dist.get_backend() == "nccl" else "cpu"
+
+
+def _mesh_device(device_type: str | None) -> str:
+    """The device type a mesh is made for: ``device_type`` where the
+    caller names one, else the card where there is one.  A card's rank
+    takes ``cuda:(LOCAL_RANK % device count)`` (its world rank without
+    ``LOCAL_RANK``), so that the ranks of a world sharing one card all
+    land on it."""
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"a mesh is made for cuda or cpu, not "
+                         f"{device_type!r}")
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a mesh for cuda needs a CUDA device; pass "
+                               "device_type='cpu' for the host")
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    return device_type
 
 
 def init_mesh(shape, names, backend: str | None = None,
               init_method: str | None = None, rank: int | None = None,
-              timeout: float = 60.0):
+              timeout: float = 60.0, device_type: str | None = None):
     """The process group (unless one exists) and a ``DeviceMesh`` of
     ``shape`` with dims ``names`` over it: the counterpart of
     ``jax.make_mesh``.  Every rank calls it with the same shape.
 
     Without a process group, one is made: ``backend`` (default NCCL with
     a card, gloo without), ``rank`` (default ``$RANK`` or 0) of
-    ``prod(shape)`` ranks, from ``init_method`` (a ``file://`` or
-    ``tcp://`` address every rank is given; a world of one may omit it)
-    with a ``timeout`` in seconds on its collectives."""
+    ``prod(shape)`` ranks, from ``init_method`` (a ``file://``,
+    ``tcp://`` or ``env://`` address every rank is given; a world of one
+    may omit it) with a ``timeout`` in seconds on its collectives.  The
+    mesh's DTensors live on ``device_type`` ("cuda" or "cpu"; default the
+    card where there is one, whatever the backend: a gloo world of ranks
+    sharing one card keeps its DTensors there)."""
     shape, names = abstract_mesh(shape, names).shape, tuple(names)
     world = math.prod(shape)
     if not dist.is_initialized():
@@ -159,22 +191,25 @@ def init_mesh(shape, names, backend: str | None = None,
         raise ValueError(f"a mesh of {shape} needs {world} ranks; the "
                          f"process group has {dist.get_world_size()}")
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=names)
+    return init_device_mesh(_mesh_device(device_type), shape,
+                            mesh_dim_names=names)
 
 
 _world_meshes: dict = {}
 
 
-def world_mesh(axis: str):
-    """The default mesh: every rank of the world on one dim ``axis`` —
-    with no process group, the world of one rank (an AbstractMesh)."""
+def world_mesh(axis: str, device_type: str | None = None):
+    """The default mesh: every rank of the world on one dim ``axis``, its
+    DTensors on ``device_type`` (as ``init_mesh``) — with no process
+    group, the world of one rank (an AbstractMesh)."""
     if not dist.is_initialized():
         return AbstractMesh((1,), (axis,))
-    key = (axis, id(dist.group.WORLD), dist.get_world_size())
+    device_type = _mesh_device(device_type)
+    key = (axis, id(dist.group.WORLD), dist.get_world_size(), device_type)
     if key not in _world_meshes:
         from torch.distributed.device_mesh import init_device_mesh
         _world_meshes[key] = init_device_mesh(
-            _device_type(), (dist.get_world_size(),), mesh_dim_names=(axis,))
+            device_type, (dist.get_world_size(),), mesh_dim_names=(axis,))
     return _world_meshes[key]
 
 
@@ -197,6 +232,9 @@ class RankError(RuntimeError):
 
 def _rank_main(fn, rank: int, world: int, backend: str, tmp: str,
                timeout: float, args: tuple) -> None:
+    # A rank that dies by a signal (a segfault in a native library)
+    # leaves its Python stack on stderr.
+    faulthandler.enable()
     torch.set_num_threads(1)
     d = pathlib.Path(tmp)
     try:
@@ -235,11 +273,15 @@ def _context():
     interpreter's start and the imports (seconds each), and, forked from
     a process that never touched CUDA, initializes the card itself.  The
     server forks while idle: the threads torch starts at import wait in
-    their pools holding no lock, as in a DataLoader's forked workers."""
+    their pools holding no lock, as in a DataLoader's forked workers.
+    It preloads DTensor (``torch.distributed.tensor``, which imports
+    dynamo's pieces) too: a rank that trains or serves on a mesh would
+    import it on its first DTensor op."""
     import multiprocessing
     ctx = multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload(["torch", "repro_torch.dist",
-                                "repro_torch.runtime"])
+    ctx.set_forkserver_preload(["torch", "torch.distributed.tensor",
+                                "repro_torch.dist", "repro_torch.runtime",
+                                "repro_torch.launch.serve"])
     return ctx
 
 

@@ -62,7 +62,8 @@ from repro_torch.cep import engine as eng
 from repro_torch.core import overload as ovl
 from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import (axis_group, axis_rank, axis_size,
-                                   dim_names, world_mesh)
+                                   backend_device_type, dim_names,
+                                   world_mesh)
 from repro_torch.models.config import ModelConfig
 
 # How a leaf of a pattern shard's result merges across the pattern axis
@@ -473,7 +474,7 @@ def run_engine_sharded(cfg: eng.EngineConfig, model: eng.EngineModel,
     axis cannot shard."""
     dev = resolve_device(device)
     if mesh is None:
-        mesh = world_mesh(axis)
+        mesh = world_mesh(axis, backend_device_type())
     specs = pm_specs(mesh, cfg, axis=axis)
     pax = specs["pattern_axis"]
     if pax is None:
@@ -582,7 +583,7 @@ def run_chunk_lanes_sharded(cfg: eng.EngineConfig, model: eng.EngineModel,
     eng._check_inputs(dev, model, events, carry)
     num_lanes = events.ev_class.shape[0]
     if mesh is None:
-        mesh = world_mesh(lane_axis)
+        mesh = world_mesh(lane_axis, backend_device_type())
     plan = _lanes_plan(cfg, mesh, num_lanes, lane_axis, pattern_axis)
     if plan is None:
         return LN.run_chunk_lanes(cfg, model, events, carry, start,
@@ -945,12 +946,17 @@ def distribute_tree(mesh, tree, specs, device=None):
     """A tree of DTensors on the ``DeviceMesh`` ``mesh`` laid out by
     ``specs``.  A leaf on the meta device is a structure: its shard is
     made empty on ``device`` (this rank's shard; under ``FakeTensorMode``
-    a fake tensor) without the global tensor; any other leaf is a global
-    tensor this rank cuts its own shard from (no collective)."""
+    a fake tensor) without the global tensor; a DTensor leaf is
+    redistributed where its layout differs (an all-reduce of partial
+    sums: the counterpart of jax's ``out_shardings``); any other leaf is
+    a global tensor this rank cuts its own shard from (no collective)."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     def one(s, t):
         pl = placements(mesh, s)
+        if isinstance(t, DTensor):
+            return t if tuple(t.placements) == tuple(pl) else \
+                t.redistribute(mesh, pl)
         if t.device.type != "meta":
             return distribute_tensor(t, mesh, pl, src_data_rank=None)
         local = torch.empty(local_shape(mesh, tuple(t.shape), s),

@@ -50,7 +50,6 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.dist import sharding as SH
-from repro_torch.kernels import flash_attention as FA
 from repro_torch.launch import hlo_analysis as HA
 from repro_torch.launch import mesh as M
 from repro_torch.launch import roofline as RF
@@ -124,25 +123,9 @@ def run_step(cfg: ModelConfig, shape: ShapeSpec, args: dict, *,
                              args["tokens"])
 
 
-def register_rules() -> None:
-    """The DTensor sharding rules the model needs beyond torch's own
-    (once per process): the flash op's, and in-place ``cumsum_`` (the
-    SSD's segment sums) sharded on any dim but the summed one."""
-    FA.register_dtensor_rule()
-    if getattr(register_rules, "done", False):
-        return
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.aten.cumsum_.default)
-    def _cumsum_(x, dim, *args, **kwargs):
-        d = dim % len(x.shape)
-        rest = [None] * (1 + len(args))
-        return [([p], [p] + rest) for p in
-                [Replicate()] + [Shard(i) for i in range(len(x.shape))
-                                 if i != d]]
-
-    register_rules.done = True
+# The model's DTensor rules (kept under this name for the dry-run's
+# callers; ``settings.use_mesh`` registers them too).
+register_rules = SET.register_rules
 
 
 def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,

@@ -10,8 +10,9 @@ The production mesh is a named ``DeviceMesh`` over a fake process group
 returns at once and moves nothing), which the dry-run traces under
 ``FakeTensorMode``; the abstract mesh is ``dist.mesh.AbstractMesh`` (the
 specs need only shape and names); the host mesh is the local
-``torch.distributed`` world (``dist.mesh.world_mesh``), a world of one
-when none is initialized.
+``torch.distributed`` world (``dist.mesh.world_mesh``; a world that
+``torchrun`` started is joined by ``make_host_mesh``), a world of one
+when there is none.
 
 Roofline constants, per GPU, from NVIDIA's H100 SXM data sheet (dense,
 no sparsity, at the 700 W limit): 989e12 FLOP/s in bf16 on the tensor
@@ -25,10 +26,13 @@ splitting the collective term by axis is later work (ROADMAP).
 from __future__ import annotations
 
 import math
+import os
 
+import torch
 import torch.distributed as dist
 
-from repro_torch.dist.mesh import AbstractMesh, abstract_mesh, world_mesh
+from repro_torch.dist.mesh import (AbstractMesh, abstract_mesh, init_mesh,
+                                   world_mesh)
 
 _worlds = 0                  # fake worlds this process has made
 PEAK_FLOPS_BF16 = 989e12     # FLOP/s, H100 SXM dense bf16
@@ -96,7 +100,23 @@ def make_abstract_production_mesh(*, multi_pod: bool = False
     return abstract_mesh(shape, axes)
 
 
-def make_host_mesh():
-    """The local world on one "data" dim: every rank of an initialized
-    process group, else a world of one (an AbstractMesh)."""
-    return world_mesh("data")
+def make_host_mesh(device_type: str | None = None):
+    """The local world on one "data" dim, its DTensors on ``device_type``
+    (default the card where there is one): every rank of an initialized
+    process group; in a process that ``torchrun`` started (``RANK``,
+    ``WORLD_SIZE`` and ``MASTER_ADDR`` set), every rank of that world,
+    joined here through ``env://`` (NCCL where each local rank has a card
+    of its own, else gloo: ranks sharing a card, or the host); else a
+    world of one (an AbstractMesh)."""
+    env = os.environ
+    if not dist.is_initialized() and all(
+            k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+        on_card = (device_type or ("cuda" if torch.cuda.is_available()
+                                   else "cpu")) == "cuda"
+        local = int(env.get("LOCAL_WORLD_SIZE", env["WORLD_SIZE"]))
+        own = on_card and torch.cuda.device_count() >= local
+        return init_mesh((int(env["WORLD_SIZE"]),), ("data",),
+                         backend="nccl" if own else "gloo",
+                         init_method="env://", rank=int(env["RANK"]),
+                         device_type=device_type)
+    return world_mesh("data", device_type)

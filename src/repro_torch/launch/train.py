@@ -1,28 +1,38 @@
 """Fault-tolerant training driver (port of ``repro.launch.train``).
 
-  - the train step (loss -> grads -> clip -> AdamW) on one card;
-  - step-tagged atomic checkpoints + keep-last-k (``training/checkpoint``);
+  - the train step (loss -> grads -> clip -> AdamW), on one card or as
+    SPMD ranks over the host mesh (``launch.mesh.make_host_mesh``: the
+    world ``torchrun`` or ``dist.spawn`` started, on one "data" dim);
+  - step-tagged atomic checkpoints + keep-last-k (``training/checkpoint``;
+    on a mesh rank 0 writes the reference's files);
   - a non-finite loss restores the last checkpoint and skips the batch
     (``--inject-nan-at`` plants one);
   - crash-resume: rerunning the command continues from the latest step;
   - a deterministic batch per step (``synthetic_batch``, the reference's
-    bit for bit), so a restarted run re-derives exactly its data.
+    bit for bit), so a restarted run re-derives exactly its data; on a
+    mesh each rank cuts its rows from the global batch.
 
-It runs in one process, each layer rematerialised (``remat=True``, as
-the reference's CLI runs).  The data-parallel path with compressed
-gradient sync is ``training.compression.sync_tree`` over a process group
-of ``dist.mesh``; the reference's run over its host mesh's specs
-(``dist.sharding.train_specs``) is ROADMAP item 6g.
+Each layer is rematerialised (``remat=True``, as the reference's CLI
+runs).  On a mesh (the default where the world has several ranks) the
+params, AdamW state and each batch are DTensors laid out by
+``dist.sharding.train_specs`` — the reference's in/out shardings — and
+the step runs on them under ``settings.use_mesh``; ``--no-shard`` runs
+the one-process path.  The data-parallel path with compressed gradient
+sync is ``training.compression.sync_tree`` over a process group of
+``dist.mesh``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
       --steps 50 --batch 8 --seq 256 --smoke --ckpt-dir /tmp/ckpt \\
-      [--device cpu]
+      [--device cpu] [--no-shard]
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --smoke --steps 6 --batch 4 --seq 64 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 
 import numpy as np
@@ -30,6 +40,10 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.mesh import AbstractMesh, mesh_rank
+from repro_torch.launch import mesh as M
+from repro_torch.models import settings as SET
 from repro_torch.models import transformer as T
 from repro_torch.training import checkpoint as CK
 from repro_torch.training import optimizer as O
@@ -68,11 +82,42 @@ def resume(ckpt_dir: str | None, params, opt_state, log=print):
     return params, opt_state, 0
 
 
+class Layout:
+    """The train step's layout on a mesh: the (pspecs, ospecs, bspecs)
+    of ``dist.sharding.train_specs``, the reference's call (step 0's
+    batch serves as the batch's structure)."""
+
+    def __init__(self, mesh, cfg, params, batch: int, seq: int):
+        b0 = synthetic_batch(cfg, batch, seq, 0, device="cpu")
+        self.mesh = mesh
+        self.pspecs, self.ospecs, self.bspecs = SH.train_specs(
+            mesh, cfg, params, b0)
+
+    def state(self, params, opt_state):
+        """(params, opt_state) as DTensors on their specs: a plain
+        (global) leaf cut to this rank's shard, no collective; a DTensor
+        redistributed where its layout differs (an all-reduce of partial
+        sums, the counterpart of ``out_shardings``)."""
+        return (SH.distribute_tree(self.mesh, params, self.pspecs),
+                SH.distribute_tree(self.mesh, opt_state, self.ospecs))
+
+    def batch(self, b: dict) -> dict:
+        """A global batch cut to this rank's rows."""
+        return SH.distribute_tree(self.mesh, b, self.bspecs)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value, the same bits on every rank (partial sums
+    all-reduced); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def train_loop(cfg, params, opt_state, *, steps: int, batch: int, seq: int,
                start: int = 0, opt_cfg: O.AdamWConfig | None = None,
                ckpt_dir: str | None = None, ckpt_every: int = 20,
                inject_nan_at: int = -1, device=None, on_checkpoint=None,
-               log=print, remat: bool = True) -> dict:
+               log=print, remat: bool = True, mesh=None) -> dict:
     """Steps ``start`` .. ``steps - 1``.  After a step whose loss is not
     finite the step's result is dropped, and the latest checkpoint (if
     any) restored; every ``ckpt_every`` steps the state is saved.  The
@@ -82,18 +127,36 @@ def train_loop(cfg, params, opt_state, *, steps: int, batch: int, seq: int,
     Each step rematerialises its layers under ``remat``.
     ``on_checkpoint(kind, step, state)`` is told of each save and restore
     ("save" / "restore").  Returns {"params", "opt", "losses": [(step,
-    loss)], "step_s": seconds per kept step, "saved", "restored": the
-    steps whose checkpoint was written or read}."""
+    loss)], "grad_norms": [(step, norm before clipping)], "step_s":
+    seconds per kept step, "saved", "restored": the steps whose
+    checkpoint was written or read}.
+
+    ``mesh`` (a DeviceMesh of the world; every rank calls the loop with
+    the same arguments) runs the step as SPMD ranks: params and state
+    (global tensors, or DTensors) laid out by ``Layout``, each step's
+    batch cut to the rank's rows, the step under ``settings.use_mesh``
+    and its outputs put back on their specs.  The loss the NaN decision
+    reads is replicated (``replicated``), so every rank decides alike.
+    The returned state is DTensors; None runs one process."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh's DTensors live on {mesh.device_type}, "
+                         f"the loop runs on {dev}")
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     step_fn = make_train_step(cfg, opt_cfg or O.AdamWConfig(), remat=remat)
-    losses, step_s, saved, restored = [], [], [], []
+    layout = None if mesh is None else Layout(mesh, cfg, params, batch, seq)
+    if layout is not None:
+        params, opt_state = layout.state(params, opt_state)
+        step_fn = _on_mesh(step_fn, layout)
+    losses, norms, step_s, saved, restored = [], [], [], [], []
     for step in range(start, steps):
         b = synthetic_batch(cfg, batch, seq, step, device=dev)
+        if layout is not None:
+            b = layout.batch(b)
         sync()
         t0 = time.perf_counter()
         new_params, new_opt, metrics = step_fn(params, opt_state, b)
-        loss = float(metrics["loss"])
+        loss = float(replicated(metrics["loss"]))
         dt = time.perf_counter() - t0
         if inject_nan_at == step:
             loss = float("nan")
@@ -116,10 +179,12 @@ def train_loop(cfg, params, opt_state, *, steps: int, batch: int, seq: int,
             continue
         params, opt_state = new_params, new_opt
         del new_params, new_opt
+        gnorm = float(replicated(metrics["grad_norm"]))
         losses.append((step, loss))
+        norms.append((step, gnorm))
         step_s.append(dt)
-        log(f"[train] step {step:4d} loss {loss:.4f} "
-            f"gnorm {float(metrics['grad_norm']):.3f} ({dt:.2f}s)")
+        log(f"[train] step {step:4d} loss {loss:.4f} gnorm {gnorm:.3f} "
+            f"({dt:.2f}s)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
             state = {"params": params, "opt": opt_state}
             t0 = time.perf_counter()
@@ -135,7 +200,19 @@ def train_loop(cfg, params, opt_state, *, steps: int, batch: int, seq: int,
         log(f"[train] loss first5={np.mean(kept[:5]):.4f} "
             f"last5={np.mean(kept[-5:]):.4f}")
     return {"params": params, "opt": opt_state, "losses": losses,
-            "step_s": step_s, "saved": saved, "restored": restored}
+            "grad_norms": norms, "step_s": step_s, "saved": saved,
+            "restored": restored}
+
+
+def _on_mesh(step_fn, layout: Layout):
+    """``step_fn`` run on DTensors over the layout's mesh, its new state
+    put back on the specs."""
+    def step(params, opt_state, b):
+        with SET.use_mesh(layout.mesh):
+            new_params, new_opt, metrics = step_fn(params, opt_state, b)
+            new_params, new_opt = layout.state(new_params, new_opt)
+        return new_params, new_opt, metrics
+    return step
 
 
 def main(argv=None) -> int:
@@ -154,19 +231,34 @@ def main(argv=None) -> int:
                     help="fault-injection test: corrupt loss at this step")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--no-shard", action="store_true",
+                    help="run one process, without the mesh's layouts")
     args = ap.parse_args(argv)
 
     cfg = (registry.get_smoke_config(args.arch) if args.smoke
            else registry.get_config(args.arch))
     opt_cfg = O.AdamWConfig(lr=args.lr, warmup_steps=10)
-    params = T.init_params(cfg, seed=0, device=args.device)
-    params, opt_state, start = resume(args.ckpt_dir, params,
-                                      O.init_opt_state(params))
+    dev = resolve_device(args.device)
+    mesh = None if args.no_shard else M.make_host_mesh(dev.type)
+    if isinstance(mesh, AbstractMesh):
+        mesh = None                    # a world of one: one process
+    if mesh is None and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        raise SystemExit("--no-shard runs one process, not a world of "
+                         f"{os.environ['WORLD_SIZE']} ranks")
+    log = print if mesh is None or mesh_rank(mesh) == 0 else \
+        (lambda s: None)
+    params = T.init_params(cfg, seed=0, device=dev)
+    opt_state = O.init_opt_state(params)
+    if mesh is not None:
+        params, opt_state = Layout(mesh, cfg, params, args.batch,
+                                   args.seq).state(params, opt_state)
+    params, opt_state, start = resume(args.ckpt_dir, params, opt_state,
+                                      log=log)
     train_loop(cfg, params, opt_state, steps=args.steps, batch=args.batch,
                seq=args.seq, start=start, opt_cfg=opt_cfg,
                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-               inject_nan_at=args.inject_nan_at, device=args.device,
-               remat=True)
+               inject_nan_at=args.inject_nan_at, device=dev, log=log,
+               remat=True, mesh=mesh)
     return 0
 
 

@@ -56,15 +56,19 @@ from repro_torch.models.transformer import (_dtype, _lookup_table,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
     """The zero cache on ``device``; under an active mesh, DTensors laid
-    out by ``cache_specs`` (each rank allocating its own shard)."""
+    out by ``cache_specs`` (each rank allocating and zeroing its own
+    shard)."""
     dev = resolve_device(device)
     mesh = SET.active_mesh()
     if mesh is None:
         return _cache(cfg, batch, max_len, dtype, dev)
     from repro_torch.dist.sharding import cache_specs, distribute_tree
     structs = cache_structs(cfg, batch, max_len, dtype)
-    return distribute_tree(mesh, structs, cache_specs(mesh, cfg, structs),
-                           device=dev)
+    cache = distribute_tree(mesh, structs, cache_specs(mesh, cfg, structs),
+                            device=dev)
+    for leaf in cache.values():
+        leaf.to_local().zero_()     # each rank's shard, made empty
+    return cache
 
 
 def cache_structs(cfg: ModelConfig, batch: int, max_len: int,

@@ -60,13 +60,36 @@ def active_mesh():
     return _MESH.get()
 
 
+def register_rules() -> None:
+    """The DTensor sharding rules the model needs beyond torch's own
+    (once per process): the flash op's, and in-place ``cumsum_`` (the
+    SSD's segment sums) sharded on any dim but the summed one."""
+    _flash.register_dtensor_rule()
+    if getattr(register_rules, "done", False):
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.cumsum_.default)
+    def _cumsum_(x, dim, *args, **kwargs):
+        d = dim % len(x.shape)
+        rest = [None] * (1 + len(args))
+        return [([p], [p] + rest) for p in
+                [Replicate()] + [Shard(i) for i in range(len(x.shape))
+                                 if i != d]]
+
+    register_rules.done = True
+
+
 @contextlib.contextmanager
 def use_mesh(mesh):
     """Run the model on DTensors over ``mesh`` (a DeviceMesh): activates
-    ``constrain`` and the cache's layout (``decode.init_cache``), and
-    treats the plain tensors the model makes (masks, positions, zeros)
-    as replicated (DTensor's ``implicit_replication``)."""
+    ``constrain`` and the cache's layout (``decode.init_cache``), treats
+    the plain tensors the model makes (masks, positions, zeros) as
+    replicated (DTensor's ``implicit_replication``) and registers the
+    model's sharding rules (``register_rules``)."""
     from torch.distributed.tensor.experimental import implicit_replication
+    register_rules()
     t = _MESH.set(mesh)
     try:
         with implicit_replication():

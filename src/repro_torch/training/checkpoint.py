@@ -17,6 +17,13 @@ other's:
 Leaves are copied from the card and written, or read and copied back,
 by a few threads at once (the copies and NumPy's file I/O release the
 interpreter lock); the files are the same.
+
+A tree of DTensors (a world of ranks, ``launch.train``'s sharded path)
+saves and restores the same files.  Every rank calls ``save``: each leaf
+is gathered whole (``full_tensor``, a collective every rank enters in
+leaf order), rank 0 alone writes, and a barrier follows, so that no rank
+reads a generation still being written.  Every rank calls ``restore``:
+it reads the same files and cuts its own shard (no collective).
 """
 from __future__ import annotations
 
@@ -81,9 +88,35 @@ def _pool():
     return concurrent.futures.ThreadPoolExecutor(_IO_THREADS)
 
 
+def _distributed(tree) -> bool:
+    """Whether a leaf of the tree is a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for _, x in items(tree))
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective); any other as it is."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def save(root: str, step: int, tree, *, keep_last: int = 3) -> str:
     """Atomically write a checkpoint of ``tree`` (tensors on any device,
-    or arrays); returns the committed directory."""
+    arrays, or DTensors: then every rank of their mesh calls it, and rank
+    0 writes); returns the committed directory."""
+    if _distributed(tree):
+        import torch.distributed as dist
+        whole = [(path, _whole(leaf)) for path, leaf in items(tree)]
+        if dist.get_rank() == 0:
+            _save(root, step, whole, keep_last)
+        del whole
+        dist.barrier()
+        return os.path.join(root, f"step_{step:08d}")
+    return _save(root, step, list(items(tree)), keep_last)
+
+
+def _save(root: str, step: int, pairs: list, keep_last: int) -> str:
+    """``save`` of the (path, leaf) pairs (jax's leaf order)."""
     os.makedirs(root, exist_ok=True)
     final = os.path.join(root, f"step_{step:08d}")
     tmp = os.path.join(root, f".tmp-step_{step:08d}")
@@ -93,7 +126,7 @@ def save(root: str, step: int, tree, *, keep_last: int = 3) -> str:
     manifest = {"step": step, "arrays": {}}
     jobs = {}
     with _pool() as pool:
-        for path, leaf in items(tree):
+        for path, leaf in pairs:
             key = _key(path)
             fname = key.replace("/", "__") + ".npy"
             jobs[key] = (fname, pool.submit(_write, os.path.join(tmp, fname),
@@ -132,14 +165,21 @@ def _read(path: str, dtype: str, like):
         t = t.view(torch.bfloat16)
     elif dtype in _TORCH_DTYPES:
         t = t.to(_TORCH_DTYPES[dtype])
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(like, DTensor):
+        # This rank's shard of the whole leaf, cut here (no collective).
+        return distribute_tensor(t.to(like.to_local().device),
+                                 like.device_mesh, like.placements,
+                                 src_data_rank=None)
     return t.to(like.device)
 
 
 def restore(root: str, tree_like, step: int | None = None):
     """Load a checkpoint into the structure of ``tree_like`` (shapes must
     match).  A tensor leaf of ``tree_like`` comes back as a tensor of the
-    checkpoint's dtype on that leaf's device; any other leaf as a NumPy
-    array (bf16 as its int16 bits)."""
+    checkpoint's dtype on that leaf's device (a DTensor leaf as a DTensor
+    of its layout, this rank's shard cut from the whole); any other leaf
+    as a NumPy array (bf16 as its int16 bits)."""
     if step is None:
         step = latest_step(root)
         if step is None:

@@ -27,16 +27,35 @@ def loss_and_grads(cfg: ModelConfig, params, batch: dict, *,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def on_param_layouts(grads, params):
+    """Each DTensor gradient laid out as its parameter, the counterpart
+    of the reference's ``out_shardings``: a parameter replicated over
+    the batch's axis gets its gradient's all-reduce there (its partial
+    sums), an FSDP shard its reduce-scatter; clipping and AdamW then run
+    on each rank's own shards, and every rank holds the same bits of a
+    replicated parameter.  Plain tensors pass as they are."""
+    from torch.distributed.tensor import DTensor
+
+    def one(g, p):
+        if not isinstance(g, DTensor) or g.placements == p.placements:
+            return g
+        return g.redistribute(p.device_mesh, p.placements)
+    return unflatten(params, [one(g, p) for g, p in
+                              zip(leaves(grads), leaves(params))])
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: O.AdamWConfig | None = None,
                     remat: bool = True, causal_skip: bool = True):
     opt_cfg = opt_cfg or O.AdamWConfig()
 
     def train_step(params, opt_state, batch: dict):
         """Returns (new params, new opt state, metrics); the inputs are
-        left as they were."""
+        left as they were.  On DTensors each gradient first takes its
+        parameter's layout (``on_param_layouts``)."""
         loss, metrics, grads = loss_and_grads(cfg, params, batch,
                                               remat=remat,
                                               causal_skip=causal_skip)
+        grads = on_param_layouts(grads, params)
         grads, gnorm = O.clip_by_global_norm(grads, opt_cfg.clip_norm)
         params, opt_state = O.adamw_update(opt_cfg, params, grads,
                                            opt_state)

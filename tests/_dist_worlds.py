@@ -349,3 +349,172 @@ def compressed_sync_rank(grads, err):
         out.update(flat_np(mean, f"round{i}.mean"))
         out.update(flat_np(e, f"round{i}.err"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# launch.train and launch.serve over a "data" mesh of the world
+# (tests/test_torch_launch_mesh.py)
+# ---------------------------------------------------------------------------
+
+def _model_cfg(arch: str, fsdp: bool):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    cfg = registry.get_smoke_config(arch)
+    return dataclasses.replace(cfg, fsdp=True) if fsdp else cfg
+
+
+def _whole_np(tree) -> dict:
+    """``{path: array}`` of a tree of tensors or DTensors, each leaf whole
+    (a DTensor gathered: every rank calls it)."""
+    from repro_torch.launch.train import replicated
+    from repro_torch.training.tree import items
+    return {"/".join(map(str, p)): replicated(t).detach().numpy()
+            for p, t in items(tree)}
+
+
+def _local_bits_equal(a, b) -> bool:
+    """Whether two trees of DTensors hold the same bits on this rank."""
+    import torch
+
+    from repro_torch.training.tree import items
+    return all(torch.equal(x.to_local(), y.to_local()) for (_, x), (_, y)
+               in zip(items(a), items(b)))
+
+
+def train_world(arch, fsdp, np_params, steps, batch, seq, opt):
+    """``launch.train``'s loop on this world's "data" mesh, one step a
+    call: per step the loss, the gradient norm and the whole params; the
+    local shape and placements of each param."""
+    import torch.distributed as dist
+
+    from repro_torch import dist as D
+    from repro_torch.launch import train as LT
+    from repro_torch.models import convert as MC
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.tree import items
+
+    cfg = _model_cfg(arch, fsdp)
+    mesh = D.init_mesh((dist.get_world_size(),), ("data",))
+    params = MC.params_from_numpy(np_params, "cpu")
+    state = {"params": params, "opt": O.init_opt_state(params)}
+    out = {"losses": [], "grad_norms": [], "params": []}
+    for step in range(steps):
+        run = LT.train_loop(cfg, state["params"], state["opt"],
+                            steps=step + 1, start=step, batch=batch,
+                            seq=seq, opt_cfg=O.AdamWConfig(**opt),
+                            device="cpu", log=lambda s: None, mesh=mesh)
+        state = {"params": run["params"], "opt": run["opt"]}
+        out["losses"] += run["losses"]
+        out["grad_norms"] += run["grad_norms"]
+        out["params"].append(_whole_np(state["params"]))
+    out["local"] = {"/".join(map(str, p)): (tuple(t.to_local().shape),
+                                            [str(x) for x in t.placements])
+                    for p, t in items(state["params"])}
+    return out
+
+
+def nan_resume_world(arch, fsdp, ckpt_dir, batch, seq, opt):
+    """On this world's mesh: 6 steps with a checkpoint every 2 and a NaN
+    at step 3 (the step-2 checkpoint restored, batches 2 and 3 skipped),
+    held bit for bit to the uninterrupted run of batches 0, 1, 4, 5; then
+    2 steps on from memory held to 2 steps resumed from the step-6
+    checkpoint.  Returns the checks, the whole step-6 state and the
+    number of checkpoint generations this rank wrote."""
+    import torch.distributed as dist
+
+    from repro_torch import dist as D
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.tree import tree_map
+
+    cfg = _model_cfg(arch, fsdp)
+    mesh = D.init_mesh((dist.get_world_size(),), ("data",))
+    writes = []
+    save = CK._save
+
+    def counted(*a, **k):
+        writes.append(a[1])
+        return save(*a, **k)
+    CK._save = counted
+    kw = dict(batch=batch, seq=seq, opt_cfg=O.AdamWConfig(**opt),
+              device="cpu", log=lambda s: None, mesh=mesh)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    saved, restores = {}, []
+
+    def on_checkpoint(kind, step, state):
+        if kind == "save":
+            saved[step] = tree_map(lambda t: t.clone(), state)
+        else:
+            restores.append((step, _local_bits_equal(state, saved[step])))
+    run = LT.train_loop(cfg, params, O.init_opt_state(params), steps=6,
+                        ckpt_dir=ckpt_dir, ckpt_every=2, inject_nan_at=3,
+                        on_checkpoint=on_checkpoint, **kw)
+    clean = LT.train_loop(cfg, params, O.init_opt_state(params), steps=2,
+                          **kw)
+    clean = LT.train_loop(cfg, clean["params"], clean["opt"], steps=6,
+                          start=4, **kw)
+    state6 = _whole_np({"params": run["params"], "opt": run["opt"]})
+    on = LT.train_loop(cfg, run["params"], run["opt"], steps=8, start=6,
+                       **kw)
+    like = LT.Layout(mesh, cfg, params, batch, seq).state(
+        params, O.init_opt_state(params))
+    p, o, start = LT.resume(ckpt_dir, *like, log=lambda s: None)
+    resumed = LT.train_loop(cfg, p, o, steps=8, start=start, **kw)
+    return {
+        "kept": [s for s, _ in run["losses"]], "saved": run["saved"],
+        "restores": restores,
+        "nan_equals_clean": _local_bits_equal(
+            {"p": run["params"], "o": run["opt"]},
+            {"p": clean["params"], "o": clean["opt"]}) and
+        [x for s, x in run["losses"] if s >= 4] ==
+        [x for _, x in clean["losses"]],
+        "resume_step": start,
+        "resume_equals_memory": _local_bits_equal(
+            {"p": on["params"], "o": on["opt"]},
+            {"p": resumed["params"], "o": resumed["opt"]}) and
+        on["losses"] == resumed["losses"],
+        "state6": state6, "writes": writes}
+
+
+def serve_world(arch, np_params, step_cost, requests, token_seed, steps):
+    """``launch.serve`` on this world's "data" mesh: its result at a given
+    step cost and with the cost measured, and the logits (gathered) of
+    ``steps`` decode steps of seeded tokens from an empty cache."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import dist as D
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import convert as MC
+
+    cfg = registry.get_smoke_config(arch)
+    mesh = D.init_mesh((dist.get_world_size(),), ("data",))
+    params = MC.params_from_numpy(np_params, "cpu")
+    fixed = LS.serve(cfg, params, requests=requests, step_cost=step_cost,
+                     device="cpu", mesh=mesh, log=lambda s: None)
+    measured = LS.serve(cfg, params, requests=requests, device="cpu",
+                        mesh=mesh, log=lambda s: None)
+    return {"fixed": fixed, "measured": measured,
+            "logits": decode_logits(cfg, params, token_seed, steps, mesh)}
+
+
+def decode_logits(cfg, params, token_seed, steps, mesh=None, slots=16,
+                  max_len=32):
+    """The whole logits of the last of ``steps`` decode steps of seeded
+    tokens from an empty cache (``launch.serve.Decoder``)."""
+    import torch
+
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch.train import replicated
+    dec = LS.Decoder(cfg, params, slots, torch.device("cpu"), mesh)
+    cache = dec.cache(max_len)
+    g = torch.Generator().manual_seed(token_seed)
+    for _ in range(steps):
+        toks = torch.randint(0, cfg.vocab_size, (slots,), generator=g,
+                             dtype=torch.int32)
+        logits, cache = dec.step(cache, dec.tokens(toks))
+    return replicated(logits).numpy()

@@ -20,6 +20,12 @@ Phases (one line each; any failure raises and exits non-zero):
   kernels  each per-event CUDA kernel against its plain PyTorch version,
            bitwise, at the stock shapes (P=3, N=256), at N=2048 and at a
            ragged N=1000, plus an all-inactive and a NaN-laden case; the
+           shed kernels also on repro_torch.kernels.shed_cases (edge-equal,
+           ±inf, collapsed and narrow-range edges, refinement levels,
+           N = 1 003, the histogram's cluster path at n = 6 144 and 2**20,
+           a 100 KB lookup table), each shed call timed as the sum of every
+           device operation it issues and gated to issue its kernel alone
+           (no memset); the
            block kernel against its plain version, bitwise, on W=32
            blocks that fire Algorithm 2 (stock SEQ/at-open at N=256 and
            N=2048, bus ANY/in-windows, soccer ANY/at-open with E-BL, all
@@ -33,9 +39,10 @@ Phases (one line each; any failure raises and exits non-zero):
            the one-lane kernel on that lane; times against the memory
            bound, and the launch path's host time per launch; the
            histogram's lane instance at L = 1, 3, 128 against its plain
-           version and the one-lane kernel row by row, the lookup over
-           128 lanes' pattern rows, and the launch floor (an empty kernel
-           launched back to back)
+           version and the one-lane kernel row by row (the hard cases
+           too), the lookup over 128 lanes' pattern rows (and at
+           N = 1 003), and the launch floor (an empty kernel launched
+           back to back)
   parity   the engine on stock specs, N=2048, 3000 events, all four
            shedders with fires: backends "cuda" and "cuda_block" on the
            card == backend "torch" on the card == backend "torch" on the
@@ -387,6 +394,41 @@ def device_us(torch, fn, kernel: str, iters: int = 100):
     return total / iters if total else None
 
 
+def call_device_us(torch, fn, kernel: str, iters: int = 100):
+    """Device time per call of ``fn`` as the profiler sees it: every
+    device operation the call issues (kernels, memsets, copies) summed,
+    the kernel whose name contains ``kernel`` alone, and the device
+    operations per call; None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return None
+    return dict(all_us=sum(r[0] for r in rows) / iters,
+                kernel_us=sum(r[0] for r in rows if kernel in r[2]) / iters,
+                ops=sum(r[1] for r in rows) / iters,
+                others=[r[2] for r in rows if kernel not in r[2]])
+
+
+def one_call(name: str, d) -> str:
+    """The log text of a ``call_device_us`` reading; a shed call must
+    issue its kernel and no other device operation (no memset, no
+    copy)."""
+    if d is None:
+        return "device not measured"
+    if d["others"]:
+        raise AssertionError(f"{name}: device operations besides its "
+                             f"kernel: {d['others']}")
+    return (f"device {d['all_us']:.3f} us per call over {d['ops']:g} "
+            f"device operations, its kernel alone "
+            f"{d['kernel_us']:.3f} us")
+
+
 def device_rows(prof) -> list:
     """(device us, calls, name) of every device-side event of a profile
     (kernels, copies, memsets), heaviest first.  The host ops that
@@ -557,29 +599,41 @@ def phase_kernels(torch, np) -> dict:
                         cuda_ms(torch, lambda: ks.utility_histogram_plain(
                             uu, edges))),
                 }
-                dev_us = {
-                    "nfa_advance": device_us(torch, lambda: kn.nfa_advance(
-                        *nfa_args), "nfa_advance_kernel"),
-                    "utility_lookup": device_us(torch, lambda: ks.
-                                                utility_lookup(*lk_args),
-                                                "utility_lookup_kernel"),
-                    "utility_histogram": device_us(
+                # The shed calls: every device operation each issues.
+                calls = {
+                    "utility_lookup": call_device_us(
+                        torch, lambda: ks.utility_lookup(*lk_args),
+                        "utility_lookup_kernel"),
+                    "utility_histogram": call_device_us(
                         torch, lambda: ks.utility_histogram_edges(uu, edges),
-                        "utility_histogram_kernel"),
-                }
+                        "utility_histogram_kernel")}
+                dev_us = {name: None if d is None else d["all_us"]
+                          for name, d in calls.items()}
+                dev_us["nfa_advance"] = device_us(
+                    torch, lambda: kn.nfa_advance(*nfa_args),
+                    "nfa_advance_kernel")
                 for name, (k_ms, p_ms) in times.items():
                     bound = bytes_[name] / HBM_BYTES_PER_S * 1e3
-                    d_us = "not measured" if dev_us[name] is None else \
-                        f"{dev_us[name]:.3f} us"
+                    if name in calls:
+                        d_us = one_call(name, calls[name])
+                    else:
+                        d_us = "device-only not measured" if \
+                            dev_us[name] is None else \
+                            f"device-only {dev_us[name]:.3f} us"
                     log("kernels", f"{name} P={P} N={N}: bitwise ok "
                         f"(random, all_inactive, nan_laden); kernel "
-                        f"{k_ms:.6f} ms per call (device-only {d_us}), "
+                        f"{k_ms:.6f} ms per call ({d_us}), "
                         f"plain {p_ms:.6f} ms, library none, bound "
                         f"{bound:.6f} ms ({bytes_[name]} B at 3.35 TB/s)")
                     if N == 256:     # the stock main path's shape
                         record[name] = dict(ms=k_ms, plain_ms=p_ms,
                                             bound_ms=bound,
                                             device_us=dev_us[name])
+                        if calls.get(name):
+                            record[name]["kernel_device_us"] = \
+                                calls[name]["kernel_us"]
+    for name, err in shed_hard_cases(torch, np).items():
+        errs[name] = max(errs[name], err)
     for name, err in errs.items():
         record[name]["max_abs_err"] = err
         log("kernels", f"{name}: max |kernel - plain| {err!r} over every "
@@ -593,18 +647,89 @@ def phase_kernels(torch, np) -> dict:
     return record
 
 
+def shed_hard_cases(torch, np) -> dict:
+    """The shed kernels' hard inputs (``kernels.shed_cases``), each
+    bitwise against the plain version: the one-lane histogram on
+    edge-equal, ±inf, collapsed and narrow-range edges, a refinement
+    level and all-NaN utilities at n = 768 and 1 003 (a ragged last
+    warp), and past one CTA a lane (the cluster path: n = 6 144 and
+    2**20); the lookup on random, all-inactive and NaN-laden
+    stores and a 100 KB table a row, at stock's (3, 256), at N = 1 003
+    and over the trim's 384 rows.  Returns max |kernel - plain| by
+    kernel."""
+    from repro_torch.kernels import shed_cases as sc
+    from repro_torch.kernels import shed_select as ks
+
+    dev = torch.device("cuda")
+    errs = {"utility_histogram": 0.0, "utility_lookup": 0.0}
+    hist = [(case, n) for case in sc.HIST_CASES for n in (768, 1003)] + \
+        [("refinement", 6144), ("random", 1 << 20)]
+    for case, n in hist:
+        u, _, _, e = sc.hist_case(case, 1, n, 128, seed=n)
+        u, e = torch.from_numpy(u[0]).to(dev), torch.from_numpy(e[0]).to(dev)
+        got = ks.utility_histogram_edges(u, e)
+        want = ks.utility_histogram_plain(u, e)
+        torch.cuda.synchronize()
+        if not same(torch, got, want):
+            raise AssertionError(f"utility_histogram {case} n={n} "
+                                 f"({ks.hist_ctas(n)} CTAs) != plain")
+        errs["utility_histogram"] = max(errs["utility_histogram"],
+                                        max_abs_err(torch, got, want))
+    for case in sc.LOOKUP_CASES:
+        for P, N in ((3, 256), (3, 1003), (3 * RT_LANES, 256)):
+            args = tuple(torch.from_numpy(a).to(dev)
+                         for a in sc.lookup_case(case, P, N, seed=P + N))
+            got = ks.utility_lookup(*args)
+            want = ks.utility_lookup_plain(*args)
+            torch.cuda.synchronize()
+            if not same(torch, got, want):
+                raise AssertionError(f"utility_lookup {case} P={P} N={N} "
+                                     "!= plain")
+            errs["utility_lookup"] = max(errs["utility_lookup"],
+                                         max_abs_err(torch, got, want))
+    log("kernels", f"shed kernels on their hard cases: histogram "
+        f"{list(sc.HIST_CASES)} at n = 768, 1 003, and past one CTA "
+        f"(n = 6 144, 2**20: clusters of {ks.hist_ctas(6144)}, "
+        f"{ks.hist_ctas(1 << 20)}); lookup {list(sc.LOOKUP_CASES)} at (3, "
+        f"256), (3, 1 003), ({3 * RT_LANES}, 256): bitwise ok, max |kernel "
+        f"- plain| {errs}")
+    return errs
+
+
 def phase_hist_lanes(torch, np) -> dict:
-    """The histogram's lane instance (grid y = lane) against its plain
-    version and, row by row, the one-lane kernel, at L = 1, 3 and 128 on
-    the ladder's trim shape (P·N = 3 x 256 utilities per lane, 128 bins,
-    a third of them NaN); timed at L = 128."""
+    """The histogram's lane instance against its plain version and, row
+    by row, the one-lane kernel, at L = 1, 3 and 128 on the ladder's trim
+    shape (P·N = 3 x 256 utilities per lane, 128 bins, a third of them
+    NaN) and on every hard case of ``kernels.shed_cases`` (n = 1 003 at
+    L = 3: lanes off a 16-byte boundary); timed at L = 128, every device
+    operation of a call summed."""
     from repro_torch.core.shedder import bucket_edges
+    from repro_torch.kernels import shed_cases as sc
     from repro_torch.kernels import shed_select as ks
 
     dev = torch.device("cuda")
     n, nbins = 3 * 256, 128
     err, out = 0.0, {}
+
+    def check(u, edges, what):
+        nonlocal err
+        L = u.shape[0]
+        got = ks.utility_histogram_lanes(u, edges)
+        want = ks.utility_histogram_lanes_plain(u, edges)
+        rows = torch.stack([ks.utility_histogram_edges(u[k], edges[k])
+                            for k in range(L)])
+        torch.cuda.synchronize()
+        if not (same(torch, got, want) and same(torch, got, rows)):
+            raise AssertionError(f"utility_histogram_lanes {what} != plain "
+                                 "or the one-lane kernel")
+        err = max(err, max_abs_err(torch, got, want))
+
     for L in (1, 3, RT_LANES):
+        for case in sc.HIST_CASES:
+            for m in ((n, 1003) if L == 3 else (n,)):
+                u, _, _, e = sc.hist_case(case, L, m, nbins, seed=L + m)
+                check(torch.from_numpy(u).to(dev),
+                      torch.from_numpy(e).to(dev), f"L={L} n={m} {case}")
         rng = np.random.default_rng(L)
         u = rng.random((L, n)).astype(np.float32)
         u[rng.random((L, n)) < 1 / 3] = np.nan
@@ -612,34 +737,29 @@ def phase_hist_lanes(torch, np) -> dict:
         lo = torch.nan_to_num(u, nan=2.0).amin(1)
         hi = torch.nan_to_num(u, nan=-1.0).amax(1)
         edges = bucket_edges(lo, torch.where(hi > lo, hi, lo + 1.0), nbins)
-        got = ks.utility_histogram_lanes(u, edges)
-        want = ks.utility_histogram_lanes_plain(u, edges)
-        rows = torch.stack([ks.utility_histogram_edges(u[k], edges[k])
-                            for k in range(L)])
-        torch.cuda.synchronize()
-        if not (same(torch, got, want) and same(torch, got, rows)):
-            raise AssertionError(f"utility_histogram_lanes L={L} != plain "
-                                 "or the one-lane kernel")
-        err = max(err, max_abs_err(torch, got, want))
+        check(u, edges, f"L={L}")
         if L == RT_LANES:
             k_ms = cuda_ms(torch, lambda: ks.utility_histogram_lanes(
                 u, edges))
             p_ms = cuda_ms(torch, lambda: ks.utility_histogram_lanes_plain(
                 u, edges), iters=20)
-            d_us = device_us(torch, lambda: ks.utility_histogram_lanes(
+            d = call_device_us(torch, lambda: ks.utility_histogram_lanes(
                 u, edges), "utility_histogram_kernel")
             nbytes = L * n * 4 + L * (nbins + 1) * 4 + L * nbins * 4
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
             log("kernels", f"utility_histogram_lanes L={L} n={n} "
-                f"nbins={nbins}: kernel {k_ms:.6f} ms per call (device-only "
-                f"{d_txt}), plain {p_ms:.6f} ms, library none, bound "
-                f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
+                f"nbins={nbins}: kernel {k_ms:.6f} ms per call "
+                f"({one_call('utility_histogram_lanes', d)}), plain "
+                f"{p_ms:.6f} ms, library none, bound {bound:.6f} ms "
+                f"({nbytes} B at 3.35 TB/s)")
             out = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                       device_us=d_us, lanes=L)
-    log("kernels", f"utility_histogram_lanes at L = 1, 3, {RT_LANES}: equal "
-        f"to its plain version and to the one-lane kernel row by row, max "
-        f"|kernel - plain| {err!r}")
+                       device_us=None if d is None else d["all_us"],
+                       kernel_device_us=None if d is None else
+                       d["kernel_us"], lanes=L)
+    log("kernels", f"utility_histogram_lanes at L = 1, 3, {RT_LANES} on "
+        f"{list(sc.HIST_CASES)} and the trim's shape: equal to its plain "
+        f"version and to the one-lane kernel row by row, max |kernel - "
+        f"plain| {err!r}")
     out["max_abs_err"] = err
     return out
 
@@ -647,11 +767,20 @@ def phase_hist_lanes(torch, np) -> dict:
 def lookup_over_lanes(torch, np) -> dict:
     """The lookup over L·P pattern rows laid end to end (the trim over
     128 stock lanes: 384 rows of N = 256), one launch, against its plain
-    version."""
+    version, and at N = 1 003 on every lookup case of
+    ``kernels.shed_cases``; timed at N = 256, every device operation of a
+    call summed."""
+    from repro_torch.kernels import shed_cases as sc
     from repro_torch.kernels import shed_select as ks
 
     dev = torch.device("cuda")
     P, N, M, C1, B = 3 * RT_LANES, 256, 11, 11, 38
+    for case in sc.LOOKUP_CASES:
+        a = tuple(torch.from_numpy(x).to(dev)
+                  for x in sc.lookup_case(case, P, 1003, seed=5))
+        if not same(torch, ks.utility_lookup(*a), ks.utility_lookup_plain(*a)):
+            raise AssertionError(f"utility_lookup over L·P rows, N = 1 003, "
+                                 f"{case} != plain")
     c = {k: torch.from_numpy(v).to(dev)
          for k, v in kernel_cases(np, P, N, M, C1, B, 7).items()}
     args = (c["state"], c["r_w"], c["active"], c["tables"], c["bins"])
@@ -661,17 +790,18 @@ def lookup_over_lanes(torch, np) -> dict:
         raise AssertionError("utility_lookup over L·P rows != plain")
     k_ms = cuda_ms(torch, lambda: ks.utility_lookup(*args))
     p_ms = cuda_ms(torch, lambda: ks.utility_lookup_plain(*args), iters=20)
-    d_us = device_us(torch, lambda: ks.utility_lookup(*args),
-                     "utility_lookup_kernel")
+    d = call_device_us(torch, lambda: ks.utility_lookup(*args),
+                       "utility_lookup_kernel")
     nbytes = bound_bytes(torch, c, 128)["utility_lookup"]
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    d_txt = "not measured" if d_us is None else f"{d_us:.3f} us"
     log("kernels", f"utility_lookup over {RT_LANES} lanes' pattern rows "
-        f"(P={P}, N={N}): bitwise ok; kernel {k_ms:.6f} ms per call "
-        f"(device-only {d_txt}), plain {p_ms:.6f} ms, bound {bound:.6f} ms "
-        f"({nbytes} B at 3.35 TB/s)")
+        f"(P={P}, N={N}; and N = 1 003 on {list(sc.LOOKUP_CASES)}): "
+        f"bitwise ok; kernel {k_ms:.6f} ms per call "
+        f"({one_call('utility_lookup', d)}), plain {p_ms:.6f} ms, bound "
+        f"{bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
     return dict(lanes_ms=k_ms, lanes_plain_ms=p_ms, lanes_bound_ms=bound,
-                lanes_device_us=d_us)
+                lanes_device_us=None if d is None else d["all_us"],
+                lanes_kernel_device_us=None if d is None else d["kernel_us"])
 
 
 def launch_floor(torch) -> dict:
@@ -6111,7 +6241,8 @@ def main() -> int:
                       "bound_ms_by_lanes", "quality_launches", "device_us",
                       "launch_floor_us", "launch_floor_device_us",
                       "lanes_ms", "lanes_plain_ms", "lanes_bound_ms",
-                      "lanes_device_us",
+                      "lanes_device_us", "kernel_device_us",
+                      "lanes_kernel_device_us",
                       "trim_ms", "trim_lane_by_lane_ms", "trim_launches",
                       "trim_lane_by_lane_launches", "dist_launches",
                       "moe_launches", "tflops", "train_launches",

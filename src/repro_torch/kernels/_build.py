@@ -38,8 +38,8 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "nfa_advance_launch": [_VP] * 8 + [_I] * 4 + [_VP] * 3,
     "utility_lookup_launch": [_VP] * 5 + [_I] * 4 + [_VP] * 2,
-    "utility_histogram_launch": [_VP, _LL, _VP, _I, _VP, _VP],
-    "utility_histogram_lanes_launch": [_VP, _I, _LL, _VP, _I, _VP, _VP],
+    "utility_histogram_launch": [_VP, _LL, _VP, _I, _I, _VP, _VP],
+    "utility_histogram_lanes_launch": [_VP, _I, _LL, _VP, _I, _I, _VP, _VP],
     "block_step_launch": [_VP, _VP],
     "threefry_probe_launch": [_VP, _I, _I, _VP, _VP, _VP],
     "empty_kernel_launch": [_I, _VP],

@@ -17,7 +17,9 @@ Port of ``repro.kernels.shed_select``:
      lane-instance launch per refinement level.
 
 Each wrapper launches its CUDA kernel (``csrc/shed_select.cu``) for CUDA
-tensors and computes its plain PyTorch version for CPU tensors.
+tensors and computes its plain PyTorch version for CPU tensors.  How
+many CTAs (one, or a thread-block cluster of 8) a histogram lane takes is
+chosen here, from n alone.
 """
 from __future__ import annotations
 
@@ -28,6 +30,13 @@ from repro_torch.core.shedder import bucket_edges
 from repro_torch.kernels import _build
 
 INACTIVE = 3.4e38
+# A histogram lane of up to HIST_ONE_CTA utilities takes one CTA (up to
+# 1 024 threads, then 4 utilities a thread); a longer one a cluster of
+# MAX_CLUSTER CTAs (the portable cluster size), which costs about a
+# microsecond of its own and pays past ~4 096 utilities a lane
+# (``tests/_shed_probe.py sweep`` on the H100).
+HIST_ONE_CTA = 4096
+MAX_CLUSTER = 8
 
 
 def utility_lookup_plain(state, r_w, active, tables, bin_sizes):
@@ -98,6 +107,9 @@ def utility_lookup(state: torch.Tensor, r_w: torch.Tensor,
             ("tables", tables, torch.float32, (P, B, M)),
             ("bin_sizes", bin_sizes, torch.int32, (P,))):
         _check("utility_lookup", name, t, dt, shp, dev)
+    if P > 65535 or P * N >= 2 ** 31:
+        raise ValueError(f"utility_lookup: rows must be at most 65 535 and "
+                         f"P·N below 2**31: {P} x {N}")
     out = torch.empty((P, N), dtype=torch.float32, device=dev)
     lib = _build.load()
     _build.check(lib.utility_lookup_launch(
@@ -107,6 +119,11 @@ def utility_lookup(state: torch.Tensor, r_w: torch.Tensor,
         "utility_lookup")
     utility_lookup.launches += 1
     return out
+
+
+def hist_ctas(n: int) -> int:
+    """CTAs (the cluster's size) a histogram lane of n utilities takes."""
+    return 1 if n <= HIST_ONE_CTA else MAX_CLUSTER
 
 
 def utility_histogram_edges(u: torch.Tensor,
@@ -122,12 +139,16 @@ def utility_histogram_edges(u: torch.Tensor,
         raise ValueError(f"utility_histogram: nbins must be in [1, 4096]: "
                          f"{nbins}")
     _check("utility_histogram", "u", u, torch.float32, (u.shape[0],), dev)
+    if u.shape[0] > 2 ** 30:
+        raise ValueError(f"utility_histogram: n must be at most 2**30: "
+                         f"{u.shape[0]}")
     _check("utility_histogram", "edges", edges, torch.float32,
            (nbins + 1,), dev)
     out = torch.empty((nbins,), dtype=torch.int32, device=dev)
     lib = _build.load()
     _build.check(lib.utility_histogram_launch(
-        u.data_ptr(), u.shape[0], edges.data_ptr(), nbins, out.data_ptr(),
+        u.data_ptr(), u.shape[0], edges.data_ptr(), nbins,
+        hist_ctas(u.shape[0]), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "utility_histogram")
     utility_histogram_edges.launches += 1
     return out
@@ -167,13 +188,16 @@ def utility_histogram_lanes(u: torch.Tensor,
         raise ValueError(f"utility_histogram_lanes: lanes must be in "
                          f"[1, 65535]: {L}")
     _check("utility_histogram_lanes", "u", u, torch.float32, (L, n), dev)
+    if n > 2 ** 30:
+        raise ValueError(f"utility_histogram_lanes: n must be at most "
+                         f"2**30: {n}")
     _check("utility_histogram_lanes", "edges", edges, torch.float32,
            (L, nbins + 1), dev)
     out = torch.empty((L, nbins), dtype=torch.int32, device=dev)
     lib = _build.load()
     _build.check(lib.utility_histogram_lanes_launch(
-        u.data_ptr(), L, n, edges.data_ptr(), nbins, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream),
+        u.data_ptr(), L, n, edges.data_ptr(), nbins, hist_ctas(n),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
         "utility_histogram_lanes")
     utility_histogram_lanes.launches += 1
     return out

@@ -26,6 +26,7 @@ from repro_torch.data import streams
 from repro_torch.kernels import block_step as kblock
 from repro_torch.kernels import nfa_transition as kn
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import shed_cases
 from repro_torch.kernels import shed_select as ks
 
 pytestmark = pytest.mark.gpu
@@ -881,3 +882,129 @@ def test_analysis_block_inplace_on_lane_instance(cuda):
                  "no-sync"):
         got = [f for f in fs if f.rule == rule]
         assert got and all(f.ok for f in got), (rule, got)
+
+
+# ---------------------------------------------------------------------------
+# The shed kernels on their hard inputs (kernels.shed_cases)
+# ---------------------------------------------------------------------------
+
+def _hist_on(case, L, n, nbins, dev, seed=0):
+    u, _, _, e = shed_cases.hist_case(case, L, n, nbins, seed=seed)
+    return torch.from_numpy(u).to(dev), torch.from_numpy(e).to(dev)
+
+
+@pytest.mark.parametrize("L", [1, 3, 128])
+@pytest.mark.parametrize("case", shed_cases.HIST_CASES)
+def test_histogram_kernel_equals_plain_hard_cases(cuda, case, L):
+    """Both histogram instances on edge-equal, ±inf, collapsed and
+    narrow-range edges, a refinement level and all-NaN lanes, at n = 768
+    and at n = 1 003 (lanes that start off a 16-byte boundary): equal to
+    the plain version and, lane by lane, to the one-lane kernel."""
+    for n in (768, 1003):
+        u, e = _hist_on(case, L, n, 128, cuda, seed=L + n)
+        got = ks.utility_histogram_lanes(u, e)
+        want = ks.utility_histogram_lanes_plain(u, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (case, L, n)
+        for k in sorted({0, L // 2, L - 1}):
+            assert torch.equal(ks.utility_histogram_edges(u[k], e[k]),
+                               want[k])
+
+
+@pytest.mark.parametrize("L,n,nbins,ctas", [(1, 4097, 1, 2),
+                                            (1, 6144, 4096, 3),
+                                            (3, 65536 + 3, 128, 8),
+                                            (3, 65536 + 3, 4096, 5),
+                                            (2, 6144, 128, None),
+                                            (1, 1 << 20, 128, None)])
+def test_histogram_cluster_path_equals_plain(cuda, monkeypatch, L, n, nbins,
+                                             ctas):
+    """A lane spread over a cluster of CTAs (distributed shared memory, no
+    global atomics), whose CTAs loop over their shares in batches: the
+    cluster sizes forced, and the wrapper's own choice for lanes of
+    6 144 (one utility a thread) and 2**20 (rounds of 4 a thread); equal
+    to the plain version, and the one-lane call to the lane call's row."""
+    if ctas is None:
+        assert ks.hist_ctas(n) > 1
+    else:
+        monkeypatch.setattr(ks, "hist_ctas", lambda n: ctas)
+    u, e = _hist_on("refinement" if nbins == 128 else "random", L, n, nbins,
+                    cuda, seed=n)
+    got = ks.utility_histogram_lanes(u, e)
+    want = torch.stack([ks.utility_histogram_plain(u[k], e[k])
+                        for k in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ks.utility_histogram_edges(u[-1], e[-1]), want[-1])
+
+
+def test_histogram_unaligned_and_empty(cuda):
+    """Lanes that start 4, 8 or 12 bytes past a 16-byte boundary, lanes
+    of a few utilities (one partial warp), and n = 0 (every count written
+    0, with no memset)."""
+    u, e = _hist_on("random", 1, 4096, 64, cuda)
+    for off in (1, 2, 3):
+        for n in (0, 1, 3, 5, 1000, 4000):
+            v = u[0, off:off + n]
+            assert torch.equal(ks.utility_histogram_edges(v, e[0]),
+                               ks.utility_histogram_plain(v, e[0])), (off, n)
+    out = ks.utility_histogram_lanes(u[:, :0].contiguous(), e)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("P,N", [(3, 256), (3, 1003), (384, 256), (2, 37)])
+@pytest.mark.parametrize("case", shed_cases.LOOKUP_CASES)
+def test_lookup_kernel_equals_plain_hard_cases(cuda, case, P, N):
+    """The lookup at stock's (P, N), at N = 1 003 (a ragged last CTA),
+    over the trim's L·P = 384 rows and over many short rows a CTA, on
+    random, all-inactive and NaN-laden stores and a 100 KB table a row:
+    equal to the plain version."""
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in shed_cases.lookup_case(case, P, N, seed=P + N))
+    want = ks.utility_lookup_plain(*args)
+    got = ks.utility_lookup(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num()), case
+
+
+def test_lookup_unaligned_store(cuda):
+    """A store whose rows do not start on a 16-byte boundary (a view one
+    element into a larger tensor)."""
+    state, r_w, active, tables, bins = (
+        torch.from_numpy(a).to(cuda)
+        for a in shed_cases.lookup_case("random", 3, 257, seed=1))
+    s = torch.cat([state.new_zeros(1), state.reshape(-1)])[1:].view(3, 257)
+    r = torch.cat([r_w.new_zeros(1), r_w.reshape(-1)])[1:].view(3, 257)
+    assert s.data_ptr() % 16 and r.data_ptr() % 16
+    assert torch.equal(ks.utility_lookup(s, r, active, tables, bins),
+                       ks.utility_lookup_plain(state, r_w, active, tables,
+                                               bins))
+
+
+def test_shed_calls_issue_one_device_operation(cuda):
+    """Each histogram call (one lane, lanes, a cluster) and each lookup
+    call is one kernel on the card: no memset before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    u, e = _hist_on("random", 128, 768, 128, cuda)
+    big, eb = _hist_on("random", 1, 1 << 16, 128, cuda)
+    lk = tuple(torch.from_numpy(a).to(cuda)
+               for a in shed_cases.lookup_case("random", 384, 256))
+    for fn, kernel in (
+            (lambda: ks.utility_histogram_edges(u[0], e[0]),
+             "utility_histogram_kernel"),
+            (lambda: ks.utility_histogram_lanes(u, e),
+             "utility_histogram_kernel"),
+            (lambda: ks.utility_histogram_edges(big[0], eb[0]),
+             "utility_histogram_kernel"),
+            (lambda: ks.utility_lookup(*lk), "utility_lookup_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(k.key, k.count) for k in prof.key_averages()
+                if k.device_type != DeviceType.CPU and k.count]
+        assert len(rows) == 1 and kernel in rows[0][0], rows

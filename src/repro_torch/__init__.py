@@ -13,7 +13,8 @@ when no card is present; the CPU is used only when a caller passes
 import importlib
 
 __all__ = ["cep", "configs", "core", "data", "device", "dist", "eval", "fp",
-           "kernels", "launch", "models", "prng", "runtime", "serving"]
+           "kernels", "launch", "models", "prng", "runtime", "serving",
+           "spans"]
 
 
 def __getattr__(name: str):

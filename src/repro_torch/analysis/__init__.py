@@ -16,13 +16,11 @@ from repro_torch.analysis.contracts import (      # noqa: F401
     Contract, contract, get_contract, get_entry, registry)
 from repro_torch.analysis.rules import (          # noqa: F401
     Artifact, Finding, Rule, RULES, run_artifact, run_rules)
-from repro_torch.analysis.tracing import (        # noqa: F401
-    CompileCounter, count_traces, reset_trace_counts, trace_counts)
+from repro_torch.analysis.tracing import CompileCounter  # noqa: F401
 
 __all__ = ["Contract", "contract", "get_contract", "get_entry",
            "registry", "Artifact", "Finding", "Rule", "RULES",
-           "run_artifact", "run_rules", "CompileCounter", "count_traces",
-           "reset_trace_counts", "trace_counts", "check_all"]
+           "run_artifact", "run_rules", "CompileCounter", "check_all"]
 
 
 def __getattr__(name):

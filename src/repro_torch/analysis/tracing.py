@@ -1,52 +1,25 @@
 """Rebuild guard (DESIGN.md §11): compilation counting as a contract.
 
-Port of ``repro.analysis.tracing``.  Under eager PyTorch nothing is
-traced or jit-compiled; what the port builds is its kernel library
-(``kernels/_build.py``: ``build`` runs nvcc, ``load`` opens the library)
-and its cached plans (the scale-out's ``dist.sharding._lanes_plan``).
-After warm-up none of them may be made again: the budget is 0.
+Port of ``repro.analysis.tracing``'s rebuild guard.  Under eager PyTorch
+nothing is traced or jit-compiled; what the port builds is its kernel
+library (``kernels/_build.py``: ``build`` runs nvcc, ``load`` opens the
+library) and its cached plans (the scale-out's
+``dist.sharding._lanes_plan``).  After warm-up none of them may be made
+again: the budget is 0.
 
-* :class:`CompileCounter` — snapshots each source's count (a function
-  attribute ``compiles``, or an ``lru_cache``'s misses) and reports the
-  DELTA inside the ``with`` block.  A plan keyed on a per-call value
-  misses once per VALUE and blows the budget immediately.
+:class:`CompileCounter` snapshots each source's count (a function
+attribute ``compiles``, or an ``lru_cache``'s misses) and reports the
+DELTA inside the ``with`` block.  A plan keyed on a per-call value
+misses once per VALUE and blows the budget immediately.
+:func:`retrace_findings` converts the measured counts into the same
+Finding rows the cell rules emit.
 
-* :func:`count_traces` — counts calls of a Python body.  Under jit a
-  body runs once per trace; under eager torch a trace is a call, so the
-  counter counts calls (the reference's name is kept).
-
-Both feed :func:`retrace_findings`, which converts measured counts into
-the same Finding rows the cell rules emit.
+The runtime's own timeline (what its host work costs, step by step) is
+``repro_torch.spans``.
 """
 from __future__ import annotations
 
-import collections
-import functools
-
 from repro_torch.analysis.rules import Finding
-
-_TRACE_COUNTS: collections.Counter = collections.Counter()
-
-
-def count_traces(name: str):
-    """Count executions of ``fn``'s body (under eager torch: calls)."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kw):
-            _TRACE_COUNTS[name] += 1
-            return fn(*args, **kw)
-        wrapper.__wrapped__ = fn
-        wrapper._trace_counter_name = name
-        return wrapper
-    return deco
-
-
-def trace_counts() -> dict:
-    return dict(_TRACE_COUNTS)
-
-
-def reset_trace_counts() -> None:
-    _TRACE_COUNTS.clear()
 
 
 def _compiles(src) -> int:
@@ -78,7 +51,6 @@ class CompileCounter:
 
     def __enter__(self):
         self._base = {id(s): _compiles(s) for s in self._sources}
-        self._trace_base = dict(_TRACE_COUNTS)
         return self
 
     def __exit__(self, *exc):
@@ -86,9 +58,6 @@ class CompileCounter:
 
     def compiles(self, src) -> int:
         return _compiles(src) - self._base.get(id(src), 0)
-
-    def traces(self, name: str) -> int:
-        return _TRACE_COUNTS.get(name, 0) - self._trace_base.get(name, 0)
 
 
 def retrace_findings(measured: dict, budgets: dict, cell: str = "sweep",

@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import fp, prng
+from repro_torch import fp, prng, spans
 from repro_torch.analysis import contracts as ctr
 from repro_torch.cep import patterns as pat
 from repro_torch.core import overload as ovl
@@ -486,10 +486,12 @@ def _cost_sum(cp: np.ndarray, n_act: np.ndarray,
 
 
 def _read(t: torch.Tensor) -> np.ndarray:
-    """One device→host read on the event loop (counted)."""
+    """One device→host read on the event loop (counted, and spanned as
+    ``engine.read``, n = bytes)."""
     global host_syncs
     host_syncs += 1
-    return t.cpu().numpy()
+    with spans.span("engine.read", n=t.numel() * t.element_size()):
+        return t.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -990,7 +992,7 @@ def _own(carry: Carry, copy: bool = True) -> Carry:
 
 
 def _replay(cfg: EngineConfig, model: EngineModel, scan: kblock.BlockScan,
-            b: int, i0: int, n_valid: int) -> None:
+            b: int, i0: int, n_valid: int) -> int:
     """Block ``b`` of ``scan`` in the replay protocol
     (``block_shed="replay"`` or ``shed_plan="sort"``): the kernel commits
     events up to the first fire; the fired event is replayed through the
@@ -1000,13 +1002,15 @@ def _replay(cfg: EngineConfig, model: EngineModel, scan: kblock.BlockScan,
     lane-stacked scan every launch runs all lanes from their own starts —
     a lane that has finished its block starts at ``n_valid`` and does
     nothing — and each lane that stopped replays its own event, as the
-    reference's batched while loop does."""
+    reference's batched while loop does.  Returns the launches made."""
     replay_cfg = dataclasses.replace(cfg, backend=BACKEND_CUDA)
     W = cfg.block_events
     off = b * W
     L = scan.lanes
     starts = [0] * (L or 1)
+    launches = 0
     while any(s < n_valid for s in starts):
+        launches += 1
         status = _read(scan.launch(b, i0, starts[0] if L is None else
                                    starts, n_valid)).reshape(-1, 2)
         for k, (fired, j) in enumerate(status.tolist()):
@@ -1026,6 +1030,7 @@ def _replay(cfg: EngineConfig, model: EngineModel, scan: kblock.BlockScan,
             for name, v in zip(StepOut._fields, row):
                 lv(scan.rows[name])[off + j] = v[0]
             starts[k] = j + 1
+    return launches
 
 
 def _scan_blocks(cfg: EngineConfig, model: EngineModel, events: EventBatch,
@@ -1044,20 +1049,25 @@ def _scan_blocks(cfg: EngineConfig, model: EngineModel, events: EventBatch,
     ``_replay``."""
     n = events.ev_class.shape[0 if lanes is None else 1]
     W = cfg.block_events
-    blocks, nb = _pad_event_blocks(events, n, W, axis=0 if lanes is None
-                                   else 1)
-    carry = _own(carry, copy=not own)
-    rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device, lanes=lanes)
-    scan = kblock.BlockScan(cfg, model, carry, blocks, rows, lanes=lanes)
+    with spans.span("driver.prepare"):
+        blocks, nb = _pad_event_blocks(events, n, W, axis=0 if lanes is None
+                                       else 1)
+        carry = _own(carry, copy=not own)
+        rows = kblock.new_rows(cfg, nb * W, carry.sim_time.device,
+                               lanes=lanes)
+        scan = kblock.BlockScan(cfg, model, carry, blocks, rows, lanes=lanes)
     replay = cfg.shedder in (SHED_PSPICE, SHED_PMBL) and \
         not kblock.fused_shed(cfg)
-    for b in range(nb):
-        off = b * W
-        i0, n_valid = _wrap32(start + off), min(max(n - off, 0), W)
-        if replay:
-            _replay(cfg, model, scan, b, i0, n_valid)
-        else:
-            scan.launch(b, i0, 0, n_valid)
+    with spans.span("driver.launches") as sp:
+        for b in range(nb):
+            off = b * W
+            i0, n_valid = _wrap32(start + off), min(max(n - off, 0), W)
+            if replay:
+                sp.n += _replay(cfg, model, scan, b, i0, n_valid)
+            else:
+                scan.launch(b, i0, 0, n_valid)
+        if not replay:
+            sp.n = nb
     cut = (lambda v: v[:n]) if lanes is None else (lambda v: v[:, :n])
     return carry, StepOut(**{k: cut(v) for k, v in rows.items()})
 

@@ -19,6 +19,7 @@ from typing import Iterator
 
 import torch
 
+from repro_torch import spans
 from repro_torch.cep.engine import EventBatch
 
 
@@ -126,15 +127,17 @@ class ChunkBuffer:
         available).  The runtime runs the region in chunk groups.  The
         tail stays buffered exactly as with ``push``.  The region (and
         everything ``drain`` later returns) never aliases the pushed
-        batch."""
-        buf = concat_events(self._pending, events, self.axis)
-        n = num_events(buf, self.axis)
-        n_full = (n // self.chunk_size) * self.chunk_size
-        start = self._next_start
-        region = slice_events(buf, 0, n_full, self.axis) if n_full else None
-        self._pending = slice_events(buf, n_full, n, self.axis) \
-            if n > n_full else None
-        self._next_start += n_full
+        batch.  Spanned as ``runtime.buffer`` (n = events pushed)."""
+        with spans.span("runtime.buffer", n=num_events(events, self.axis)):
+            buf = concat_events(self._pending, events, self.axis)
+            n = num_events(buf, self.axis)
+            n_full = (n // self.chunk_size) * self.chunk_size
+            start = self._next_start
+            region = slice_events(buf, 0, n_full, self.axis) \
+                if n_full else None
+            self._pending = slice_events(buf, n_full, n, self.axis) \
+                if n > n_full else None
+            self._next_start += n_full
         return start, region, n_full // self.chunk_size
 
     def drain(self) -> list[tuple[int, EventBatch]]:

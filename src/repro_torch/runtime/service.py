@@ -31,8 +31,10 @@ import os
 import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.analysis import contracts as ctr
 from repro_torch.cep import engine as eng
 from repro_torch.cep import patterns as pat
@@ -215,8 +217,16 @@ def _run_group(scan_fn, cfg: eng.EngineConfig, model: eng.EngineModel,
                                  for x in events))
         carry, outs = scan_fn(cfg, model, piece, carry,
                               eng.wrap_event_index(start + b * cs), own=True)
-        vecs.append(TM.device_chunk_stats(outs, carry))
+        with spans.span("runtime.chunk_stats"):
+            vecs.append(TM.device_chunk_stats(outs, carry))
     return carry, torch.stack(vecs)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A chunk's (or group's) stats on the host: the runtime's one read
+    of the device a chunk, spanned as ``runtime.to_host`` (n = bytes)."""
+    with spans.span("runtime.to_host", n=t.numel() * t.element_size()):
+        return t.cpu().numpy()
 
 
 # The group step over one stream and over lane-stacked streams: the
@@ -258,32 +268,37 @@ class StreamRuntime:
                  specs: Sequence[pat.PatternSpec] | None = None,
                  carry: eng.Carry | None = None, seed: int = 0,
                  device=None):
-        self.device = resolve_device(device)
-        check_on(self.device, trans=model.trans, ut_tables=model.ut_tables)
-        self.cfg = cfg
-        self.model = model
-        self.rt = rt or RuntimeConfig()
-        self.specs = list(specs) if specs is not None else None
-        if self._refresh_on() and not cfg.gather_stats:
-            raise ValueError("model refresh needs cfg.gather_stats=True "
-                             "(the carry must accumulate observations)")
-        if self._refresh_on() and self.specs is None:
-            raise ValueError("model refresh needs the PatternSpec list")
-        if self._refresh_on():
-            # Refresh must never change array shapes mid-stream: widen
-            # the utility tables to refresh width up front.
-            self.model = RF.prepare_model(self.specs, self.model,
-                                          self.rt.refresh)
-        self.carry = carry if carry is not None else self._init_carry(seed)
-        check_on(self.device, active=self.carry.pms.active,
-                 sim_time=self.carry.sim_time)
-        self.telemetry = TM.TelemetryLog()
-        self.refresh_state = self._refresh_states()
-        self._buf = chunker.ChunkBuffer(self.rt.chunk_size, axis=self._axis)
-        self._chunk_i = 0
-        self.events_processed = 0
-        self._snapshot: dict[str, float] | None = None
-        self._init_resilience()
+        with spans.span("runtime.construct"):
+            self.device = resolve_device(device)
+            check_on(self.device, trans=model.trans, ut_tables=model.ut_tables)
+            self.cfg = cfg
+            self.model = model
+            self.rt = rt or RuntimeConfig()
+            self.specs = list(specs) if specs is not None else None
+            if self._refresh_on() and not cfg.gather_stats:
+                raise ValueError("model refresh needs cfg.gather_stats=True "
+                                 "(the carry must accumulate observations)")
+            if self._refresh_on() and self.specs is None:
+                raise ValueError("model refresh needs the PatternSpec list")
+            if self._refresh_on():
+                # Refresh must never change array shapes mid-stream: widen
+                # the utility tables to refresh width up front.
+                self.model = RF.prepare_model(self.specs, self.model,
+                                              self.rt.refresh)
+            if carry is None:
+                with spans.span("runtime.init_carry", n=self._n_lanes()):
+                    carry = self._init_carry(seed)
+            self.carry = carry
+            check_on(self.device, active=self.carry.pms.active,
+                     sim_time=self.carry.sim_time)
+            self.telemetry = TM.TelemetryLog()
+            self.refresh_state = self._refresh_states()
+            self._buf = chunker.ChunkBuffer(self.rt.chunk_size,
+                                            axis=self._axis)
+            self._chunk_i = 0
+            self.events_processed = 0
+            self._snapshot: dict[str, float] | None = None
+            self._init_resilience()
 
     # -- what the lane runtime overrides ------------------------------------
     def _init_carry(self, seed: int) -> eng.Carry:
@@ -683,13 +698,14 @@ class StreamRuntime:
         write-ahead log BEFORE any processing — admission included — so
         a crash mid-push replays the whole push through this same path
         and re-derives every decision (DESIGN.md §13)."""
-        if self.persist is not None and not self._replaying:
-            self.persist.wal.append(events)
-        stats = self._ingest_events(events)
-        if flush:
-            stats += self.flush()
-        if self.persist is not None and not self._replaying:
-            self._maybe_snapshot()
+        with spans.span("runtime.push"):
+            if self.persist is not None and not self._replaying:
+                self.persist.wal.append(events)
+            stats = self._ingest_events(events)
+            if flush:
+                stats += self.flush()
+            if self.persist is not None and not self._replaying:
+                self._maybe_snapshot()
         return stats
 
     def _ingest_events(self, events: eng.EventBatch) -> list[TM.ChunkStats]:
@@ -762,59 +778,65 @@ class StreamRuntime:
 
     def _run_group(self, start: int, piece: eng.EventBatch,
                    g: int) -> list[TM.ChunkStats]:
-        before = self._snapshot or TM.counter_snapshot(self.carry)
         cs, n_lanes = self.rt.chunk_size, self._n_lanes()
-        eng._check_inputs(self.device, self.model, piece, self.carry)
-        t0 = time.perf_counter()
-        self.carry, vecs = self._group(self.cfg, self.model, piece,
-                                       self.carry, start, g)
-        vecs = vecs.cpu().numpy()              # ONE transfer for g chunks
-        wall = time.perf_counter() - t0
-        FT.kill_point("chunk")
-        out = []
-        for b in range(g):
-            self._chunk_i += 1
-            out.append(TM.summarize_chunk(
-                self._chunk_i - 1, start + b * cs, n_lanes * cs, n_lanes,
-                vecs[b], before, wall / g))
-            before = TM.counters_from_vec(vecs[b])
-        # g never crosses a refresh boundary, so at most the LAST chunk of
-        # the group lands on one.
-        t1 = time.perf_counter()
-        out[-1].refreshed = self._maybe_refresh()
-        out[-1].refresh_wall_s = time.perf_counter() - t1
-        self._snapshot = before
-        for s in out:
-            self.telemetry.append(s)
-            self.events_processed += s.n_events
-        self._event_cursor = start + g * cs
-        self._after_chunk(out)
+        with spans.span("runtime.chunk", n=n_lanes * g * cs):
+            before = self._snapshot or TM.counter_snapshot(self.carry)
+            eng._check_inputs(self.device, self.model, piece, self.carry)
+            with spans.span("runtime.run") as run:
+                self.carry, vecs = self._group(self.cfg, self.model, piece,
+                                               self.carry, start, g)
+                vecs = _to_host(vecs)          # ONE transfer for g chunks
+            FT.kill_point("chunk")
+            self._chunk_i += g
+            # g never crosses a refresh boundary, so at most the LAST chunk
+            # of the group lands on one.
+            with spans.span("runtime.refresh") as refresh:
+                refreshed = self._maybe_refresh()
+            with spans.span("runtime.summarize"):
+                out = []
+                for b in range(g):
+                    out.append(TM.summarize_chunk(
+                        self._chunk_i - g + b, start + b * cs, n_lanes * cs,
+                        n_lanes, vecs[b], before, run.seconds / g))
+                    before = TM.counters_from_vec(vecs[b])
+                out[-1].refreshed = refreshed
+                out[-1].refresh_wall_s = refresh.seconds
+                self._snapshot = before
+                for s in out:
+                    self.telemetry.append(s)
+                    self.events_processed += s.n_events
+                self._event_cursor = start + g * cs
+                self._after_chunk(out)
         return out
 
     def _run_piece(self, start: int, chunk: eng.EventBatch) -> TM.ChunkStats:
-        # The previous chunk's stats vector doubles as this chunk's
-        # counter baseline (refresh never touches the counters), so the
-        # steady state costs exactly ONE device→host transfer per chunk.
-        before = self._snapshot or TM.counter_snapshot(self.carry)
         n = chunker.num_events(chunk, self._axis)
         n_lanes = self._n_lanes()
-        t0 = time.perf_counter()
-        self.carry, outs = self._run(chunk, start)
-        vec = TM.device_chunk_stats(outs, self.carry).cpu().numpy()
-        wall = time.perf_counter() - t0
-        FT.kill_point("chunk")
-        self._chunk_i += 1
-        t1 = time.perf_counter()
-        refreshed = self._maybe_refresh()
-        refresh_wall = time.perf_counter() - t1
-        stats = TM.summarize_chunk(
-            self._chunk_i - 1, start, n_lanes * n, n_lanes, vec, before,
-            wall, refreshed=refreshed, refresh_wall_s=refresh_wall)
-        self._snapshot = TM.counters_from_vec(vec)
-        self.telemetry.append(stats)
-        self.events_processed += stats.n_events
-        self._event_cursor = start + n
-        self._after_chunk([stats])
+        with spans.span("runtime.chunk", n=n_lanes * n):
+            # The previous chunk's stats vector doubles as this chunk's
+            # counter baseline (refresh never touches the counters), so
+            # the steady state costs exactly ONE device→host transfer per
+            # chunk.
+            before = self._snapshot or TM.counter_snapshot(self.carry)
+            with spans.span("runtime.run") as run:
+                self.carry, outs = self._run(chunk, start)
+                with spans.span("runtime.chunk_stats"):
+                    vec = TM.device_chunk_stats(outs, self.carry)
+                vec = _to_host(vec)
+            FT.kill_point("chunk")
+            self._chunk_i += 1
+            with spans.span("runtime.refresh") as refresh:
+                refreshed = self._maybe_refresh()
+            with spans.span("runtime.summarize"):
+                stats = TM.summarize_chunk(
+                    self._chunk_i - 1, start, n_lanes * n, n_lanes, vec,
+                    before, run.seconds, refreshed=refreshed,
+                    refresh_wall_s=refresh.seconds)
+                self._snapshot = TM.counters_from_vec(vec)
+                self.telemetry.append(stats)
+                self.events_processed += stats.n_events
+                self._event_cursor = start + n
+                self._after_chunk([stats])
         return stats
 
 

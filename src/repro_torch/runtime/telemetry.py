@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import fp
+from repro_torch import fp, spans
 from repro_torch.cep.engine import Carry, StepOut
 
 # Carry accumulator scalars differenced per chunk.
@@ -39,20 +39,26 @@ def counter_snapshot(carry: Carry) -> dict[str, float]:
     """Host copies of the carry's scalar counters (+ total completions),
     summed over lanes.  Used once per stream for the first chunk's
     baseline; steady-state chunks reuse the counter tail of the previous
-    ``device_chunk_stats`` vector instead."""
-    snap = {k: float(getattr(carry, k).cpu().numpy().sum())
-            for k in _COUNTERS}
-    snap["complex_count"] = float(carry.complex_count.cpu().numpy().sum())
-    return snap
+    ``device_chunk_stats`` vector instead.  The reads are one
+    ``runtime.to_host`` span (n = bytes)."""
+    ts = {k: getattr(carry, k) for k in _COUNTERS + ("complex_count",)}
+    with spans.span("runtime.to_host", n=sum(
+            t.numel() * t.element_size() for t in ts.values())):
+        return {k: float(t.cpu().numpy().sum()) for k, t in ts.items()}
 
 
 def quantiles(x: torch.Tensor, qs=_QUANTILES) -> torch.Tensor:
     """``jnp.quantile(x, qs)`` (linear) of a 1-D float32 tensor, bit for
-    bit; NaN when x holds a NaN."""
+    bit; NaN when x holds a NaN.  Its two copies of host values to the
+    device wait for the device's stream: each is a ``runtime.to_device``
+    span (n = bytes)."""
     a = torch.sort(x).values
-    n1 = torch.tensor(float(x.shape[0] - 1), dtype=torch.float32,
-                      device=x.device)
-    q = torch.tensor(qs, dtype=torch.float32, device=x.device) * n1
+    with spans.span("runtime.to_device", n=4):
+        n1 = torch.tensor(float(x.shape[0] - 1), dtype=torch.float32,
+                          device=x.device)
+    with spans.span("runtime.to_device", n=4 * len(qs)):
+        q = torch.tensor(qs, dtype=torch.float32, device=x.device)
+    q = q * n1
     low, high = torch.floor(q), torch.ceil(q)
     hw = q - low
     lw = 1.0 - hw
@@ -98,7 +104,7 @@ class ChunkStats:
     start: int                  # global index of the chunk's first event
     n_events: int               # events processed (all lanes)
     n_lanes: int
-    wall_s: float
+    wall_s: float               # a span's seconds: wall clock, may step
     events_per_s: float
     l_e_p50: float
     l_e_p99: float

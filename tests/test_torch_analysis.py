@@ -243,18 +243,6 @@ class TestMutationRetrace:
             assert cc.compiles(_build.load) == 1
             assert cc.compiles(_build.build) == 0
 
-    def test_count_traces_counts_calls(self):
-        T.reset_trace_counts()
-
-        @T.count_traces("test.body")
-        def body(x):
-            return x * 2
-
-        for _ in range(3):
-            body(torch.zeros(4))
-        assert T.trace_counts()["test.body"] == 3
-        assert body.__wrapped__(1) == 2
-
     def test_sweep_has_no_rebuild(self, sweep):
         rows = [r for r in sweep["rows"] if r["rule"] == "retrace"]
         names = {r["evidence"].split(":")[0] for r in rows}
